@@ -22,13 +22,31 @@ struct SpatialGrid {
     int rows;
 };
 
+// Makes `device` current for a launch and restores the caller's device
+// after it, so the wrapper needs no torch.cuda.device context. Costs two
+// runtime calls when the device already is current.
+struct DeviceGuard {
+    int previous = -1;
+    cudaError_t error = cudaSuccess;
+    explicit DeviceGuard(int device) {
+        error = cudaGetDevice(&previous);
+        if (error == cudaSuccess && previous != device) error = cudaSetDevice(device);
+        if (previous == device) previous = -1;
+    }
+    ~DeviceGuard() {
+        if (previous >= 0) cudaSetDevice(previous);
+    }
+};
+
 extern "C" const char* chtpu_error_string(int code) {
     return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-static inline int chtpu_sm_count() {
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    return sms > 0 ? sms : 1;
+// What the wrappers cache per device: SM count and the largest dynamic
+// shared memory a block may opt in to, in bytes.
+extern "C" int chtpu_device_info(int device, int* sms, int* smem_optin_bytes) {
+    cudaError_t err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaDeviceGetAttribute(
+        smem_optin_bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
 }

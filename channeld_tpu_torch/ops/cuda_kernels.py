@@ -9,7 +9,9 @@ the JAX package's only two TPU kernels. Each kernel here has:
 - a wrapper that checks device, dtype, shape and contiguity, launches
   the kernel on PyTorch's current stream for CUDA tensors (raising if
   the launch fails, never falling back), and takes the plain version
-  only for CPU tensors;
+  only for CPU tensors; for CUDA tensors it runs a ``Launch`` from its
+  ``prepare_*`` function (the bare C entry with its arguments, which
+  chip_smoke.py also times back to back);
 - a plain PyTorch version (``*_plain``), used by the CPU path and held
   against the kernel on the card;
 - a launch count, ``<wrapper>.launches``, a plain integer raised by one
@@ -27,13 +29,14 @@ imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -43,7 +46,6 @@ from .spatial_ops import (
     apply_spots_overlay,
     assign_cells,
     cell_counts,
-    diagonal,
     num_cells,
     reciprocal,
 )
@@ -74,12 +76,12 @@ KERNEL_SPECS = (
     KernelSpec(
         "assign_count", "assign_count.cu",
         "channeld_tpu/ops/pallas_kernels.py:33", "chtpu_assign_count",
-        (_P, _P, _I, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _I, _P),
+        (_P, _P, _I, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _I, _I, _I, _P),
     ),
     KernelSpec(
         "aoi", "aoi.cu",
         "channeld_tpu/ops/pallas_kernels.py:109", "chtpu_aoi",
-        (_P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _I, _I, _F, _I, _I, _P, _P, _P),
+        (_P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _I, _I, _F, _I, _I, _P, _P, _I, _P),
     ),
 )
 
@@ -145,9 +147,8 @@ def build() -> dict[str, str]:
             fn.restype = ctypes.c_int
             lib.chtpu_error_string.argtypes = [ctypes.c_int]
             lib.chtpu_error_string.restype = ctypes.c_char_p
-            if spec.name == "assign_count":
-                lib.chtpu_smem_optin_bytes.argtypes = [ctypes.POINTER(ctypes.c_int)]
-                lib.chtpu_smem_optin_bytes.restype = ctypes.c_int
+            lib.chtpu_device_info.argtypes = [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+            lib.chtpu_device_info.restype = _I
             _libs[spec.name] = lib
         return logs
 
@@ -162,6 +163,28 @@ def _check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
     if err != 0:
         msg = lib.chtpu_error_string(err).decode(errors="replace")
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({err})")
+
+
+class Launch(NamedTuple):
+    """One prepared kernel launch: the bare C entry, its arguments, and
+    the outputs it writes. ``run()`` launches once on the stream that was
+    current when it was prepared and raises if the launch fails; the
+    wrappers run it once, chip_smoke.py runs it back to back to time the
+    kernel without the wrapper between launches (a second run does the
+    same work again; K1's counts then hold the sum of both runs, so only
+    a wrapper's single run gives counts to use)."""
+
+    name: str
+    lib: ctypes.CDLL
+    fn: Callable[..., int]
+    args: tuple
+    outputs: tuple
+    launched: Optional[Callable[[], None]] = None  # bookkeeping after a launch
+
+    def run(self) -> None:
+        _check_launch(self.lib, self.name, self.fn(*self.args))
+        if self.launched is not None:
+            self.launched()
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
@@ -182,10 +205,24 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
 
 
 def _grid_args(grid) -> tuple:
-    """The grid as the kernels take it (csrc/common.cuh SpatialGrid)."""
-    return (float(grid.offset_x), float(grid.offset_z), float(grid.cell_w),
-            float(grid.cell_h), reciprocal(grid.cell_w), reciprocal(grid.cell_h),
-            int(grid.cols), int(grid.rows))
+    """The grid as the kernels take it (csrc/common.cuh SpatialGrid),
+    followed by the float32 reciprocal of the cell diagonal."""
+    return _grid_args_of(float(grid.offset_x), float(grid.offset_z), float(grid.cell_w),
+                         float(grid.cell_h), int(grid.cols), int(grid.rows))
+
+
+@functools.lru_cache(maxsize=64)
+def _grid_args_of(offset_x, offset_z, cell_w, cell_h, cols, rows) -> tuple:
+    diag = float((cell_w**2 + cell_h**2) ** 0.5)
+    return (offset_x, offset_z, cell_w, cell_h, reciprocal(cell_w), reciprocal(cell_h),
+            cols, rows, reciprocal(diag))
+
+
+def _current_stream(device: torch.device) -> int:
+    """The raw handle of PyTorch's current stream on a CUDA device (what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without
+    building a Stream object per launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _device_kind(device: torch.device) -> str:
@@ -194,27 +231,50 @@ def _device_kind(device: torch.device) -> str:
     return device.type
 
 
-# ---- K1: fused cell assignment + occupancy histogram ---------------------
-
-_smem_optin: dict[int, int] = {}
+_device_info: dict[int, tuple[int, int]] = {}
 
 
-def smem_optin_bytes(device: torch.device) -> int:
-    """Largest shared memory one block may opt in to on ``device``."""
+def device_info(device: torch.device) -> tuple[int, int]:
+    """(SM count, largest shared memory one block may opt in to) of a
+    CUDA device, queried once per device and passed to every launch."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _smem_optin:
+    if index not in _device_info:
         lib = _lib("assign_count")
-        out = ctypes.c_int(0)
-        with torch.cuda.device(index):
-            _check_launch(lib, "smem query", lib.chtpu_smem_optin_bytes(ctypes.byref(out)))
-        _smem_optin[index] = out.value
-    return _smem_optin[index]
+        sms, smem = _I(0), _I(0)
+        _check_launch(lib, "device query",
+                      lib.chtpu_device_info(index, ctypes.byref(sms), ctypes.byref(smem)))
+        _device_info[index] = (sms.value, smem.value)
+    return _device_info[index]
+
+
+# ---- K1: fused cell assignment + occupancy histogram ---------------------
 
 
 def uses_shared_histogram(grid, device: torch.device) -> bool:
-    """Whether K1 keeps its per-block histogram in shared memory (else it
+    """Whether K1 keeps a per-block histogram in shared memory (else it
     adds straight to the global counts): the bins must fit a block."""
-    return 4 * num_cells(grid) <= smem_optin_bytes(device)
+    return 4 * num_cells(grid) <= device_info(device)[1]
+
+
+# K1's counts buffers, one per (device index, raw stream handle, bins):
+# each is zero on the device once the launch that zeroed it has run, and
+# only launches on that stream are ordered after it.
+_zeroed: dict[tuple[int, int, int], torch.Tensor] = {}
+
+
+def _counts_pair(device: torch.device, stream: int, bins: int):
+    """(counts, next, done) for K1's next launch on ``stream``. ``counts``
+    is zero: the previous launch on this stream zeroed it, or it is made
+    with torch.zeros (the first launch of a stream and bin count, or the
+    one after a launch that failed). ``next`` is new, and the launch
+    zeroes it for the launch after; ``done()``, called once the launch
+    has been queued, hands it on."""
+    key = (device.index, stream, bins)
+    counts = _zeroed.pop(key, None)
+    if counts is None:
+        counts = torch.zeros(bins, dtype=torch.int32, device=device)
+    nxt = torch.empty(bins, dtype=torch.int32, device=device)
+    return counts, nxt, lambda: _zeroed.__setitem__(key, nxt)
 
 
 def assign_and_count_plain(grid, positions: torch.Tensor, valid: torch.Tensor):
@@ -227,33 +287,50 @@ def assign_and_count(grid, positions: torch.Tensor, valid: torch.Tensor):
     """Fused cell assignment + occupancy histogram.
 
     positions f32[N,3], valid bool[N] -> (cell_of i32[N], counts i32[C]).
-    The CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    The CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+
+    On CUDA the kernel adds into a ``counts`` buffer that the previous
+    launch on the same stream zeroed (so no zero-fill is launched), and
+    zeroes the buffer of the next. That holds because every launch on a
+    stream goes through this wrapper, in stream order, once each. So:
+    raises under CUDA-graph capture (a replay would add to the counts of
+    the last one); the returned ``counts`` belongs to the caller; a raw
+    stream handle must not be reused by another stream while its last
+    launch may be pending (PyTorch's own streams never are)."""
     dev = positions.device
     n = positions.shape[0] if positions.dim() == 2 else -1
     _check(positions, "positions", torch.float32, (None, 3), dev)
     _check(valid, "valid", torch.bool, (n,), dev)
     if _device_kind(dev) == "cpu":
         return assign_and_count_plain(grid, positions, valid)
-    c = num_cells(grid)
-    if n >= 2**31 or c >= 2**24:
-        raise ValueError(f"{n} slots x {c} cells exceeds the kernel's int32 indexing")
-    lib = _lib("assign_count")
-    shared = uses_shared_histogram(grid, dev)
-    cell_of = torch.empty(n, dtype=torch.int32, device=dev)
-    counts = torch.zeros(c, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.chtpu_assign_count(
-            positions.data_ptr(), valid.data_ptr(), n,
-            *_grid_args(grid),
-            cell_of.data_ptr(), counts.data_ptr(), int(shared),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _check_launch(lib, "assign_count", err)
+    launch = prepare_assign_count(grid, positions, valid)
+    launch.run()
     assign_and_count.launches += 1
-    return cell_of, counts
+    return launch.outputs
 
 
 assign_and_count.launches = 0
+
+
+def prepare_assign_count(grid, positions: torch.Tensor, valid: torch.Tensor) -> Launch:
+    """K1's launch on CUDA tensors that ``assign_and_count`` has checked:
+    allocates (cell_of, counts) and returns the bare launch. Raises under
+    CUDA-graph capture (see ``assign_and_count``)."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("assign_and_count cannot be captured in a CUDA graph: each "
+                           "launch takes counts that the previous launch zeroed")
+    dev = positions.device
+    n, c = positions.shape[0], num_cells(grid)
+    if n >= 2**31 or c >= 2**24:
+        raise ValueError(f"{n} slots x {c} cells exceeds the kernel's int32 indexing")
+    lib = _lib("assign_count")
+    stream = _current_stream(dev)
+    counts, nxt, done = _counts_pair(dev, stream, c)
+    cell_of = torch.empty(n, dtype=torch.int32, device=dev)
+    args = (positions.data_ptr(), valid.data_ptr(), n, *_grid_args(grid)[:8],
+            cell_of.data_ptr(), counts.data_ptr(), nxt.data_ptr(),
+            int(uses_shared_histogram(grid, dev)), device_info(dev)[0], dev.index, stream)
+    return Launch("assign_count", lib, lib.chtpu_assign_count, args, (cell_of, counts), done)
 
 
 # ---- K2: AOI interest + damping distance ---------------------------------
@@ -268,6 +345,31 @@ def aoi_tile_plain(grid, kind, center, extent, direction, cos_angle,
     ids = torch.arange(cell_base, cell_base + cell_count, dtype=torch.int32,
                        device=kind.device)
     return aoi_geometry(grid, kind, center, extent, direction, cos_angle, ids)
+
+
+def sqrt_threshold(r: torch.Tensor) -> torch.Tensor:
+    """The torch twin of ``sqrt_threshold`` in csrc/aoi.cu: per element,
+    the largest float32 s with sqrt(s) <= r (IEEE sqrt, monotone), so
+    that (sqrt(s) <= r) == (s <= sqrt_threshold(r)) for every s >= 0 and
+    every NaN s. NaN and +inf give themselves, r < 0 gives -1 (nothing
+    passes). K2 tests a sphere or cone against it instead of taking a
+    root of the rectangle distance."""
+    r = r.to(torch.float32)
+    inf = torch.full_like(r, float("inf"))
+    search = (r >= 0) & (r < inf)
+    t = r * r  # within an ulp or two of the answer
+    while True:
+        down = search & (t > 0) & (torch.sqrt(t) > r)
+        if not bool(down.any()):
+            break
+        t = torch.where(down, torch.nextafter(t, torch.zeros_like(t)), t)
+    while True:
+        up = torch.nextafter(t, inf)
+        step = search & (torch.sqrt(up) <= r)
+        if not bool(step.any()):
+            break
+        t = torch.where(step, up, t)
+    return torch.where(search, t, torch.where(r < 0, -1.0, r))
 
 
 def aoi_tile(grid, kind, center, extent, direction, cos_angle,
@@ -291,25 +393,30 @@ def aoi_tile(grid, kind, center, extent, direction, cos_angle,
     if _device_kind(dev) == "cpu":
         return aoi_tile_plain(grid, kind, center, extent, direction, cos_angle,
                               cell_base, cell_count)
-    if q >= 8 * 65535:
-        raise ValueError(f"{q} queries exceed the kernel's launch grid")
-    lib = _lib("aoi")
-    hit = torch.empty((q, cell_count), dtype=torch.bool, device=dev)
-    dist = torch.empty((q, cell_count), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.chtpu_aoi(
-            kind.data_ptr(), center.data_ptr(), extent.data_ptr(),
-            direction.data_ptr(), cos_angle.data_ptr(), q,
-            *_grid_args(grid), reciprocal(diagonal(grid)),
-            cell_base, cell_count, hit.data_ptr(), dist.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _check_launch(lib, "aoi", err)
+    launch = prepare_aoi(grid, kind, center, extent, direction, cos_angle,
+                         cell_base, cell_count)
+    launch.run()
     aoi_tile.launches += 1
-    return hit, dist
+    return launch.outputs
 
 
 aoi_tile.launches = 0
+
+
+def prepare_aoi(grid, kind, center, extent, direction, cos_angle,
+                cell_base: int, cell_count: int) -> Launch:
+    """K2's launch on CUDA tensors that ``aoi_tile`` has checked:
+    allocates (hit, dist) and returns the bare launch."""
+    dev = kind.device
+    q = kind.shape[0]
+    lib = _lib("aoi")
+    hit = torch.empty((q, cell_count), dtype=torch.bool, device=dev)
+    dist = torch.empty((q, cell_count), dtype=torch.int32, device=dev)
+    args = (kind.data_ptr(), center.data_ptr(), extent.data_ptr(), direction.data_ptr(),
+            cos_angle.data_ptr(), q, *_grid_args(grid), cell_base, cell_count,
+            hit.data_ptr(), dist.data_ptr(), dev.index,
+            _current_stream(dev))
+    return Launch("aoi", lib, lib.chtpu_aoi, args, (hit, dist))
 
 
 def aoi_masks_cuda(grid, queries: QuerySet):

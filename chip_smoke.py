@@ -10,12 +10,19 @@ prints one line; any failure exits non-zero before the final line):
 1. device: the card's name and ``nvidia-smi`` name/power limit;
 2. build: both kernels from ``channeld_tpu_torch/ops/csrc`` (one nvcc
    each, started together), with the build time and ptxas's report;
-3. kernel parity on the card, exact: the assign+count kernel (K1) at
-   131,072 slots on the 15x15 grid (shared-memory histogram) and on a
-   256x256 grid (global-atomic path), with NaN, ±inf, 1e20, invalid and
-   cell-boundary positions; the AOI kernel (K2) at 4,096 mixed queries on
-   15x15 and 1,024 on 256x256. Each against its plain PyTorch version
-   on the same inputs, with median times and the roofline bound;
+3. kernel parity on the card, exact, each kernel against its plain
+   PyTorch version on the same inputs: the assign+count kernel (K1) at
+   131,072 slots on the 15x15 grid (shared-memory histograms), on a
+   crowd (half the slots in one cell) and at 1,048,576 slots, and at
+   131,072 on a 256x256 grid (global atomics), uniform and crowded,
+   with NaN, ±inf, 1e20, invalid and cell-boundary positions; the AOI
+   kernel (K2) at 4,096 mixed queries on 15x15 and 1,024 on 256x256,
+   with zero, negative, NaN and inf extents, and on blocks of cell ids.
+   Times: the kernel alone (bare C launches queued back to back, CUDA
+   events, beside torch.profiler's figure), the wrapper call, the plain
+   version, the roofline bound, and K2's write floor (filling its
+   1,024 x 65,536 outputs). It also checks that a K1 call runs one
+   kernel and no zero-fill;
 4. the main path at deployment size: the sidecar's decision pass
    (``SpatialDecisionServicer.install``/``decide``, the code behind
    Configure/Step) on ``cuda`` at the sidecar's default capacities
@@ -32,7 +39,8 @@ prints one line; any failure exits non-zero before the final line):
    ``cuda`` (otherwise says it was not run).
 
 The line before the last is a JSON object with one entry per kernel
-(times measured in this run; bound from this run's shapes); the last
+(times measured in this run; bound from this run's shapes; ``ms`` is
+the kernel alone by events, ``call_ms`` one wrapper call); the last
 line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -52,15 +60,25 @@ import torch
 SEED = 20261017
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM float32, outside the tensor cores
-# Float operations per (query, cell) pair in the AOI kernel: cell centre
-# (6), deltas and gaps (8), two squared norms and roots (8), cone cosine
-# (5), box/sphere/cone tests (6), distance (3), ~36; counted as 40.
-AOI_OPS_PER_PAIR = 40
+# Float operations the AOI function needs per (query, cell) pair once its
+# per-axis terms are formed: two sums, a root, the scaling, a ceiling
+# and the tests (~8); and per (query, column) or (query, row): centre,
+# delta, gap, three products and the box test (~12).
+AOI_OPS_PER_PAIR = 8
+AOI_OPS_PER_AXIS = 12
 ASSIGN_OPS_PER_SLOT = 10  # 2 sub, 2 div, 2 floor, 4 compares
 BENCH_GRID = dict(offset_x=-15000.0, offset_z=-15000.0, cell_w=2000.0,
                   cell_h=2000.0, cols=15, rows=15)
 WIDE_GRID = dict(offset_x=-25600.0, offset_z=-25600.0, cell_w=200.0,
                  cell_h=200.0, cols=256, rows=256)
+# Phase 3's shapes: (label, grid, slots or queries, input). The first of
+# each kernel is the main path's shape, which the JSON line reports.
+K1_CASES = (("15x15", BENCH_GRID, 1 << 17, "uniform"),
+            ("15x15 crowd", BENCH_GRID, 1 << 17, "crowd"),
+            ("15x15 1M", BENCH_GRID, 1 << 20, "uniform"),
+            ("256x256", WIDE_GRID, 1 << 17, "uniform"),
+            ("256x256 crowd", WIDE_GRID, 1 << 17, "crowd"))
+K2_CASES = (("15x15", BENCH_GRID, 4096), ("256x256", WIDE_GRID, 1024))
 
 
 class PhaseFailed(Exception):
@@ -95,9 +113,35 @@ def median_ms(fn, reps: int = 100, warmup: int = 10) -> float:
     return statistics.median(times)
 
 
-def kernel_device_ms(fn, name_part: str, reps: int = 20):
-    """Device time of the kernels whose name contains ``name_part`` per
-    call, from a torch.profiler CUDA trace (None if it records none)."""
+def queued_ms(fn, reps: int = 200) -> float:
+    """Device time per call of ``reps`` calls run back to back: the calls
+    are queued behind a sleeping kernel, so the device runs them with no
+    host time between them, and CUDA events around the run divide by
+    ``reps``. Retries with a longer sleep if the host had not queued them
+    all before the sleep ended."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        ahead = not start.query()  # the sleep still ran: all calls were queued
+        end.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise PhaseFailed("the host could not queue the calls ahead of the device")
+
+
+def device_kernels(fn, reps: int = 20) -> dict:
+    """{kernel name: (device ms per call, launches per call)} of the
+    device kernels ``fn`` runs, from a torch.profiler CUDA trace ({} if
+    it records none)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -106,11 +150,23 @@ def kernel_device_ms(fn, name_part: str, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(
-        getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
-        for e in prof.key_averages() if name_part in e.key
-    )
-    return total_us / reps / 1e3 if total_us else None
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+        if us > 0:
+            out[e.key] = (us / reps / 1e3, e.count / reps)
+    return out
+
+
+def kernel_device_ms(fn, name_part: str, reps: int = 20):
+    """Device time per call of the kernels whose name contains
+    ``name_part``, from torch.profiler (None if three traces record
+    none: a trace has come back without a kernel's events)."""
+    for _ in range(3):
+        ms = sum(t for k, (t, _) in device_kernels(fn, reps).items() if name_part in k)
+        if ms:
+            return ms
+    return None
 
 
 def bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
@@ -122,9 +178,10 @@ def bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
 # ---- inputs -----------------------------------------------------------------
 
 
-def entity_inputs(grid, n: int, rng: np.random.Generator, device):
+def entity_inputs(grid, n: int, rng: np.random.Generator, device, crowd: bool = False):
     """Positions over the grid and a margin around it, a quarter exactly
-    on cell boundaries, plus NaN/±inf/1e20 rows and invalid slots."""
+    on cell boundaries, plus NaN/±inf/1e20 rows and invalid slots. A
+    crowd puts half of the slots, valid, inside one cell."""
     lo_x, lo_z = grid.offset_x - grid.cell_w, grid.offset_z - grid.cell_h
     hi_x = grid.offset_x + grid.cell_w * (grid.cols + 1)
     hi_z = grid.offset_z + grid.cell_h * (grid.rows + 1)
@@ -138,10 +195,18 @@ def entity_inputs(grid, n: int, rng: np.random.Generator, device):
         pos[k + 8 * i: k + 8 * i + 4, 0] = v
         pos[k + 8 * i + 4: k + 8 * i + 8, 2] = v
     valid = rng.random(n) > 0.05
+    if crowd:
+        idx = rng.permutation(n)[: n // 2]
+        pos[idx, 0] = grid.offset_x + grid.cell_w * (7 + rng.random(idx.size))
+        pos[idx, 2] = grid.offset_z + grid.cell_h * (7 + rng.random(idx.size))
+        valid[idx] = True
     return (torch.from_numpy(pos).to(device), torch.from_numpy(valid).to(device))
 
 
 def query_inputs(grid, q: int, rng: np.random.Generator, device):
+    """Queries of every kind, a quarter centred on cell corners; an eighth
+    of the extents are 0, -0, negative, NaN, ±inf or a multiple of half
+    a cell."""
     kind = rng.integers(0, 5, q).astype(np.int32)  # NONE..SPOTS
     lo = grid.offset_x - grid.cell_w
     hi = grid.offset_x + grid.cell_w * (grid.cols + 1)
@@ -149,10 +214,32 @@ def query_inputs(grid, q: int, rng: np.random.Generator, device):
     center[: q // 4] = (grid.offset_x + rng.integers(
         -1, grid.cols + 1, (q // 4, 2)) * grid.cell_w).astype(np.float32)
     extent = rng.uniform(1.0, grid.cell_w * 4, (q, 2)).astype(np.float32)
+    odd = rng.random((q, 2)) < 0.125
+    extent[odd] = rng.choice(np.array(
+        [0.0, -0.0, -3.0, np.nan, np.inf, -np.inf, grid.cell_w * 0.5, grid.cell_w * 1.5],
+        np.float32), odd.sum())
     direction = rng.normal(size=(q, 2)).astype(np.float32)
     direction /= np.linalg.norm(direction, axis=1, keepdims=True)
     angle = rng.uniform(0.05, 1.5, q).astype(np.float32)
     return [torch.from_numpy(a).to(device) for a in (kind, center, extent, direction, angle)]
+
+
+def k1_cases(ops, dev):
+    """(label, grid, positions, valid) of each K1 case, seeded per case."""
+    for i, (label, gkw, n, what) in enumerate(K1_CASES):
+        grid = ops.GridSpec(**gkw)
+        rng = np.random.default_rng(SEED + 100 + i)
+        yield (label, grid, *entity_inputs(grid, n, rng, dev, crowd=what == "crowd"))
+
+
+def k2_cases(ops, dev):
+    """(label, grid, (kind, center, extent, direction, cos_angle)) of each
+    K2 case, seeded per case."""
+    for i, (label, gkw, q) in enumerate(K2_CASES):
+        grid = ops.GridSpec(**gkw)
+        rng = np.random.default_rng(SEED + 200 + i)
+        kind, center, extent, direction, angle = query_inputs(grid, q, rng, dev)
+        yield label, grid, (kind, center, extent, direction, torch.cos(angle))
 
 
 # ---- phases -----------------------------------------------------------------
@@ -188,13 +275,13 @@ def max_abs_diff(pairs) -> int:
 
 
 def phase_kernels(K, ops, dev) -> dict:
-    """Each kernel against its plain version on the card, exact; returns
-    the JSON entries (at the main path's shapes) without launches."""
-    rng = np.random.default_rng(SEED)
-    entries = {}
-    for label, gkw, n in (("15x15", BENCH_GRID, 1 << 17), ("256x256", WIDE_GRID, 1 << 17)):
-        grid = ops.GridSpec(**gkw)
-        pos, valid = entity_inputs(grid, n, rng, dev)
+    """Each kernel against its plain version on the card, exact, at every
+    case; times each (call, bare launches back to back by CUDA events,
+    torch.profiler, plain) beside its bound. Returns the JSON entries at
+    the main path's shapes, without launches."""
+    entries, alone = {}, {}
+    for label, grid, pos, valid in k1_cases(ops, dev):
+        n, c = pos.shape[0], grid.num_cells
         shared = K.uses_shared_histogram(grid, dev)
         cell_k, counts_k = K.assign_and_count(grid, pos, valid)
         cell_p, counts_p = K.assign_and_count_plain(grid, pos, valid)
@@ -202,51 +289,66 @@ def phase_kernels(K, ops, dev) -> dict:
         err = max_abs_diff([(cell_k, cell_p), (counts_k, counts_p)])
         check(err == 0, f"K1 {label}: kernel differs from plain (max |diff| {err})")
         check(int(counts_k.sum()) == int((cell_k >= 0).sum()), f"K1 {label}: counts do not add up")
+        check(shared == (grid.cols == 15), f"K1 {label}: wrong histogram path")
+        launch = K.prepare_assign_count(grid, pos, valid)
+        alone[label] = queued_ms(launch.run)
         ms = median_ms(lambda: K.assign_and_count(grid, pos, valid))
         plain = median_ms(lambda: K.assign_and_count_plain(grid, pos, valid))
-        dev_ms = kernel_device_ms(lambda: K.assign_and_count(grid, pos, valid),
-                                  "assign_count_kernel")
-        c = grid.num_cells
+        kernels = device_kernels(lambda: K.assign_and_count(grid, pos, valid))
+        prof_ms = sum(t for k, (t, _) in kernels.items() if "assign_count" in k) or None
+        if kernels:  # one launch per call, and no zero-fill before it
+            others = [k for k in kernels if "assign_count" not in k]
+            check(not others, f"K1 {label}: a call ran {kernels}")
         b, by = bound_ms(pos.numel() * 4 + valid.numel() + 4 * n + 4 * c,
                          ASSIGN_OPS_PER_SLOT * n)
         print(f"K1 assign_count {label} N={n} C={c} "
               f"{'shared-memory' if shared else 'global-atomic'} histogram: exact "
-              f"({int((cell_k >= 0).sum())} placed); call {ms:.4f} ms (kernel alone "
-              f"{fmt_ms(dev_ms)}), plain {plain:.4f} ms, bound {b:.5f} ms ({by})")
-        if label == "15x15":
-            check(shared, "K1 15x15 should use the shared-memory histogram")
-            entries["assign_count"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                           bound_ms=b, bound_by=by)
-        else:
-            check(not shared, "K1 256x256 should use the global-atomic path")
-    for label, gkw, q in (("15x15", BENCH_GRID, 4096), ("256x256", WIDE_GRID, 1024)):
-        grid = ops.GridSpec(**gkw)
-        kind, center, extent, direction, angle = query_inputs(grid, q, rng, dev)
-        cos_a = torch.cos(angle)
-        hit_k, dist_k = K.aoi_tile(grid, kind, center, extent, direction, cos_a)
-        hit_p, dist_p = K.aoi_tile_plain(grid, kind, center, extent, direction, cos_a)
+              f"({int((cell_k >= 0).sum())} placed; kernels of a call: "
+              f"{sorted(k.split('::')[-1][:28] for k in kernels) or 'not measured'}); "
+              f"alone {alone[label]:.4f} ms (events, bare launches; "
+              f"profiler {fmt_ms(prof_ms)}), call {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"bound {b:.5f} ms ({by})")
+        if "assign_count" not in entries:
+            entries["assign_count"] = dict(max_abs_err=err, ms=alone[label], call_ms=ms,
+                                           plain_ms=plain, bound_ms=b, bound_by=by)
+    print(f"K1 crowd / uniform at N=131072 (alone, events): 15x15 "
+          f"{alone['15x15 crowd'] / alone['15x15']:.3f}, 256x256 "
+          f"{alone['256x256 crowd'] / alone['256x256']:.3f}")
+    for label, grid, args in k2_cases(ops, dev):
+        q, c = args[0].shape[0], grid.num_cells
+        hit_k, dist_k = K.aoi_tile(grid, *args)
+        hit_p, dist_p = K.aoi_tile_plain(grid, *args)
         torch.cuda.synchronize()
         err = max_abs_diff([(hit_k, hit_p), (dist_k, dist_p)])
         check(err == 0, f"K2 {label}: kernel differs from plain (max |diff| {err})")
-        # A block of cell columns, as the cell-sharded plane would ask.
-        base, count = grid.num_cells // 3, grid.num_cells // 3
-        hb, db = K.aoi_tile(grid, kind, center, extent, direction, cos_a, base, count)
-        torch.cuda.synchronize()
-        check(torch.equal(hb, hit_p[:, base:base + count])
-              and torch.equal(db, dist_p[:, base:base + count]),
-              f"K2 {label}: cell block [{base}, +{count}) differs")
-        ms = median_ms(lambda: K.aoi_tile(grid, kind, center, extent, direction, cos_a))
-        plain = median_ms(lambda: K.aoi_tile_plain(grid, kind, center, extent, direction, cos_a))
-        dev_ms = kernel_device_ms(
-            lambda: K.aoi_tile(grid, kind, center, extent, direction, cos_a), "aoi_kernel")
-        c = grid.num_cells
-        b, by = bound_ms(q * (4 + 3 * 8 + 4) + q * c * 5, AOI_OPS_PER_PAIR * q * c)
-        print(f"K2 aoi {label} Q={q} C={c}: exact ({int(hit_k.sum())} hits); call "
-              f"{ms:.4f} ms (kernel alone {fmt_ms(dev_ms)}), plain {plain:.4f} ms, "
-              f"bound {b:.5f} ms ({by})")
-        if label == "15x15":
-            entries["aoi"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                  bound_ms=b, bound_by=by)
+        # Blocks of cell columns, as the cell-sharded plane would ask; the
+        # last one runs past the grid into padding ids.
+        for base, count in ((c // 3, c // 3), (c - 100, 164)):
+            hb, db = K.aoi_tile(grid, *args, base, count)
+            hp, dp = K.aoi_tile_plain(grid, *args, base, count)
+            torch.cuda.synchronize()
+            check(torch.equal(hb, hp) and torch.equal(db, dp),
+                  f"K2 {label}: cell block [{base}, +{count}) differs")
+        launch = K.prepare_aoi(grid, *args, 0, c)
+        alone[label] = queued_ms(launch.run, reps=200 if q * c < 1 << 24 else 40)
+        ms = median_ms(lambda: K.aoi_tile(grid, *args))
+        plain = median_ms(lambda: K.aoi_tile_plain(grid, *args), reps=20, warmup=2)
+        prof_ms = kernel_device_ms(lambda: K.aoi_tile(grid, *args), "aoi_kernel")
+        b, by = bound_ms(q * (4 + 3 * 8 + 4) + q * c * 5,
+                         AOI_OPS_PER_PAIR * q * c
+                         + AOI_OPS_PER_AXIS * q * (grid.cols + grid.rows))
+        print(f"K2 aoi {label} Q={q} C={c}: exact ({int(hit_k.sum())} hits, cell blocks "
+              f"exact); alone {alone[label]:.4f} ms (events, bare launches; profiler "
+              f"{fmt_ms(prof_ms)}), call {ms:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{b:.5f} ms ({by})")
+        if "aoi" not in entries:
+            entries["aoi"] = dict(max_abs_err=err, ms=alone[label], call_ms=ms,
+                                  plain_ms=plain, bound_ms=b, bound_by=by)
+        else:  # the write floor of this shape's outputs, a yardstick only
+            floor = queued_ms(lambda: (hit_k.fill_(0), dist_k.fill_(0)), reps=40)
+            print(f"K2 write floor {label}: hit.fill_(0) + dist.fill_(0) on "
+                  f"[{q},{c}] {floor:.4f} ms (events); kernel alone / floor "
+                  f"{alone[label] / floor:.3f}")
     return entries
 
 
@@ -445,12 +547,15 @@ def phase_main_path(K, service, dev, steps: int = 30) -> dict:
 def profile_window(servicer, load, first_step: int, n: int = 5) -> None:
     """Where a step's time goes: n more steps under torch.profiler,
     after the counted run. Prints device time per step (kernels and
-    copies), the device's idle share of the step, and the top kernels."""
+    copies), the device's idle share of the step, K1's kernels and the
+    fills of a tensor of the grid's bin count (what zeroing K1's counts
+    would be) per step, and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     reqs = [load.request(first_step + i) for i in range(n)]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
         for req in reqs:
             servicer.decide(req)
@@ -464,8 +569,16 @@ def profile_window(servicer, load, first_step: int, n: int = 5) -> None:
         print("profile: the trace recorded no device time (not measured)")
         return
     top = sorted(rows, key=lambda r: -r[1])[:6]
+    k1 = sum(c for k, _, c in rows if "assign_count" in k)
+    bins = int(servicer.engine.grid.cols) * int(servicer.engine.grid.rows)
+    fills = {str(e.input_shapes[:1]): e.count // n
+             for e in prof.key_averages(group_by_input_shape=True)
+             if e.key == "aten::fill_"}
+    bin_fills = sum(c for shape, c in fills.items() if shape == str([[bins]]))
     print(f"profile ({n} steps): step wall {wall_ms:.2f} ms, device busy {device_ms:.3f} ms "
-          f"per step, idle share {1 - device_ms / wall_ms:.4f}; top: " + "; ".join(
+          f"per step, idle share {1 - device_ms / wall_ms:.4f}; K1 kernels per step {k1}; "
+          f"fills of a [{bins}] tensor per step {bin_fills} (all fills by shape {fills}); "
+          f"top: " + "; ".join(
               f"{k[:48]} {ms:.3f} ms x{c}" for k, ms, c in top))
 
 

@@ -23,6 +23,7 @@ GRIDS = {
     "8x8": T.GridSpec(-400.0, -400.0, 100.0, 100.0, 8, 8),
     "15x15": T.GridSpec(-15000.0, -15000.0, 2000.0, 2000.0, 15, 15),
 }
+WIDE = T.GridSpec(-25600.0, -25600.0, 200.0, 200.0, 256, 256)
 
 
 def entity_inputs(grid, n, rng):
@@ -38,6 +39,75 @@ def entity_inputs(grid, n, rng):
         pos[k + 2 * i + 1, 2] = v
     valid = rng.random(n) > 0.1
     return pos, valid
+
+
+def crowd_inputs(grid, n, rng):
+    """Half of the slots in one cell (a town square, a raid), the rest
+    over the grid and its margin as in entity_inputs."""
+    pos, valid = entity_inputs(grid, n, rng)
+    crowd = rng.permutation(n)[: n // 2]
+    pos[crowd, 0] = grid.offset_x + grid.cell_w * (3 + rng.random(crowd.size))
+    pos[crowd, 2] = grid.offset_z + grid.cell_h * (5 + rng.random(crowd.size))
+    valid[crowd] = True
+    return pos, valid
+
+
+def edge_query_inputs(grid, q, rng):
+    """Boundary-heavy queries: a third centred on cell corners, some on
+    cell edges in one axis, and extents of 0, -0, negative, NaN and inf
+    on either axis (radius included), plus a few NaN/inf centres."""
+    kind, center, extent, direction, angle, _ = query_inputs(grid, q, rng)
+    kind[kind == T.AOI_SPOTS] = T.AOI_CONE
+    third = q // 3
+    center[third: 2 * third, 0] = (grid.offset_x + rng.integers(-1, grid.cols + 1, third)
+                                   * grid.cell_w).astype(np.float32)
+    special = np.array([0.0, -0.0, -5.0, np.nan, np.inf, -np.inf, 1e-40, 1e20],
+                       np.float32)
+    pick = rng.random((q, 2)) < 0.3
+    extent[pick] = rng.choice(special, pick.sum())
+    # Exact multiples of half a cell, so gaps and box reaches land on edges.
+    halves = rng.random((q, 2)) < 0.2
+    extent[halves] = (rng.integers(0, 8, halves.sum()) * grid.cell_w * 0.5).astype(np.float32)
+    odd = rng.choice(q, 4, replace=False)
+    center[odd] = np.array([[np.nan, 0.0], [0.0, np.inf], [-np.inf, 0.0], [1e20, -1e20]],
+                           np.float32)
+    return kind, center, extent, direction, angle
+
+
+def aoi_separable(grid, kind, center, extent, direction, cos_angle, cell_base, cell_count):
+    """K2's algorithm (csrc/aoi.cu) in torch: per-axis terms once per
+    (query, column) and (query, row), only the sums per pair, kind gating,
+    and the sphere/cone test as rect_s <= sqrt_threshold(radius) with no
+    root of the rectangle distance."""
+    ids = torch.arange(cell_base, cell_base + cell_count, dtype=torch.int64)
+    col, row = ids % grid.cols, ids // grid.cols
+    half_w, half_h = grid.cell_w * 0.5, grid.cell_h * 0.5
+
+    def axis(index, size, offset, half, qc, dirc, ext):
+        centre = (index.to(torch.float32) + 0.5) * size + offset
+        dd = qc[:, None] - centre[None, :]
+        d = dd.abs()
+        gap = torch.maximum(d - half, torch.zeros_like(d))
+        return dd * dd, gap * gap, (-dd) * dirc[:, None], d <= (ext + half)[:, None]
+
+    cols = torch.arange(grid.cols)
+    rows = torch.arange(int(row.max()) + 1)
+    d2x, g2x, px, bx = axis(cols, grid.cell_w, grid.offset_x, half_w, center[:, 0],
+                            direction[:, 0], extent[:, 0])
+    d2z, g2z, pz, bz = axis(rows, grid.cell_h, grid.offset_z, half_h, center[:, 1],
+                            direction[:, 1], extent[:, 1])
+    rect_s = g2x[:, col] + g2z[:, row]
+    center_dist = torch.sqrt(d2x[:, col] + d2z[:, row])
+    apex = rect_s <= 0.0
+    inside = rect_s <= K.sqrt_threshold(extent[:, 0])[:, None]
+    to_len = torch.maximum(center_dist, torch.full_like(center_dist, 1e-9))
+    in_angle = (px[:, col] + pz[:, row]) / to_len >= cos_angle[:, None]
+    k = kind[:, None]
+    hit = (((k == T.AOI_SPHERE) & inside) | ((k == T.AOI_BOX) & bx[:, col] & bz[:, row])
+           | ((k == T.AOI_CONE) & inside & (apex | in_angle)))
+    hit &= (ids < grid.num_cells)[None, :]
+    dist = T._f32_to_i32(torch.ceil(center_dist * T.reciprocal(grid.diagonal)))
+    return hit, torch.where(apex, 0, dist).to(torch.int32)
 
 
 def query_inputs(grid, q, rng):
@@ -72,6 +142,80 @@ def test_assign_count_plain_matches_tpu_kernel():
     assert np.array_equal(np.asarray(jc), tc.numpy())
     assert np.array_equal(np.asarray(jn), tn.numpy())
     assert tn.dtype == torch.int32 and int(tn.sum()) == int((tc >= 0).sum())
+
+
+def test_assign_count_crowd_matches_tpu_kernel():
+    """Half of the slots in one cell: the input that makes warp-aggregated
+    atomics matter on the card. The plain version and the TPU kernel
+    agree exactly, and the crowd's cell holds its half."""
+    import jax.numpy as jnp
+
+    from channeld_tpu.ops.pallas_kernels import assign_and_count_pallas
+
+    grid = GRIDS["15x15"]
+    pos, valid = crowd_inputs(grid, 6000, np.random.default_rng(21))
+    jc, jn = assign_and_count_pallas(grid, jnp.asarray(pos), jnp.asarray(valid),
+                                     interpret=True)
+    tc, tn = K.assign_and_count_plain(grid, torch.from_numpy(pos), torch.from_numpy(valid))
+    assert np.array_equal(np.asarray(jc), tc.numpy())
+    assert np.array_equal(np.asarray(jn), tn.numpy())
+    assert int(tn[3 + 5 * grid.cols]) >= 3000
+
+
+@pytest.mark.parametrize("ex", [0.0, -0.0, 1e-45, 3e-39, 1e-30, 1e-22, 1.0, 2000.0,
+                                1e19, 1.8446743e19, 3e38, np.inf, np.nan, -1.0])
+def test_sqrt_threshold_equals_the_root_test(ex):
+    """s <= sqrt_threshold(ex) equals sqrt(s) <= ex on every float s
+    within 64 ulps of the threshold (and of ex*ex, 0 and inf), NaN s
+    included."""
+    r = torch.tensor([ex], dtype=torch.float32)
+    t = K.sqrt_threshold(r)
+    with np.errstate(over="ignore"):
+        centres = [np.float32(ex) * np.float32(ex), np.float32(0.0),
+                   np.finfo(np.float32).max]
+    if np.isfinite(t.item()) and t.item() >= 0:
+        centres.append(np.float32(t.item()))
+    bits = np.concatenate([np.array([c], np.float32).view(np.int32) + np.arange(-64, 65)
+                           for c in centres if np.isfinite(c)])
+    bits = bits[(bits >= 0) & (bits <= 0x7F800000)]  # +0 .. +inf
+    s = torch.from_numpy(np.concatenate([bits.view(np.float32),
+                                         np.array([np.nan, np.inf], np.float32)]))
+    assert torch.equal(torch.sqrt(s) <= r, s <= t)
+    if ex == ex and ex >= 0 and ex != np.inf:
+        assert torch.sqrt(t) <= r  # the threshold itself passes
+
+
+@pytest.mark.parametrize("case", ["15x15", "256x256", "cell_block"])
+def test_separable_aoi_matches_plain_and_tpu_kernel(case):
+    """The separable, kind-gated algorithm the CUDA kernel runs, written
+    in torch, against the plain version (every hit and dist bit) and the
+    TPU kernel in interpret mode (every hit bit; dist where there is
+    interest, as above), on boundary-heavy queries with zero, negative,
+    NaN and inf extents. cos(angle) comes from XLA for all three."""
+    import jax
+    import jax.numpy as jnp
+
+    from channeld_tpu.ops import spatial_ops as J
+    from channeld_tpu.ops.pallas_kernels import _aoi_masks_pallas_geom
+
+    grid = WIDE if case == "256x256" else GRIDS["15x15"]
+    q = 12 if case == "256x256" else 61
+    kind, center, extent, direction, angle = edge_query_inputs(
+        grid, q, np.random.default_rng(17))
+    cos_a = np.array(jax.jit(jnp.cos)(jnp.asarray(angle)))
+    jh, jd = _aoi_masks_pallas_geom(J.GridSpec(*grid), tuple(map(jnp.asarray, (
+        kind, center, extent, direction, angle))), interpret=True)
+    jh, jd = np.asarray(jh).astype(bool), np.asarray(jd)
+    base, count = (70, 100) if case == "cell_block" else (0, grid.num_cells)
+    jh, jd = jh[:, base:base + count], jd[:, base:base + count]
+    args = [torch.from_numpy(a) for a in (kind, center, extent, direction, cos_a)]
+    mh, md = aoi_separable(grid, *args, base, count)
+    ph, pd = K.aoi_tile_plain(grid, *args, base, count)
+    assert torch.equal(mh, ph) and torch.equal(md, pd)
+    assert np.array_equal(mh.numpy(), jh)
+    assert np.array_equal(md.numpy()[jh], jd[jh])
+    for k in (T.AOI_SPHERE, T.AOI_BOX, T.AOI_CONE):  # every kind hits somewhere
+        assert jh[kind == k].any()
 
 
 @pytest.mark.parametrize("with_spots", [False, True])
@@ -123,6 +267,49 @@ def test_wrappers_take_the_plain_path_on_cpu_tensors():
     assert K.launch_counts() == {"assign_count": 0, "aoi": 0}
 
 
+class _FailingLib:
+    @staticmethod
+    def chtpu_error_string(code):
+        return b"launch failed"
+
+
+def test_k1_counts_buffers_follow_their_stream(monkeypatch):
+    """K1's zero-ahead counts: a launch takes the buffer that the last
+    launch on its own stream zeroed, never another stream's or another
+    bin count's, and after a launch that failed it takes a new zeroed
+    buffer, not the one the failed launch was to zero."""
+    monkeypatch.setattr(K, "_zeroed", {})
+    cpu = torch.device("cpu")
+    a, a_next, a_done = K._counts_pair(cpu, 11, 9)
+    assert torch.equal(a, torch.zeros(9, dtype=torch.int32))
+    a_done()
+    b, _, b_done = K._counts_pair(cpu, 22, 9)  # another stream
+    c, _, _ = K._counts_pair(cpu, 11, 16)  # another bin count
+    assert b is not a_next and c is not a_next
+    assert not b.any() and not c.any()
+    b_done()
+    again, again_next, again_done = K._counts_pair(cpu, 11, 9)
+    assert again is a_next  # zeroed on the device by the launch before
+    again_next.fill_(7)  # what a launch that never ran leaves behind
+    failed = K.Launch("assign_count", _FailingLib, lambda *args: 1, (), (), again_done)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        failed.run()
+    fresh, _, _ = K._counts_pair(cpu, 11, 9)
+    assert fresh is not again_next and not fresh.any()
+
+
+def test_k1_refuses_cuda_graph_capture(monkeypatch):
+    """Under CUDA-graph capture K1 raises before it takes a counts buffer:
+    a replay would add to the counts of the replay before."""
+    monkeypatch.setattr(K, "_zeroed", {})
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    grid = GRIDS["8x8"]
+    pos, valid = (torch.from_numpy(a) for a in entity_inputs(grid, 40, np.random.default_rng(8)))
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        K.prepare_assign_count(grid, pos, valid)
+    assert K._zeroed == {}
+
+
 def test_cell_block_is_a_slice_of_the_full_plane():
     grid = GRIDS["8x8"]
     kind, center, extent, direction, angle, _ = (
@@ -165,25 +352,42 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions_on_the_card():
     """Each CUDA kernel against its plain version on the same CUDA
-    tensors, exact, on both K1 histogram paths; the counts move once per
-    launch. Builds the kernels from the sources on first use."""
+    tensors, exact: K1 on both histogram paths (shared memory and global
+    atomics), on crowds, at 1,048,576 slots, with no slots, and twice in
+    a row (each launch zeroes the counts buffer of the next); K2 with
+    and without its shared column table, on edge extents and on cell
+    blocks (whole rows and not), one running past the grid. The counts move once per launch.
+    Builds the kernels from the sources on first use."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
     dev = torch.device("cuda", 0)
     K.reset_launch_counts()
     rng = np.random.default_rng(7)
-    wide = T.GridSpec(-25600.0, -25600.0, 200.0, 200.0, 256, 256)
-    for grid, shared in ((GRIDS["15x15"], True), (wide, False)):
+    long_grid = T.GridSpec(-2048.0, -100.0, 1.0, 50.0, 2048, 4)  # no column table
+    k1 = [(GRIDS["15x15"], True, entity_inputs(GRIDS["15x15"], 50_000, rng)),
+          (GRIDS["15x15"], True, crowd_inputs(GRIDS["15x15"], 50_000, rng)),
+          (GRIDS["15x15"], True, entity_inputs(GRIDS["15x15"], 1 << 20, rng)),
+          (GRIDS["15x15"], True, (np.zeros((0, 3), np.float32), np.zeros(0, bool))),
+          (WIDE, False, entity_inputs(WIDE, 50_000, rng)),
+          (WIDE, False, crowd_inputs(WIDE, 50_000, rng))]
+    for grid, shared, arrays in k1:
         assert K.uses_shared_histogram(grid, dev) is shared
-        pos, valid = (torch.from_numpy(a).to(dev) for a in entity_inputs(grid, 50_000, rng))
-        for a, b in zip(K.assign_and_count(grid, pos, valid),
-                        K.assign_and_count_plain(grid, pos, valid)):
-            assert torch.equal(a, b)
-        kind, center, extent, direction, angle, _ = (
-            torch.from_numpy(a).to(dev) for a in query_inputs(grid, 300, rng))
-        cos_a = torch.cos(angle)
-        for a, b in zip(K.aoi_tile(grid, kind, center, extent, direction, cos_a),
-                        K.aoi_tile_plain(grid, kind, center, extent, direction, cos_a)):
-            assert torch.equal(a, b)
+        pos, valid = (torch.from_numpy(a).to(dev) for a in arrays)
+        want = K.assign_and_count_plain(grid, pos, valid)
+        for _ in range(2):
+            for a, b in zip(K.assign_and_count(grid, pos, valid), want):
+                assert torch.equal(a, b)
+    for grid in (GRIDS["15x15"], WIDE, long_grid):
+        for make in (query_inputs, edge_query_inputs):
+            kind, center, extent, direction, angle = (
+                torch.from_numpy(a).to(dev) for a in make(grid, 300, rng)[:5])
+            cos_a = torch.cos(angle)
+            c = grid.num_cells
+            for base, count in ((0, None), (c // 3, c // 2 + 7), (c // 4, c // 2), (c - 12, 40)):
+                for a, b in zip(
+                        K.aoi_tile(grid, kind, center, extent, direction, cos_a, base, count),
+                        K.aoi_tile_plain(grid, kind, center, extent, direction, cos_a,
+                                         base, count)):
+                    assert torch.equal(a, b)
     torch.cuda.synchronize()
-    assert K.launch_counts() == {"assign_count": 2, "aoi": 2}
+    assert K.launch_counts() == {"assign_count": 12, "aoi": 24}
