@@ -48,6 +48,7 @@ from .spatial_ops import (
     cell_counts,
     num_cells,
     reciprocal,
+    sqrt_rn,
 )
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -349,7 +350,7 @@ def aoi_tile_plain(grid, kind, center, extent, direction, cos_angle,
 
 def sqrt_threshold(r: torch.Tensor) -> torch.Tensor:
     """The torch twin of ``sqrt_threshold`` in csrc/aoi.cu: per element,
-    the largest float32 s with sqrt(s) <= r (IEEE sqrt, monotone), so
+    the largest float32 s with sqrt(s) <= r (IEEE sqrt, ``sqrt_rn``), so
     that (sqrt(s) <= r) == (s <= sqrt_threshold(r)) for every s >= 0 and
     every NaN s. NaN and +inf give themselves, r < 0 gives -1 (nothing
     passes). K2 tests a sphere or cone against it instead of taking a
@@ -359,13 +360,13 @@ def sqrt_threshold(r: torch.Tensor) -> torch.Tensor:
     search = (r >= 0) & (r < inf)
     t = r * r  # within an ulp or two of the answer
     while True:
-        down = search & (t > 0) & (torch.sqrt(t) > r)
+        down = search & (t > 0) & (sqrt_rn(t) > r)
         if not bool(down.any()):
             break
         t = torch.where(down, torch.nextafter(t, torch.zeros_like(t)), t)
     while True:
         up = torch.nextafter(t, inf)
-        step = search & (torch.sqrt(up) <= r)
+        step = search & (sqrt_rn(up) <= r)
         if not bool(step.any()):
             break
         t = torch.where(step, up, t)

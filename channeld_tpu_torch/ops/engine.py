@@ -15,11 +15,16 @@ O(changed rows), not O(capacity). The host reads a tick's results
 through ``consume`` (the one blob transfer of the tick) and
 ``interest_rows`` (only the interest rows a caller asks for).
 
-Not in this slice (each raises NotImplementedError): the standing-query
-diff (``track_query_changes``), the simulation plane (``seed_agents`` …
-``sim_warmup``), mesh sharding, and the device-guard recovery surface
-(``rebuild_device_state``, ``apply_grid``, ``verify_device_state``,
-``corrupt_device_state_for_chaos``).
+Beyond the decision pass, the engine carries the JAX engine's other
+device planes: the standing-query diff (``track_query_changes``: one
+changed-rows blob per tick, ``query_changed_rows``), the simulation
+plane (``seed_agents`` … ``sim_warmup``: agents in ordinary entity
+slots, stepped on the device before the spatial pass), and the recovery
+surface (``rebuild_device_state``, ``apply_grid``,
+``verify_device_state``, ``corrupt_device_state_for_chaos``).
+
+Not in this slice: mesh sharding (``mesh``, ``sharding="cells"``,
+``cell_bucket``), which raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -36,24 +41,19 @@ from ..utils.logger import get_logger
 from .spatial_ops import (
     AOI_NONE,
     AOI_SPOTS,
+    SIM_IDLE,
+    SIM_SEEK,
     QuerySet,
+    SimParams,
+    diff_query_masks,
     num_cells,
     parse_consume_blob,
+    parse_query_blob,
+    sim_step,
     spatial_step,
 )
 
 logger = get_logger("ops.engine")
-
-
-def _later_slice(name: str, plane: str):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"SpatialEngine.{name} belongs to the {plane}, which the port "
-            "does not have yet"
-        )
-
-    method.__name__ = name
-    return method
 
 
 class SpatialEngine:
@@ -67,13 +67,15 @@ class SpatialEngine:
         mesh=None,
         sharding: str = "entities",
         cell_bucket: int = 0,
+        query_rows_max: int = 8192,
         device=None,
     ):
         """``device``: where the tables live and the step runs; ``cuda``
         by default (raises without a CUDA device), ``"cpu"`` only when
         asked for. ``grid`` is any object with the six GridSpec fields.
         ``mesh``/``sharding``/``cell_bucket`` select the multi-device
-        planes, which the port does not have yet."""
+        planes, which the port does not have yet. ``query_rows_max`` is
+        the standing-query plane's changed-rows budget per tick."""
         if sharding not in ("entities", "cells"):
             raise ValueError(f"unknown sharding {sharding!r}")
         if mesh is not None or sharding != "entities" or cell_bucket:
@@ -114,6 +116,24 @@ class SpatialEngine:
         self._spot_dirty_rows: set[int] = set()
         self._queries_dirty = True
 
+        # Standing-query plane (doc/query_engine.md): when enabled the
+        # tick diffs this tick's interest/dist masks against the
+        # committed device baseline and compacts the delta to changed
+        # (query, cell, dist) rows — the plane's one D2H transfer.
+        self.track_query_changes = False
+        self.query_rows_max = query_rows_max
+        # Committed (interest, dist) baseline pair; None = empty baseline
+        # (the next diff full-emits every interested row).
+        self._d_q_prev: Optional[tuple] = None
+        # Rows whose baseline is zeroed before the next diff: a freshly
+        # allocated (or freed) row may be reused by a new query, and a
+        # stale baseline would swallow the overlap of old and new masks.
+        self._q_prev_reset_rows: set[int] = set()
+        # Bumped whenever the committed baseline is thrown away wholesale
+        # (rebuild_device_state / apply_grid): the host plane must then
+        # full-resync its mirrors.
+        self.query_epoch = 0
+
         # Host staging for the sub table. The device's last-fan-out column
         # is authoritative after each tick (fanout_due advances it); the
         # host mirror only carries *explicit* writes (add/reset/interval),
@@ -134,43 +154,45 @@ class SpatialEngine:
         self._d_queries: Optional[QuerySet] = None
         self._d_sub_state: Optional[tuple] = None
 
+        # Simulation plane (doc/simulation.md): agents occupy ordinary
+        # entity slots, and the sim pass advances their positions in the
+        # same device arrays every later plane reads. The kinematic
+        # columns (velocity, FSM state, waypoint) follow the positions
+        # staging discipline: host shadows + dirty-slot scatters, whole
+        # re-upload when the device copy is dropped. The device is
+        # authoritative for agent rows between censuses; the host shadow
+        # refreshes only at census boundaries (absorb_census), which is
+        # why a rebuild reproduces the last census exactly.
+        self.sim_enabled = False
+        self.sim_seed = 0
+        self.sim_params: Optional[SimParams] = None
+        self.sim_tick = 0  # counter-based RNG cursor
+        # Per-tick scheduling flags, staged by the caller before a tick.
+        self.run_sim_pass = False
+        self.sim_census_due = False
+        self._agent_mask = np.zeros(entity_capacity, bool)
+        self._vel = np.zeros((entity_capacity, 3), np.float32)
+        self._sim_state = np.zeros(entity_capacity, np.int32)
+        self._sim_target = np.zeros((entity_capacity, 3), np.float32)
+        self._sim_dirty: set[int] = set()
+        # Danger mask (bool[num_cells]) driving FLEE; uploaded only when
+        # set_flee_cells changes it, never per tick.
+        self._flee_cells: Optional[np.ndarray] = None
+        self._flee_dirty = False
+        self._d_agent: Optional[torch.Tensor] = None
+        self._d_vel: Optional[torch.Tensor] = None
+        self._d_sim_state: Optional[torch.Tensor] = None
+        self._d_sim_target: Optional[torch.Tensor] = None
+        self._d_flee: Optional[torch.Tensor] = None
+        # Ledger of sim rebuild verifications by result.
+        self.sim_rebuild_counts: dict[str, int] = {}
+
         self._start = time.monotonic()
         self.last_result: Optional[dict] = None
         # Abandoned-step fence: a step abandoned by a watchdog must not
         # commit its tail state over a rebuilt engine (tick() re-checks
         # before committing).
         self.generation = 0
-
-    # ---- later slices ----------------------------------------------------
-
-    @property
-    def track_query_changes(self) -> bool:
-        return False
-
-    @track_query_changes.setter
-    def track_query_changes(self, on: bool) -> None:
-        if on:
-            raise NotImplementedError(
-                "track_query_changes belongs to the standing-query plane, "
-                "which the port does not have yet"
-            )
-
-    seed_agents = _later_slice("seed_agents", "simulation plane")
-    agent_slots = _later_slice("agent_slots", "simulation plane")
-    agent_count = _later_slice("agent_count", "simulation plane")
-    agent_ids = _later_slice("agent_ids", "simulation plane")
-    is_agent = _later_slice("is_agent", "simulation plane")
-    absorb_census = _later_slice("absorb_census", "simulation plane")
-    set_flee_cells = _later_slice("set_flee_cells", "simulation plane")
-    sim_stampede = _later_slice("sim_stampede", "simulation plane")
-    corrupt_sim_state_for_chaos = _later_slice(
-        "corrupt_sim_state_for_chaos", "simulation plane")
-    sim_warmup = _later_slice("sim_warmup", "simulation plane")
-    rebuild_device_state = _later_slice("rebuild_device_state", "device guard")
-    apply_grid = _later_slice("apply_grid", "device guard")
-    verify_device_state = _later_slice("verify_device_state", "device guard")
-    corrupt_device_state_for_chaos = _later_slice(
-        "corrupt_device_state_for_chaos", "device guard")
 
     # ---- entity slots ----------------------------------------------------
 
@@ -212,6 +234,11 @@ class SpatialEngine:
             return
         self._valid[slot] = False
         self._dirty_slots.add(slot)
+        if self._agent_mask[slot]:
+            # A departed agent's slot stops stepping at once: a reused
+            # slot must not inherit the sim pass.
+            self._agent_mask[slot] = False
+            self._sim_dirty.add(slot)
         self._free.append(slot)
 
     def entity_count(self) -> int:
@@ -232,6 +259,9 @@ class SpatialEngine:
                 raise RuntimeError("query capacity exhausted")
             q = self._q_free.pop()
             self._q_of_conn[conn_id] = q
+            # Fresh owner for this row: zero its diff baseline before the
+            # next tick (see _q_prev_reset_rows).
+            self._q_prev_reset_rows.add(q)
         return q
 
     def set_query(
@@ -302,6 +332,9 @@ class SpatialEngine:
                 self._q_spot_dist[q] = -1
                 self._spot_dirty_rows.add(q)
             self._q_free.append(q)
+            # A freed row emits no removal rows and hands its next owner
+            # a clean diff baseline.
+            self._q_prev_reset_rows.add(q)
             self._queries_dirty = True
 
     def query_row_of_conn(self, conn_id: int) -> Optional[int]:
@@ -335,6 +368,108 @@ class SpatialEngine:
         first-fan-out behavior (tick_data sets latest_fanout_time = now)."""
         self._sub_last[s] = now_ms
         self._sub_last_dirty.add(s)
+
+    # ---- simulation plane (doc/simulation.md) ----------------------------
+
+    def seed_agents(self, entries, seed: int, params: SimParams,
+                    vels=None, states=None, targets=None) -> list[int]:
+        """Register a simulated population into ordinary entity slots.
+
+        ``entries`` is [(entity_id, x, y, z)]. ``vels``/``states``/
+        ``targets`` restore a census (WAL replay, federation adoption);
+        a fresh spawn starts IDLE at rest, targeting its own position.
+        Returns the slots used."""
+        slots = []
+        for i, (eid, x, y, z) in enumerate(entries):
+            slot = self.add_entity(eid, float(x), float(y), float(z))
+            self._agent_mask[slot] = True
+            self._vel[slot] = vels[i] if vels is not None else (0.0, 0.0, 0.0)
+            self._sim_state[slot] = int(states[i]) if states is not None else SIM_IDLE
+            self._sim_target[slot] = targets[i] if targets is not None else (x, y, z)
+            self._sim_dirty.add(slot)
+            slots.append(slot)
+        self.sim_seed = int(seed) & 0xFFFFFFFF
+        self.sim_params = SimParams(*params)
+        self.sim_enabled = True
+        return slots
+
+    def agent_slots(self) -> np.ndarray:
+        """Live agent slot indices, ascending (host-shadow truth)."""
+        return np.nonzero(self._agent_mask & self._valid)[0]
+
+    def agent_count(self) -> int:
+        return int(np.count_nonzero(self._agent_mask & self._valid))
+
+    def agent_ids(self, slots: Optional[np.ndarray] = None) -> np.ndarray:
+        """Entity ids for ``slots`` (default: all live agent slots)."""
+        if slots is None:
+            slots = self.agent_slots()
+        return self._entity_of_slot[slots]
+
+    def is_agent(self, entity_id: int) -> bool:
+        slot = self._slot_of_entity.get(entity_id)
+        return slot is not None and bool(self._agent_mask[slot])
+
+    def absorb_census(self, slots: np.ndarray, positions, vel, state, target) -> None:
+        """Fold a fetched census (full-capacity columns, already numpy)
+        back into the host shadows without marking anything dirty: the
+        values came from the device, so re-uploading them would be waste
+        and re-staging them could clobber a newer device tick. After
+        this call the host shadow is bit-identical to the device for
+        every agent row, which is what makes the next rebuild/verify
+        exact."""
+        self._positions[slots] = positions[slots]
+        self._vel[slots] = vel[slots]
+        self._sim_state[slots] = state[slots]
+        self._sim_target[slots] = target[slots]
+
+    def set_flee_cells(self, cells) -> None:
+        """Install the danger mask driving FLEE: an iterable of cell
+        indices (sensor hits). Uploaded on the next flush — only when
+        this is called, never per tick."""
+        n_cells = num_cells(self.grid)
+        mask = np.zeros(n_cells, bool)
+        for c in cells:
+            if 0 <= c < n_cells:
+                mask[c] = True
+        self._flee_cells = mask
+        self._flee_dirty = True
+
+    def sim_stampede(self, cell: int) -> None:
+        """CHAOS ONLY (``sim.stampede``): herd every agent toward one
+        cell — a deterministic handover/density burst. Host-staged like
+        any other mutation, so it rides the ordinary fenced scatter into
+        the next tick."""
+        g = self.grid
+        cx = g.offset_x + (cell % g.cols + 0.5) * g.cell_w
+        cz = g.offset_z + (cell // g.cols + 0.5) * g.cell_h
+        slots = self.agent_slots()
+        self._sim_state[slots] = SIM_SEEK
+        self._sim_target[slots, 0] = cx
+        self._sim_target[slots, 2] = cz
+        self._vel[slots] = 0.0
+        self._sim_dirty.update(int(s) for s in slots)
+
+    def corrupt_sim_state_for_chaos(self) -> None:
+        """CHAOS ONLY (``sim.step_nan``): rot the agent rows the way a
+        bad kernel output would — NaN positions/velocities on a quarter
+        of the agents, plus garbage prev-cell baselines on the same rows
+        (the impossible-src-cell signature a readback sentinel detects).
+        New tensors, like the reference's functional updates: nothing a
+        caller holds from an earlier tick changes."""
+        live = self.agent_slots()
+        n = max(1, len(live) // 4)
+        rows = torch.from_numpy(live[:n].astype(np.int64)).to(self.device)
+        self._d_cell = self._d_cell.index_fill(0, rows, 1 << 24)
+        self._d_positions = self._d_positions.index_fill(0, rows, float("nan"))
+        if self._d_vel is not None:
+            self._d_vel = self._d_vel.index_fill(0, rows, float("nan"))
+
+    def _count_sim_rebuild(self, result: str) -> None:
+        """Sim rebuild accounting, the Python ledger. (The reference also
+        moves a Prometheus counter here; the port's copy of the metrics
+        module comes with the controller.)"""
+        self.sim_rebuild_counts[result] = self.sim_rebuild_counts.get(result, 0) + 1
 
     # ---- the tick --------------------------------------------------------
 
@@ -376,6 +511,28 @@ class SpatialEngine:
             _fence()
             self._d_cell.index_copy_(0, d_idx, cells)
             self._seed_cells.clear()
+        if self.sim_enabled:
+            sim_host = (self._vel, self._sim_state, self._sim_target, self._agent_mask)
+            if self._d_vel is None:
+                # First upload (or post-rebuild re-upload) of the whole
+                # kinematic column set.
+                d_sim = [self._upload(a) for a in sim_host]
+                _fence()
+                self._d_vel, self._d_sim_state, self._d_sim_target, self._d_agent = d_sim
+                self._sim_dirty.clear()
+            elif self._sim_dirty:
+                idx, d_idx = self._stage_rows(self._sim_dirty)
+                rows = [self._upload(a[idx]) for a in sim_host]
+                _fence()
+                for dst, src in zip((self._d_vel, self._d_sim_state,
+                                     self._d_sim_target, self._d_agent), rows):
+                    dst.index_copy_(0, d_idx, src)
+                self._sim_dirty.clear()
+            if self._flee_cells is not None and (self._d_flee is None or self._flee_dirty):
+                d_flee = self._upload(self._flee_cells)
+                _fence()
+                self._d_flee = d_flee
+                self._flee_dirty = False
         spots_changed = False
         if self._q_spot_dist is not None:
             if self._d_spot_dist is None:
@@ -440,6 +597,22 @@ class SpatialEngine:
         self.tick(now_ms=0)
         self.last_result = None
 
+    def sim_warmup(self) -> None:
+        """Run the sim step once at plane activation on throwaway arrays
+        of the live shapes, so the first live sim tick does not pay the
+        device's first-use costs. The live arrays are never touched."""
+        if self.sim_params is None:
+            return
+        n, dev = self.entity_capacity, self.device
+
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        sim_step(self.grid, zeros(n, 3), zeros(n, 3), zeros(n, dtype=torch.int32),
+                 zeros(n, 3), zeros(n, dtype=torch.bool),
+                 zeros(num_cells(self.grid), dtype=torch.bool),
+                 self.sim_params, self.sim_seed, 0)
+
     def tick(self, now_ms: Optional[int] = None) -> dict:
         """Run one device decision pass; returns the step's tensors (on
         the engine's device) under the JAX step's keys."""
@@ -448,9 +621,27 @@ class SpatialEngine:
         gen = self.generation
         # The flush carries the fence too (see _flush_host_state).
         self._flush_host_state(expect_generation=gen)
+        # Sim pass first (device to device): agents advance, then the
+        # spatial pass reads the moved positions — crossings, AOI,
+        # standing queries and fan-out all see them this very tick, with
+        # zero extra transfers.
+        sim_committed = None
+        census_due = False
+        positions = self._d_positions
+        if self.sim_enabled and self.run_sim_pass and self._d_vel is not None:
+            flee = self._d_flee
+            if flee is None:
+                flee = torch.zeros(num_cells(self.grid), dtype=torch.bool, device=self.device)
+            sim_committed = sim_step(
+                self.grid, positions, self._d_vel, self._d_sim_state,
+                self._d_sim_target, self._d_agent, flee, self.sim_params,
+                self.sim_seed, self.sim_tick,
+            )
+            positions = sim_committed[0]
+            census_due = self.sim_census_due
         out = spatial_step(
             self.grid,
-            self._d_positions,
+            positions,
             self._d_cell,
             self._d_valid,
             self._d_queries,
@@ -458,10 +649,42 @@ class SpatialEngine:
             self.max_handovers,
             int(now_ms),
         )
+        q_prev = None
+        if self.track_query_changes:
+            prev = self._d_q_prev
+            if prev is None:
+                prev = (torch.zeros_like(out["interest"]), torch.zeros_like(out["dist"]))
+            elif self._q_prev_reset_rows:
+                # Reused rows start from an empty baseline (new tensors;
+                # committed only after the generation check).
+                _, d_idx = self._stage_rows(self._q_prev_reset_rows)
+                prev = (prev[0].index_fill(0, d_idx, False), prev[1].index_fill(0, d_idx, 0))
+            q_blob, q_prev_i, q_prev_d = diff_query_masks(
+                prev[0], prev[1], out["interest"], out["dist"], self.query_rows_max,
+            )
+            out["query_blob"] = q_blob
+            out["query_epoch"] = self.query_epoch
+            q_prev = (q_prev_i, q_prev_d)
+        else:
+            # No baseline while tracking is off — when it turns on, the
+            # None baseline full-emits anyway, so pending resets are moot.
+            self._q_prev_reset_rows.clear()
         if gen != self.generation:
             # The watchdog abandoned this step: committing this tick's
             # tail state would corrupt the fresh baseline.
             raise RuntimeError("stale device tick abandoned by watchdog")
+        if sim_committed is not None:
+            # The sim batch commits with the spatial commit and only past
+            # the fence above: an abandoned step never leaves a torn
+            # population (positions advanced but kinematics not).
+            (self._d_positions, self._d_vel, self._d_sim_state,
+             self._d_sim_target) = sim_committed
+            self.sim_tick += 1
+            if census_due:
+                # The census columns, copied on the device: later flushes
+                # scatter host rows into the engine's columns in place.
+                out["sim_census"] = tuple(t.clone() for t in sim_committed)
+                out["sim_tick"] = self.sim_tick
         # Baseline for the next tick: crossings that overflowed the handover
         # row budget keep their old cell so they are re-detected, not lost.
         # (The JAX step donates prev_cell; here the step's output replaces
@@ -472,6 +695,9 @@ class SpatialEngine:
             self._d_sub_state[1],
             self._d_sub_state[2],
         )
+        if q_prev is not None:
+            self._d_q_prev = q_prev
+            self._q_prev_reset_rows.clear()
         self.last_result = out
         return out
 
@@ -538,6 +764,22 @@ class SpatialEngine:
             out[cid] = {int(c): int(drow[c]) for c in cells}
         return out
 
+    def query_changed_rows(self, result: dict) -> tuple[int, np.ndarray]:
+        """(total_changed, rows i32[R, 3]) of a tick — the standing-query
+        plane's one device->host transfer per tick. The fetched blob is
+        cached back onto the result dict, so however many consumers ask,
+        the transfer happens once. Row layout: (query_row, cell,
+        new_dist), dist == -1 meaning interest removed; rows beyond
+        min(total, R) are -1 padding. (0, empty) when tracking was off
+        for this tick."""
+        blob = result.get("query_blob")
+        if blob is None:
+            return 0, np.zeros((0, 3), np.int32)
+        if isinstance(blob, torch.Tensor):
+            blob = blob.cpu().numpy()
+            result["query_blob"] = blob
+        return parse_query_blob(blob)
+
     # ---- supervision -----------------------------------------------------
 
     def tracked_entities(self) -> list[tuple[int, int]]:
@@ -548,3 +790,158 @@ class SpatialEngine:
         """Fence off an abandoned (hung) step: a zombie worker finishing
         the old tick later raises instead of committing its tail state."""
         self.generation += 1
+
+    # ---- recovery (doc/device_recovery.md) -------------------------------
+
+    def _cell_baselines(self, slot_cells: dict[int, int]) -> np.ndarray:
+        cells = np.full(self.entity_capacity, -1, np.int32)
+        if slot_cells:
+            cells[np.fromiter(slot_cells.keys(), np.int64, len(slot_cells))] = np.fromiter(
+                slot_cells.values(), np.int32, len(slot_cells))
+        return cells
+
+    def rebuild_device_state(self, slot_cells: dict[int, int],
+                             now_ms: Optional[int] = None,
+                             expect_generation: Optional[int] = None) -> None:
+        """Rebuild every device table from the host shadow. The host
+        mirrors are authoritative for everything except two
+        device-advanced columns:
+
+        - the per-slot *previous cell* baseline, which the caller passes
+          in as ``slot_cells`` (where each entity's data is bound; the
+          next tick re-detects any move since);
+        - the sub table's last-fan-out column, which is snapped to
+          ``now``: every sub's window restarts one full interval from
+          the rebuild.
+
+        Nothing the old device tensors held survives. The standing-query
+        baseline is dropped and ``query_epoch`` moves, so the host plane
+        full-resyncs. ``expect_generation``: the fresh tensors are built
+        first, and nothing engine-visible changes unless the generation
+        still matches (a rebuild abandoned by a watchdog raises)."""
+        if now_ms is None:
+            now_ms = self.now_ms()
+        if expect_generation is None:
+            expect_generation = self.generation
+        d_positions = self._upload(self._positions)
+        d_valid = self._upload(self._valid)
+        d_cell = self._upload(self._cell_baselines(slot_cells))
+        if expect_generation != self.generation:
+            raise RuntimeError("stale rebuild abandoned by watchdog")
+        self.generation += 1
+        self._d_positions = d_positions
+        self._d_valid = d_valid
+        self._d_cell = d_cell
+        self._dirty_slots.clear()
+        self._seed_cells.clear()
+        # Query tables: host staging is authoritative; re-upload whole.
+        self._d_queries = None
+        self._d_spot_dist = None
+        self._spot_dirty_rows.clear()
+        self._queries_dirty = True
+        # Sim columns: the host shadow (last census + explicit stages) is
+        # authoritative; dropping the device copies forces the
+        # whole-column upload on the flush below.
+        self._d_vel = None
+        self._d_sim_state = None
+        self._d_sim_target = None
+        self._d_agent = None
+        self._d_flee = None
+        self._flee_dirty = self._flee_cells is not None
+        self._sim_dirty.clear()
+        self._d_q_prev = None
+        self._q_prev_reset_rows.clear()
+        self.query_epoch += 1
+        # Sub table: intervals/active from the host mirror; the
+        # device-authoritative last-fan-out column restarts at now.
+        self._sub_last[self._sub_active] = now_ms
+        self._d_sub_state = None
+        self._sub_dirty_slots.clear()
+        self._sub_last_dirty.clear()
+        self._flush_host_state()
+        self.last_result = None
+
+    def apply_grid(self, grid, slot_cells: dict[int, int],
+                   now_ms: Optional[int] = None,
+                   expect_generation: Optional[int] = None) -> None:
+        """Swap the cell grid and rebuild every grid-shaped device table
+        (adaptive partitioning, doc/partitioning.md). ``slot_cells`` are
+        the cell baselines in NEW-grid indices. Grid-shaped state that
+        cannot be carried over is rebuilt from world-space sources: the
+        spots table re-rasterizes from each query's spots; the flee mask
+        is dropped (its owner re-rasterizes it for the new geometry)."""
+        self.grid = grid
+        self._q_spot_dist = None
+        self._d_spot_dist = None
+        self._spot_dirty_rows.clear()
+        self._flee_cells = None
+        for conn_id, (spots, dists) in list(self._spot_sources.items()):
+            self.set_spots_query(conn_id, spots, dists)
+        self.rebuild_device_state(slot_cells, now_ms=now_ms,
+                                  expect_generation=expect_generation)
+
+    def verify_device_state(self, slot_cells: dict[int, int]) -> list[str]:
+        """Bit-identical rebuild verification: fetch the device tables
+        and compare them against the host shadow (and the seeded cell
+        baselines). Returns mismatch descriptions (empty == verified).
+        Recovery path only, never called from the tick: these transfers
+        are the designed one-off cost. Floats compare with NaN equal to
+        NaN (a NaN position round-trips the device bit for bit)."""
+
+        def same(dev: torch.Tensor, host: np.ndarray, equal_nan: bool = False) -> bool:
+            return np.array_equal(dev.cpu().numpy(), host, equal_nan=equal_nan)
+
+        errors: list[str] = []
+        if not same(self._d_positions, self._positions, True):
+            errors.append("positions differ from host shadow")
+        if not same(self._d_valid, self._valid):
+            errors.append("valid mask differs from host shadow")
+        if not same(self._d_cell, self._cell_baselines(slot_cells)):
+            errors.append("cell baselines differ from placement seeds")
+        if self._d_queries is not None:
+            for name, dev, host, has_nan in (
+                ("query kinds", self._d_queries.kind, self._q_kind, False),
+                ("query centers", self._d_queries.center, self._q_center, True),
+                ("query extents", self._d_queries.extent, self._q_extent, True),
+            ):
+                if not same(dev, host, has_nan):
+                    errors.append(f"{name} differ from host shadow")
+        if self._d_sub_state is not None:
+            last, interval, active = self._d_sub_state
+            if not same(interval, self._sub_interval):
+                errors.append("sub intervals differ from host shadow")
+            if not same(active, self._sub_active):
+                errors.append("sub active mask differs from host shadow")
+            if not same(last, self._sub_last):
+                errors.append("sub clock differs from rebuild seed")
+        if self.sim_enabled and self._d_vel is not None:
+            sim_errors: list[str] = []
+            for name, dev, host, has_nan in (
+                ("agent velocities", self._d_vel, self._vel, True),
+                ("agent FSM states", self._d_sim_state, self._sim_state, False),
+                ("agent waypoints", self._d_sim_target, self._sim_target, True),
+                ("agent mask", self._d_agent, self._agent_mask, False),
+            ):
+                if not same(dev, host, has_nan):
+                    sim_errors.append(f"{name} differ from host shadow")
+            if self._flee_cells is not None and self._d_flee is not None:
+                if not same(self._d_flee, self._flee_cells):
+                    sim_errors.append("flee mask differs from host shadow")
+            errors.extend(sim_errors)
+            self._count_sim_rebuild("verified" if not sim_errors else "mismatch")
+        return errors
+
+    def corrupt_device_state_for_chaos(self) -> None:
+        """CHAOS ONLY (``device.nan``): rot the device state the way a bad
+        DMA or a bit-flipped HBM page would — garbage prev-cell baselines
+        on a quarter of the live slots (they surface as impossible src
+        cells in the next tick's handover rows, the readback sentinel's
+        signature) and NaN positions on a disjoint quarter. New tensors,
+        like the reference's functional updates."""
+        live = list(self._slot_of_entity.values())
+        n = max(1, len(live) // 4)
+        garbage = torch.tensor(live[:n], dtype=torch.int64, device=self.device)
+        nan_rows = torch.tensor(live[n:2 * n], dtype=torch.int64, device=self.device)
+        self._d_cell = self._d_cell.index_fill(0, garbage, 1 << 24)
+        if len(nan_rows):
+            self._d_positions = self._d_positions.index_fill(0, nan_rows, float("nan"))

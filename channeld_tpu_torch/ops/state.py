@@ -22,6 +22,23 @@ Keys of ``state`` (capacities must match the port engine's):
   as of the last tick) and ``sub_last_fanout_ms`` i32[S] (each
   subscription's window start as the last tick advanced it).
 
+Optional keys, for the simulation plane and the standing-query diff
+(missing ones leave the engine's own, i.e. the plane off):
+
+- ``sim_params`` (any 10-tuple in ``SimParams`` order, or None: no
+  agents), ``sim_seed``, ``sim_tick``; the kinematic columns as the
+  device holds them (the device is authoritative for agent rows between
+  censuses, so they are also the host shadow after loading):
+  ``positions`` above, ``vel`` f32[N,3], ``sim_state`` i32[N],
+  ``sim_target`` f32[N,3], ``agent_mask`` bool[N]; ``flee_cells``
+  bool[C] or None;
+- ``q_prev_interest`` bool[Q,C] and ``q_prev_dist`` i32[Q,C] (the
+  committed diff baseline, or None for the empty one),
+  ``q_prev_reset_rows`` [row] and ``query_epoch``.
+
+The per-tick flags (``run_sim_pass``, ``sim_census_due``,
+``track_query_changes``) are the caller's to set.
+
 The state is taken between ticks with nothing staged: every mutation
 made since the last tick must have been flushed by a tick first.
 """
@@ -31,7 +48,7 @@ from __future__ import annotations
 import numpy as np
 
 from .engine import SpatialEngine
-from .spatial_ops import num_cells
+from .spatial_ops import SimParams, num_cells
 
 
 def _array(state: dict, key: str, dtype, shape: tuple) -> np.ndarray:
@@ -69,12 +86,36 @@ def load_reference_state(engine: SpatialEngine, state: dict) -> None:
     engine._sub_active = _array(state, "sub_active", bool, (s,))
     engine._sub_free = [int(x) for x in state["sub_free"]]
     prev_cell = _array(state, "prev_cell", np.int32, (n,))
+    if state.get("sim_params") is not None:
+        engine.sim_enabled = True
+        engine.sim_params = SimParams(*state["sim_params"])
+        engine.sim_seed = int(state["sim_seed"]) & 0xFFFFFFFF
+        engine.sim_tick = int(state["sim_tick"])
+        engine._vel = _array(state, "vel", np.float32, (n, 3))
+        engine._sim_state = _array(state, "sim_state", np.int32, (n,))
+        engine._sim_target = _array(state, "sim_target", np.float32, (n, 3))
+        engine._agent_mask = _array(state, "agent_mask", bool, (n,))
+        engine._flee_cells = (
+            None if state.get("flee_cells") is None
+            else _array(state, "flee_cells", bool, (c,))
+        )
+    if "q_prev_interest" in state:
+        engine._d_q_prev = None if state["q_prev_interest"] is None else (
+            engine._upload(_array(state, "q_prev_interest", bool, (q, c))),
+            engine._upload(_array(state, "q_prev_dist", np.int32, (q, c))),
+        )
+        engine._q_prev_reset_rows = {int(r) for r in state.get("q_prev_reset_rows", ())}
+        engine.query_epoch = int(state.get("query_epoch", 0))
 
     engine._dirty_slots.clear()
     engine._seed_cells.clear()
     engine._spot_dirty_rows.clear()
     engine._sub_dirty_slots.clear()
     engine._sub_last_dirty.clear()
+    engine._sim_dirty.clear()
+    # The sim columns and the flee mask re-upload whole on the flush.
+    engine._d_vel = engine._d_sim_state = engine._d_sim_target = None
+    engine._d_agent = engine._d_flee = None
     engine._d_positions = engine._upload(engine._positions)
     engine._d_valid = engine._upload(engine._valid)
     engine._d_cell = engine._upload(prev_cell)

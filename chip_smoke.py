@@ -35,24 +35,46 @@ prints one line; any failure exits non-zero before the final line):
    CPU servicer (the plain path); every step's handovers, cell counts,
    interest rows and due ids must be equal, and each kernel must have
    launched once per step. Prints the median and p99 step time;
-5. if grpc and protobuf are installed, one real sidecar round trip on
+5. the sim world at full width: scripts/sim_bench.py's deployment (the
+   64x64 grid of 100 m cells, 1<<17 entity slots, 4,096 handover rows,
+   100,000 agents stepped on the device every tick, seed 20) with the
+   standing-query plane armed at the gateway defaults (4,096 query
+   slots, 8,192 changed rows per tick) carrying 1,024 follower spheres
+   and 3,072 static box/cone/spots sensors, 4,096 subscriptions, and a
+   flee mask set before tick 0 and changed mid-run; 30 ticks, the
+   census on the last, then rebuild + verify, corrupt + rebuild +
+   verify, and a swap to a 32x32 grid of 200 m cells + verify + one
+   tick. Checks: every tick equal to a CPU run of the port (handovers,
+   counts, due ids, changed query rows, FSM states, and every sim column
+   bit for bit); a second card run bit-identical; no more device-to-host
+   reads on a steady tick with the sim pass than without it, and exactly
+   four more on the census tick; every verify clean; K1 and K2 once per
+   tick, and each equal to its plain version at this path's shapes.
+   Prints the sim pass's cost per tick, the diff's time, census +
+   rebuild + verify time and the device idle share of a tick;
+6. if grpc and protobuf are installed, one real sidecar round trip on
    ``cuda`` (otherwise says it was not run).
 
 The line before the last is a JSON object with one entry per kernel
-(times measured in this run; bound from this run's shapes; ``ms`` is
-the kernel alone by events, ``call_ms`` one wrapper call); the last
-line is ``{"ok": true, "device": {...}}``.
+(times measured in this run at the sidecar path's shapes; bound from
+this run's shapes; ``ms`` is the kernel alone by events, ``call_ms`` one
+wrapper call; ``launches`` on the sidecar path, ``launches_by_path`` on
+each path, ``sim_path`` the same figures at the sim world's shapes); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import importlib.util
 import json
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from types import SimpleNamespace as NS
+from typing import Optional
 
 import numpy as np
 import torch
@@ -79,6 +101,14 @@ K1_CASES = (("15x15", BENCH_GRID, 1 << 17, "uniform"),
             ("256x256", WIDE_GRID, 1 << 17, "uniform"),
             ("256x256 crowd", WIDE_GRID, 1 << 17, "crowd"))
 K2_CASES = (("15x15", BENCH_GRID, 4096), ("256x256", WIDE_GRID, 1024))
+# Phase 5: scripts/sim_bench.py's world (its 100K-agent claim), uncut.
+SIM_GRID = dict(offset_x=0.0, offset_z=0.0, cell_w=100.0, cell_h=100.0, cols=64, rows=64)
+SIM_SWAP_GRID = dict(offset_x=0.0, offset_z=0.0, cell_w=200.0, cell_h=200.0, cols=32, rows=32)
+SIM_PARAMS = dict(dt=0.05, max_speed=6.0, accel=24.0, separation=0.6, cohesion=0.15,
+                  arrive_radius=1.5, crowd=32, p_wander=0.2, p_seek=0.1, p_idle=0.05)
+SIM_SIZE = dict(agents=100_000, followers=1024, sensors=3072, subs=4096, ticks=30)
+SIM_SEED = 20
+QUERY_ROWS_MAX = 8192  # queryplane_rows_max
 
 
 class PhaseFailed(Exception):
@@ -582,6 +612,377 @@ def profile_window(servicer, load, first_step: int, n: int = 5) -> None:
               f"{k[:48]} {ms:.3f} ms x{c}" for k, ms, c in top))
 
 
+# ---- the sim world ------------------------------------------------------
+
+
+class Reads:
+    """Counts reads of CUDA tensors into host memory while entered: the
+    ways a tensor's data reaches the host in the port (``cpu``,
+    ``numpy``, ``item``, ``tolist`` and the bool/int/float/index
+    conversions), as scripts/sim_bench.py counts ``np.asarray`` on
+    device arrays. Also counts every point where the host waited for the
+    card (``syncs``, from PyTorch's sync debug mode, which also sees
+    waits inside library ops and host-to-device copies)."""
+
+    NAMES = ("cpu", "numpy", "item", "tolist", "__bool__", "__int__", "__float__",
+             "__index__")
+
+    def __init__(self):
+        self.count = 0
+        self.syncs = 0
+
+    def __enter__(self):
+        self._saved = {n: torch.Tensor.__dict__.get(n) for n in self.NAMES}
+        for name in self.NAMES:
+            fn = getattr(torch.Tensor, name)
+
+            def counted(t, *args, _fn=fn, **kwargs):
+                if t.is_cuda:
+                    self.count += 1
+                return _fn(t, *args, **kwargs)
+
+            setattr(torch.Tensor, name, counted)
+        self._caught = warnings.catch_warnings(record=True)
+        self._log = self._caught.__enter__()
+        warnings.simplefilter("always")
+        self._mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(self._mode)
+        self.syncs = sum("synchroniz" in str(w.message) for w in self._log)
+        self._caught.__exit__(*exc)
+        for name, fn in self._saved.items():
+            if fn is None:
+                delattr(torch.Tensor, name)
+            else:
+                setattr(torch.Tensor, name, fn)
+        return False
+
+
+def sim_columns(eng) -> list:
+    return [t.cpu().numpy() for t in
+            (eng._d_positions, eng._d_vel, eng._d_sim_state, eng._d_sim_target)]
+
+
+def digest(arrays) -> list[str]:
+    return [hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest() for a in arrays]
+
+
+def cell_seeds(eng, grid) -> dict:
+    """{slot: cell} rebuild baselines from the host-shadow positions
+    (truncated and clamped into the grid, as tests/test_sim.py seeds)."""
+    slots = np.fromiter(eng._slot_of_entity.values(), np.int64, len(eng._slot_of_entity))
+    x, z = eng._positions[slots, 0], eng._positions[slots, 2]
+    col = np.clip(((x - grid.offset_x) / grid.cell_w).astype(np.int64), 0, grid.cols - 1)
+    row = np.clip(((z - grid.offset_z) / grid.cell_h).astype(np.int64), 0, grid.rows - 1)
+    return dict(zip(slots.tolist(), (row * grid.cols + col).tolist()))
+
+
+class SimWorld:
+    """Phase 5's seeded world on one device: scripts/sim_bench.py's
+    100K-agent engine with the standing-query plane armed, and its
+    per-tick drive."""
+
+    def __init__(self, engine_mod, ops, dev, run_sim: bool):
+        self.ops, self.dev = ops, dev
+        grid = ops.GridSpec(**SIM_GRID)
+        eng = engine_mod.SpatialEngine(grid, entity_capacity=1 << 17, query_capacity=4096,
+                                       max_handovers=4096, query_rows_max=QUERY_ROWS_MAX,
+                                       device=dev)
+        n, world = SIM_SIZE["agents"], SIM_GRID["cols"] * SIM_GRID["cell_w"]
+        rng = np.random.default_rng(SIM_SEED)
+        xs = rng.uniform(1.0, world - 1.0, n)
+        zs = rng.uniform(1.0, world - 1.0, n)
+        eng.seed_agents([(0x480000 + i, float(xs[i]), 0.0, float(zs[i])) for i in range(n)],
+                        SIM_SEED, ops.SimParams(**SIM_PARAMS))
+        eng.run_sim_pass = run_sim
+        eng.track_query_changes = True
+        self.eng = eng
+        q = np.random.default_rng(SIM_SEED + 1)
+        self.followed = eng.agent_slots()[q.choice(n, SIM_SIZE["followers"], replace=False)]
+        self.follow()
+        for i in range(SIM_SIZE["sensors"]):  # scripts/query_bench.py's mix, at this cell size
+            conn = 10_000 + i
+            x, z = (float(v) for v in q.uniform(0.0, world, 2))
+            if i % 64 == 63:
+                eng.set_spots_query(conn, [(x, z)], [1])
+            else:
+                eng.set_query(conn, (ops.AOI_BOX, ops.AOI_CONE)[i % 2], (x, z),
+                              (float(q.uniform(75, 250)), float(q.uniform(75, 250))),
+                              (1.0, 0.0), 0.7)
+        for _ in range(SIM_SIZE["subs"]):
+            eng.add_subscription(int(q.integers(50, 201)), int(q.integers(0, 200)))
+        self.flee = [q.choice(grid.num_cells, 64, replace=False).tolist() for _ in range(2)]
+        eng.set_flee_cells(self.flee[0])
+        self.tick_ms: list[float] = []
+        self.reads: list[int] = []
+        self.syncs: list[int] = []
+        self.census_ms = 0.0
+
+    def follow(self) -> None:
+        """Re-centre each follower sphere on its agent's host-shadow
+        position, which the census refreshes: no device read."""
+        pos = self.eng._positions
+        for i, slot in enumerate(self.followed):
+            self.eng.set_query(1 + i, self.ops.AOI_SPHERE,
+                               (float(pos[slot, 0]), float(pos[slot, 2])), (150.0, 0.0))
+
+    def tick(self, t: int) -> dict:
+        """One tick as the gateway drives it: the flee mask changes at
+        the half, followers re-centre, the census is due on the last
+        tick. Host clock and device reads are counted over the tick and
+        its readbacks (the census fetch included)."""
+        eng = self.eng
+        if t == SIM_SIZE["ticks"] // 2:
+            eng.set_flee_cells(self.flee[1])
+        self.follow()
+        eng.sim_census_due = t == SIM_SIZE["ticks"] - 1
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+        with Reads() as reads:
+            t0 = time.perf_counter()
+            out = eng.tick(now_ms=1000 + 33 * t)
+            count, _, counts, due = eng.consume(out)
+            q_count, q_rows = eng.query_changed_rows(out)
+            handovers = eng.handover_list(out)
+            t1 = time.perf_counter()
+            census = None
+            if "sim_census" in out:
+                census = tuple(c.cpu().numpy() for c in out["sim_census"])
+                eng.absorb_census(eng.agent_slots(), *census)
+            t2 = time.perf_counter()
+        eng.sim_census_due = False
+        self.tick_ms.append((t1 - t0) * 1e3)
+        self.census_ms += (t2 - t1) * 1e3
+        self.reads.append(reads.count)
+        self.syncs.append(reads.syncs)
+        return dict(count=count, handovers=handovers, counts=counts.copy(),
+                    due=np.nonzero(due)[0].tolist(), q_count=q_count,
+                    q_rows=q_rows[: min(q_count, len(q_rows))].copy(), census=census is not None)
+
+    def recover(self) -> tuple[dict, dict]:
+        """Rebuild + verify; corrupt + rebuild + verify; a swap to the
+        32x32 grid + verify; one tick on it. Returns (times in ms, the
+        tick's observation)."""
+        eng, ops = self.eng, self.ops
+        ms = {}
+        t0 = time.perf_counter()
+        seeds = cell_seeds(eng, eng.grid)
+        eng.rebuild_device_state(seeds, now_ms=3000)
+        t1 = time.perf_counter()
+        errors = eng.verify_device_state(seeds)
+        t2 = time.perf_counter()
+        check(errors == [], f"verify after rebuild on {self.dev}: {errors}")
+        ms["rebuild"], ms["verify"] = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+        eng.corrupt_device_state_for_chaos()
+        check(eng.verify_device_state(seeds) != [], f"corruption not found on {self.dev}")
+        eng.rebuild_device_state(seeds, now_ms=3001)
+        errors = eng.verify_device_state(seeds)
+        check(errors == [], f"verify after corrupt + rebuild on {self.dev}: {errors}")
+        grid = ops.GridSpec(**SIM_SWAP_GRID)
+        seeds = cell_seeds(eng, grid)
+        t0 = time.perf_counter()
+        eng.apply_grid(grid, seeds, now_ms=3002)
+        errors = eng.verify_device_state(seeds)
+        ms["apply_grid_verify"] = (time.perf_counter() - t0) * 1e3
+        check(errors == [], f"verify after apply_grid on {self.dev}: {errors}")
+        check(eng.query_epoch == 3, f"query epoch {eng.query_epoch} after three rebuilds")
+        return ms, self.tick(SIM_SIZE["ticks"])
+
+
+def same_sim_tick(a: dict, b: dict) -> list[str]:
+    diffs = [k for k in ("count", "handovers", "due", "q_count", "census") if a[k] != b[k]]
+    return diffs + [k for k in ("counts", "q_rows") if not np.array_equal(a[k], b[k])]
+
+
+def first_column_diff(a: list, b: list) -> Optional[str]:
+    """The first sim column whose bits differ, with its largest
+    difference (None when all four are bit-identical)."""
+    for name, x, y in zip(("positions", "vel", "state", "target"), a, b):
+        if not np.array_equal(x.view(np.int32), y.view(np.int32)):
+            bad = np.nonzero((x.view(np.int32) != y.view(np.int32)).reshape(len(x), -1))[0]
+            return (f"{name}: {len(bad)} slots differ, first {bad[:4].tolist()}, max |diff| "
+                    f"{np.nanmax(np.abs(x.astype(np.float64) - y.astype(np.float64)))}")
+    return None
+
+
+def profile_ticks(world: SimWorld, first: int, n: int = 5) -> dict:
+    """n more sim ticks under torch.profiler: device busy and idle share
+    of a tick, and launches per tick of each kernel (None: the trace
+    recorded no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            world.tick(first + i)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    rows = [(e.key, getattr(e, "self_device_time_total", 0) / 1e3 / n, e.count / n)
+            for e in prof.key_averages()]
+    rows = [r for r in rows if r[1] > 0]
+    if not rows:
+        return dict(wall_ms=wall, busy_ms=None, idle=None, k1=None, k2=None, top=[])
+    busy = sum(r[1] for r in rows)
+    return dict(wall_ms=wall, busy_ms=busy, idle=1 - busy / wall,
+                k1=sum(c for k, _, c in rows if "assign_count" in k),
+                k2=sum(c for k, _, c in rows if "aoi_kernel" in k),
+                top=sorted(rows, key=lambda r: -r[1])[:6])
+
+
+def sim_path_kernels(K, eng) -> dict:
+    """K1 and K2 against their plain versions on the sim world's live
+    tensors (131,072 slots x 4,096 bins; 4,096 x 4,096 pairs), exact,
+    with times and bounds. Returns the JSON's ``sim_path`` entries."""
+    grid, dev = eng.grid, eng.device
+    pos, valid = eng._d_positions, eng._d_valid
+    n, c = pos.shape[0], grid.num_cells
+    got, want = K.assign_and_count(grid, pos, valid), K.assign_and_count_plain(grid, pos, valid)
+    err1 = max_abs_diff(zip(got, want))
+    check(err1 == 0, f"K1 at the sim path's shape differs from plain (max |diff| {err1})")
+    qs = eng._d_queries
+    args = (qs.kind, qs.center, qs.extent, qs.direction, torch.cos(qs.angle))
+    q = args[0].shape[0]
+    got, want = K.aoi_tile(grid, *args), K.aoi_tile_plain(grid, *args)
+    err2 = max_abs_diff(zip(got, want))
+    check(err2 == 0, f"K2 at the sim path's shape differs from plain (max |diff| {err2})")
+    b1, by1 = bound_ms(pos.numel() * 4 + n + 4 * n + 4 * c, ASSIGN_OPS_PER_SLOT * n)
+    b2, by2 = bound_ms(q * (4 + 3 * 8 + 4) + q * c * 5,
+                       AOI_OPS_PER_PAIR * q * c + AOI_OPS_PER_AXIS * q * (grid.cols + grid.rows))
+    out = {
+        "assign_count": dict(
+            shape=f"{n} slots x {c} bins", max_abs_err=err1, bound_ms=b1, bound_by=by1,
+            ms=queued_ms(K.prepare_assign_count(grid, pos, valid).run),
+            plain_ms=median_ms(lambda: K.assign_and_count_plain(grid, pos, valid))),
+        "aoi": dict(
+            shape=f"{q} x {c} pairs", max_abs_err=err2, bound_ms=b2, bound_by=by2,
+            ms=queued_ms(K.prepare_aoi(grid, *args, 0, c).run, reps=40),
+            plain_ms=median_ms(lambda: K.aoi_tile_plain(grid, *args), reps=10, warmup=2)),
+    }
+    for name, e in out.items():
+        print(f"{name} at the sim path's shape ({e['shape']}): exact; alone {e['ms']:.4f} ms "
+              f"(events, bare launches), plain {e['plain_ms']:.4f} ms, bound "
+              f"{e['bound_ms']:.5f} ms ({e['bound_by']})")
+    return out
+
+
+def phase_sim_world(K, engine_mod, ops, dev) -> tuple[dict, dict]:
+    """The sim world on the card against the CPU port, twice on the card,
+    and once without the sim pass. Returns (K1/K2 launches on this path,
+    the kernels' figures at this path's shapes)."""
+    ticks = SIM_SIZE["ticks"]
+    steady = range(1, ticks - 1)  # tick 0 full-emits; the last is the census tick
+    t0 = time.perf_counter()
+    base = SimWorld(engine_mod, ops, dev, run_sim=False)
+    for t in range(ticks):
+        base.tick(t)
+    base_ms, base_reads = [base.tick_ms[t] for t in steady], [base.reads[t] for t in steady]
+    base_syncs = [base.syncs[t] for t in steady]
+    base_census = (base.reads[ticks - 1], base.syncs[ticks - 1])
+    del base
+
+    # Run 1: counted and timed.
+    run1 = SimWorld(engine_mod, ops, dev, run_sim=True)
+    run1.eng.sim_warmup()
+    K.reset_launch_counts()
+    obs1, digests1 = [], []
+    for t in range(ticks):
+        obs1.append(run1.tick(t))
+        digests1.append(digest(sim_columns(run1.eng)))  # outside the counted window
+    launches = K.launch_counts()
+    for name, count in launches.items():
+        check(count == ticks, f"kernel {name} launched {count} times in {ticks} sim ticks")
+    sim_ms, sim_reads = [run1.tick_ms[t] for t in steady], [run1.reads[t] for t in steady]
+    sim_syncs = [run1.syncs[t] for t in steady]
+    check(obs1[0]["q_count"] > QUERY_ROWS_MAX, f"tick 0 emitted {obs1[0]['q_count']} rows, "
+          f"not past the {QUERY_ROWS_MAX}-row budget")
+    drained = next((t for t, o in enumerate(obs1) if o["q_count"] <= QUERY_ROWS_MAX), None)
+    check(drained is not None, "the changed-rows backlog never drained")
+    check(sim_reads == base_reads, f"steady-tick device reads with the sim pass {sim_reads} "
+          f"!= without {base_reads}")
+    check(sim_syncs == base_syncs, f"steady-tick host waits with the sim pass {sim_syncs} "
+          f"!= without {base_syncs}")
+    census_extra = run1.reads[ticks - 1] - base_census[0]
+    census_syncs = run1.syncs[ticks - 1] - base_census[1]
+    check(census_extra == 4, f"the census tick read {census_extra} more, not the 4 columns")
+    eng = run1.eng
+    prev_i, prev_d = eng._d_q_prev
+    res = eng.last_result
+    # Few reps: each call launches tens (the diff) to ~150 (the sim step)
+    # kernels, and the driver's queue of pending launches must hold them.
+    diff_ms = queued_ms(lambda: ops.diff_query_masks(prev_i, prev_d, res["interest"],
+                                                     res["dist"], QUERY_ROWS_MAX), reps=8)
+    flee = eng._d_flee
+    step_ms = queued_ms(lambda: ops.sim_step(
+        eng.grid, eng._d_positions, eng._d_vel, eng._d_sim_state, eng._d_sim_target,
+        eng._d_agent, flee, eng.sim_params, eng.sim_seed, eng.sim_tick), reps=3)
+    kernels = sim_path_kernels(K, eng)
+    census_ms = run1.census_ms
+    recover_ms, after1 = run1.recover()
+    prof = profile_ticks(run1, ticks + 1)
+    del run1
+
+    # Run 2 on the card, in lockstep with the port on the CPU.
+    run2 = SimWorld(engine_mod, ops, dev, run_sim=True)
+    cpu = SimWorld(engine_mod, ops, torch.device("cpu"), run_sim=True)
+    states = {}
+    for t in range(ticks):
+        a, b = run2.tick(t), cpu.tick(t)
+        check(not same_sim_tick(a, obs1[t]), f"tick {t}: the two card runs differ: "
+              f"{same_sim_tick(a, obs1[t])}")
+        diffs = same_sim_tick(a, b)
+        check(not diffs, f"tick {t}: cuda and cpu differ: {diffs}")
+        cols_gpu, cols_cpu = sim_columns(run2.eng), sim_columns(cpu.eng)
+        check(digest(cols_gpu) == digests1[t], f"tick {t}: the two card runs' sim columns differ")
+        where = first_column_diff(cols_gpu, cols_cpu)
+        check(where is None, f"tick {t}: cuda and cpu sim columns differ: {where}")
+        for s in cols_gpu[2][run2.eng.agent_slots()].tolist():
+            states[s] = states.get(s, 0) + 1
+    _, after2 = run2.recover()
+    _, after_cpu = cpu.recover()
+    check(not same_sim_tick(after2, after1), "the two card runs differ after apply_grid")
+    check(not same_sim_tick(after2, after_cpu), "cuda and cpu differ after apply_grid")
+    where = first_column_diff(sim_columns(run2.eng), sim_columns(cpu.eng))
+    check(where is None, f"after apply_grid, cuda and cpu sim columns differ: {where}")
+    secs = time.perf_counter() - t0
+    del run2, cpu
+
+    def stats(xs):
+        return statistics.median(xs), float(np.percentile(xs, 99))
+
+    (sm, sp), (bm, bp) = stats(sim_ms), stats(base_ms)
+    handovers = sum(len(o["handovers"]) for o in obs1)
+    print(f"sim world: {ticks} ticks of {SIM_SIZE['agents']} agents on cuda equal the CPU port "
+          f"tick for tick, sim columns bit for bit, and a second card run bit for bit "
+          f"({handovers} handovers, FSM states over the run {states}, changed query rows "
+          f"per tick {[o['q_count'] for o in obs1]}, backlog drained by tick {drained}); "
+          f"recovery verified clean on both ({secs:.1f} s for the phase)")
+    print(f"sim pass: tick+readback with sim median {sm:.3f} ms p99 {sp:.3f} ms, without "
+          f"{bm:.3f} / {bp:.3f} ms, difference {sm - bm:.3f} / {sp - bp:.3f} ms (host clock, "
+          f"ticks 1-{ticks - 2}); sim_step alone {step_ms:.4f} ms, diff_query_masks alone "
+          f"{diff_ms:.4f} ms (events, queued)")
+    print(f"device reads per steady tick: with sim {sorted(set(sim_reads))}, without "
+          f"{sorted(set(base_reads))}; host waits per steady tick (sync debug mode): with "
+          f"sim {sorted(set(sim_syncs))}, without {sorted(set(base_syncs))}; census tick "
+          f"+{census_extra} reads (the four columns), +{census_syncs} waits")
+    print(f"census fetch + absorb {census_ms:.2f} ms, rebuild {recover_ms['rebuild']:.2f} ms, "
+          f"verify {recover_ms['verify']:.2f} ms, apply_grid + verify "
+          f"{recover_ms['apply_grid_verify']:.2f} ms (host clock)")
+    if prof["busy_ms"] is None:
+        print("sim profile: the trace recorded no device time (idle share not measured)")
+    else:
+        check(prof["k1"] == 1 and prof["k2"] == 1,
+              f"profiled sim ticks ran K1 {prof['k1']} and K2 {prof['k2']} times per tick")
+        print(f"sim profile (5 ticks): tick wall {prof['wall_ms']:.2f} ms, device busy "
+              f"{prof['busy_ms']:.3f} ms, idle share {prof['idle']:.4f}; K1 {prof['k1']} and "
+              f"K2 {prof['k2']} per tick; top: " + "; ".join(
+                  f"{k[:48]} {ms:.3f} ms x{c:g}" for k, ms, c in prof["top"]))
+    return launches, kernels
+
+
 def phase_sidecar(service, dev) -> None:
     if not (importlib.util.find_spec("grpc") and importlib.util.find_spec("google.protobuf")):
         print("sidecar round trip: not run (grpc/protobuf not installed)")
@@ -613,6 +1014,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     from channeld_tpu_torch.ops import cuda_kernels as K
+    from channeld_tpu_torch.ops import engine as engine_mod
     from channeld_tpu_torch.ops import service
     from channeld_tpu_torch.ops import spatial_ops as ops
 
@@ -623,6 +1025,7 @@ def main() -> int:
         phase_build(K)
         entries = phase_kernels(K, ops, dev)
         launches = phase_main_path(K, service, dev)
+        sim_launches, sim_entries = phase_sim_world(K, engine_mod, ops, dev)
         phase_sidecar(service, dev)
     except PhaseFailed as e:
         print(f"FAILED: {e}")
@@ -633,7 +1036,10 @@ def main() -> int:
             name=spec.name, route="cuda",
             source=f"channeld_tpu_torch/ops/csrc/{spec.source}",
             replaces=spec.replaces, launches=launches[spec.name],
+            launches_by_path={"sidecar": launches[spec.name],
+                              "sim_world": sim_launches[spec.name]},
             library_ms=None, **entries[spec.name],
+            sim_path=dict(sim_entries[spec.name], library_ms=None),
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
