@@ -30,6 +30,7 @@ Not in this slice: mesh sharding (``mesh``, ``sharding="cells"``,
 from __future__ import annotations
 
 import math
+import threading
 import time
 from typing import Collection, Optional
 
@@ -189,10 +190,16 @@ class SpatialEngine:
 
         self._start = time.monotonic()
         self.last_result: Optional[dict] = None
+        # The JAX engine's count of entities a cells-sharded mesh tick
+        # could not deliver; always 0 on one device.
+        self.last_overflow = 0
         # Abandoned-step fence: a step abandoned by a watchdog must not
         # commit its tail state over a rebuilt engine (tick() re-checks
         # before committing).
         self.generation = 0
+        # Serializes rebuild bodies (core/device_guard.py): an abandoned
+        # rebuild that unwedges late never overlaps a newer one.
+        self._rebuild_lock = threading.Lock()
 
     # ---- entity slots ----------------------------------------------------
 
@@ -466,10 +473,13 @@ class SpatialEngine:
             self._d_vel = self._d_vel.index_fill(0, rows, float("nan"))
 
     def _count_sim_rebuild(self, result: str) -> None:
-        """Sim rebuild accounting, the Python ledger. (The reference also
-        moves a Prometheus counter here; the port's copy of the metrics
-        module comes with the controller.)"""
+        """Double-entry sim rebuild accounting: the Python ledger and the
+        Prometheus counter move together on every verification of the
+        agent arrays."""
         self.sim_rebuild_counts[result] = self.sim_rebuild_counts.get(result, 0) + 1
+        from ..core import metrics
+
+        metrics.sim_device_rebuilds.labels(result=result).inc()
 
     # ---- the tick --------------------------------------------------------
 

@@ -1,4 +1,14 @@
+from .ranges import RangeSet
+from .idalloc import IdAllocator, hash_string
 from .devices import resolve_device
 from .logger import get_logger, init_logs, security_logger
 
-__all__ = ["get_logger", "init_logs", "resolve_device", "security_logger"]
+__all__ = [
+    "RangeSet",
+    "IdAllocator",
+    "hash_string",
+    "get_logger",
+    "init_logs",
+    "resolve_device",
+    "security_logger",
+]

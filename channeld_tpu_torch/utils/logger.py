@@ -1,11 +1,9 @@
 """Logging with channeld-compatible verbosity levels.
 
-The port's own copy of ``channeld_tpu/utils/logger.py``. The reference
-wraps zap with custom levels Verbose=-2, VeryVerbose=-3, Trace=-4 below
-Debug=-1 (ref: pkg/channeld/logging.go:26-63), a separate
-``security.log`` logger, and a warn+ counter. We map onto Python
-logging: DEBUG=10 and three sub-debug levels below it. The port has no
-Prometheus registry, so the warn+ count stays in ``warn_counts``.
+The reference wraps zap with custom levels Verbose=-2, VeryVerbose=-3,
+Trace=-4 below Debug=-1 (ref: pkg/channeld/logging.go:26-63), a separate
+``security.log`` logger, and a warn+ counter metric. We map onto Python
+logging: DEBUG=10 and three sub-debug levels below it.
 """
 
 from __future__ import annotations
@@ -27,7 +25,7 @@ _ROOT_NAME = "channeld_tpu_torch"
 _initialized = False
 _active_format = "%(asctime)s %(levelname)-8s %(name)s: %(message)s"
 
-# Incremented on warn+ records.
+# Incremented on warn+ records; mirrored into the Prometheus `logs` counter.
 warn_counts: dict[str, int] = {}
 
 
@@ -43,6 +41,12 @@ class _WarnCountFilter(logging.Filter):
         if record.levelno >= logging.WARNING:
             key = logging.getLevelName(record.levelno)
             warn_counts[key] = warn_counts.get(key, 0) + 1
+            try:  # lazy: metrics pulls in prometheus_client
+                from ..core.metrics import log_events
+
+                log_events.labels(level=key).inc()
+            except Exception:
+                pass
         return True
 
 

@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port on one GPU and check it end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --gateway 50000 30   # phase 6a alone, at another size
 
 Needs one CUDA card, nvcc, and the ``channeld_tpu_torch`` package beside
 this file; imports nothing of JAX or of ``channeld_tpu``. Phases (each
@@ -52,14 +53,41 @@ prints one line; any failure exits non-zero before the final line):
    tick, and each equal to its plain version at this path's shapes.
    Prints the sim pass's cost per tick, the diff's time, census +
    rebuild + verify time and the device idle share of a tick;
-6. if grpc and protobuf are installed, one real sidecar round trip on
+6. the gateway (``python -m channeld_tpu_torch``'s main path):
+   a. lockstep: scripts/fanout_bench.py's config4
+      (config/spatial_tpu_benchmark.json: 15x15 cells of 2,000 m, 3x3
+      spatial servers and the master) with 20,000 moving entity channels
+      (cut from the bench's 50,000; ``--gateway ENTITIES TICKS`` runs
+      this phase alone at any size), a storm of entities // 8 twice,
+      the standing-query plane and the sim plane at the gateway
+      defaults, 256 followers, 1,024 sensors and subscriptions at
+      33-200 ms, the device guard on, 12 GLOBAL ticks on a fixed clock,
+      in-process with stub connections, on ``cuda`` and then on the
+      CPU. Every tick's handovers, spatial entity tables, every
+      connection's outbound stream, changed query rows and sim columns
+      must be equal (the first difference is printed); 2 device reads
+      per steady tick and 4 more on a census tick; K1 and K2 once per
+      tick, and exact on the live tensors. Prints tick, GLOBAL tick,
+      guarded device step and host share per tick on both legs, the
+      fan-out decision p99 and the device idle share of 5 profiled
+      ticks;
+   b. live: ``python -m channeld_tpu_torch`` as a child on ``cuda``,
+      driven over loopback TCP by the port's client: a master and 9
+      servers claim the world, a server sets a client's follow interest
+      on an entity that then crosses from one server's cell into
+      another's; both servers receive the handover and the client its
+      interest update; SIGTERM must end it with exit code 0;
+   c. threads: two engines ticked from two threads on one card keep
+      K1's counts exact against the plain version;
+7. if grpc and protobuf are installed, one real sidecar round trip on
    ``cuda`` (otherwise says it was not run).
 
 The line before the last is a JSON object with one entry per kernel
 (times measured in this run at the sidecar path's shapes; bound from
 this run's shapes; ``ms`` is the kernel alone by events, ``call_ms`` one
 wrapper call; ``launches`` on the sidecar path, ``launches_by_path`` on
-each path, ``sim_path`` the same figures at the sim world's shapes); the
+each path (the gateway's shapes are the sidecar's), ``sim_path`` the
+same figures at the sim world's shapes); the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -983,6 +1011,702 @@ def phase_sim_world(K, engine_mod, ops, dev) -> tuple[dict, dict]:
     return launches, kernels
 
 
+# ---- the gateway (phase 6) ----------------------------------------------
+
+# scripts/fanout_bench.py's config4: config/spatial_tpu_benchmark.json,
+# moving entity channels with a storm of entities // 8; the
+# standing-query plane and the sim plane at the gateway's defaults
+# (4,096 query rows, 8,192 changed rows, 1,000 agents), 256 followers,
+# 1,024 sensors and subscriptions at 33-200 ms. Cut to fit the phase:
+# 20,000 entities (the full claim is 50,000: BASELINE #4, the bench's
+# --entities 50000) and 12 ticks; the census every ticks // 3 (default
+# 50) so censuses fall inside the run. ``--gateway ENTITIES TICKS`` runs
+# the phase alone at another size.
+GATEWAY_CONFIG = "config/spatial_tpu_benchmark.json"
+GATEWAY_ENTITIES, GATEWAY_TICKS = 20_000, 12
+
+
+def gateway_size(entities: int = GATEWAY_ENTITIES, ticks: int = GATEWAY_TICKS) -> dict:
+    return dict(entities=entities, followers=256, sensors=1024, subscribers=256, ticks=ticks,
+                census_every=max(1, ticks // 3), storms=(ticks // 4, 2 * ticks // 3))
+
+
+GATEWAY_DEADLINE_S = 10.0  # device_step_deadline_s on both legs
+GATEWAY_TICK_S = 0.033
+
+
+class FixedClock:
+    """``time.monotonic``/``monotonic_ns`` frozen while entered, moved
+    only by ``advance``: both legs see the same channel times, engine
+    clock and (zero) tick costs. Measurements use ``time.perf_counter``."""
+
+    def __enter__(self):
+        self.ns = 1_000 * 10**9
+        self._saved = (time.monotonic, time.monotonic_ns)
+        time.monotonic = lambda: self.ns / 1e9
+        time.monotonic_ns = lambda: self.ns
+        return self
+
+    def __exit__(self, *exc):
+        time.monotonic, time.monotonic_ns = self._saved
+        return False
+
+    def advance(self, seconds: float) -> None:
+        self.ns += int(round(seconds * 1e9))
+
+
+class GatewayConn:
+    """A connection stub of the port (the surface channels touch) that
+    folds every outbound message (type, channel, bytes) into a running
+    digest instead of keeping it."""
+
+    def __init__(self, P, conn_id: int, kind: str):
+        self.P = P
+        self.id = conn_id
+        self.connection_type = P.types.ConnectionType[kind]
+        self.state = P.types.ConnectionState.AUTHENTICATED
+        self._closing = P.types.ConnectionState.CLOSING
+        self.pit = f"pit{conn_id}"
+        self.recover_handle = None
+        self.spatial_subscriptions: dict = {}
+        self.fsm_disallowed_counter = 0
+        self.logger = P.logger.get_logger(f"stub.{conn_id}")
+        self.digest = hashlib.sha256()
+        self.count = 0
+
+    def send(self, ctx) -> None:
+        body = ctx.raw_body
+        if body is None:
+            body = ctx.msg.SerializeToString(deterministic=True) if ctx.msg is not None else b""
+        self.digest.update(np.array([ctx.msg_type, ctx.channel_id, len(body)], np.int64).tobytes())
+        self.digest.update(body)
+        self.count += 1
+
+    def is_closing(self) -> bool:
+        return self.state >= self._closing
+
+    def close(self, unexpected: bool = False) -> None:
+        self.state = self._closing
+
+    def should_recover(self) -> bool:
+        return False
+
+    def on_authenticated(self, pit: str) -> None:
+        self.pit = pit
+
+    def has_interest_in(self, ch_id: int) -> bool:
+        return ch_id in self.spatial_subscriptions
+
+    def has_authority_over(self, ch) -> bool:
+        gch = self.P.channel.get_global_channel()
+        return (gch is not None and gch.get_owner() is self) or ch.get_owner() is self
+
+    def remote_addr(self):
+        return ("127.0.0.1", 10000 + self.id)
+
+    def remote_ip(self):
+        return "127.0.0.1"
+
+    def disconnect(self):
+        pass
+
+
+def gateway_modules() -> NS:
+    import importlib
+
+    names = dict(channel="core.channel", connection="core.connection", data="core.data",
+                 ddos="core.ddos", recovery="core.connection_recovery",
+                 message="core.message", settings="core.settings", types="core.types",
+                 sub="core.subscription", overload="core.overload", guard="core.device_guard",
+                 wal="core.wal", slo="core.slo", tracing="core.tracing", events="core.events",
+                 control_pb2="protocol.control_pb2", sim_pb2="models.sim_pb2",
+                 sim_models="models.sim", controller="spatial.controller",
+                 balancer="spatial.balancer", partition="spatial.partition",
+                 sim_plane="sim.plane", ops="ops.spatial_ops", logger="utils.logger")
+    return NS(**{k: importlib.import_module(f"channeld_tpu_torch.{v}") for k, v in names.items()})
+
+
+def reset_gateway(P) -> None:
+    """Every process-wide registry of the port's gateway back to boot."""
+    P.channel.reset_channels()
+    P.connection.reset_connections()
+    P.data.reset_registries()
+    P.ddos.reset_ddos()
+    P.recovery.reset_recovery()
+    P.controller.reset_spatial_controller()
+    P.overload.reset_overload()
+    P.guard.reset_device_guard()
+    P.balancer.reset_balancer()
+    P.partition.reset_partition()
+    P.wal.reset_wal()
+    P.slo.reset_slo()
+    P.tracing.reset_tracing()
+    P.sim_plane.reset_sim()
+    P.events.reset_all()
+    P.settings.reset_global_settings()
+
+
+class GatewayWorld:
+    """Phase 6a's world on one device: the port's gateway on
+    GATEWAY_CONFIG with real entity channels (created as
+    scripts/chaos_soak.py's EntitySim creates them), stub connections
+    for the master, the 9 servers and the clients, driven in a fixed
+    order each GLOBAL tick: moves, entity channels, GLOBAL (the
+    controller's guarded device step), spatial channels."""
+
+    def __init__(self, dev: torch.device, clock: FixedClock, size: dict):
+        from random import Random
+
+        P = self.P = gateway_modules()
+        self.dev, self.clock, self.size = dev, clock, size
+        reset_gateway(P)
+        s = P.settings.global_settings
+        s.development = True
+        s.spatial_device = dev.type
+        s.sim_enabled = True
+        s.sim_census_every_ticks = size["census_every"]
+        s.device_step_deadline_s = GATEWAY_DEADLINE_S
+        P.message.init_message_map()
+        P.channel.init_channels()
+        P.sim_models.register_sim_types()
+        t0 = time.perf_counter()
+        P.controller.init_spatial_controller(GATEWAY_CONFIG)
+        self.load_s = time.perf_counter() - t0
+        ctl = self.ctl = P.controller.get_spatial_controller()
+        self.eng = ctl.engine
+        check(self.eng.device.type == dev.type, f"the engine is on {self.eng.device}, not {dev}")
+        self.conns: list[GatewayConn] = []
+        self.handovers: list[list] = []
+        self.step_ms: list[float] = []
+        self.fanout_ms: list[float] = []
+        self._wrap()
+        rng = self.rng = Random(SEED + 6)
+        self._servers()
+        self._entities(rng)
+        self._clients(rng)
+
+    def conn(self, conn_id: int, kind: str) -> GatewayConn:
+        c = GatewayConn(self.P, conn_id, kind)
+        self.P.connection._all_connections[conn_id] = c
+        self.conns.append(c)
+        return c
+
+    def _wrap(self) -> None:
+        """Time the guarded device step and every fan-out decision pass
+        (``tick_data`` of a channel with subscribers, the span the
+        ``fanout_decision_latency`` histogram observes) on the host's
+        perf_counter, since the run's monotonic clock is fixed."""
+        guard, channel = self.P.guard.guard, self.P.channel
+        dispatch, tick_data = guard._dispatch, channel.tick_data
+
+        def timed_dispatch(engine):
+            t0 = time.perf_counter()
+            try:
+                return dispatch(engine)
+            finally:
+                self.step_ms.append((time.perf_counter() - t0) * 1e3)
+
+        def timed_tick_data(ch, now):
+            if not ch.subscribed_connections:
+                return tick_data(ch, now)
+            t0 = time.perf_counter()
+            tick_data(ch, now)
+            self.fanout_ms.append((time.perf_counter() - t0) * 1e3)
+
+        handover_list = self.eng.handover_list
+
+        def recorded_handovers(result):
+            rows = handover_list(result)
+            self.handovers.append(rows)
+            return rows
+
+        guard._dispatch = timed_dispatch
+        channel.tick_data = timed_tick_data
+        self.eng.handover_list = recorded_handovers
+        self._unwrap = lambda: (delattr(guard, "_dispatch"),
+                                setattr(channel, "tick_data", tick_data))
+
+    def _servers(self) -> None:
+        P, ctl = self.P, self.ctl
+        master = self.conn(1, "SERVER")
+        gch = P.channel.get_global_channel()
+        gch.set_owner(master)
+        P.sub.subscribe_to_channel(master, gch, None)
+        for i in range(ctl.server_cols * ctl.server_rows):
+            server = self.conn(2 + i, "SERVER")
+            ctx = P.message.MessageContext(msg_type=P.types.MessageType.CREATE_CHANNEL,
+                                           msg=P.control_pb2.CreateChannelMessage(),
+                                           connection=server)
+            for ch in ctl.create_channels(ctx):
+                P.sub.subscribe_to_channel(server, ch, None)
+        chans = P.channel.all_channels()
+        self.spatial = sorted(c for c, ch in chans.items()
+                              if ch.channel_type == P.types.ChannelType.SPATIAL)
+        check(len(self.spatial) == ctl.grid_cols * ctl.grid_rows, "the servers did not claim the world")
+
+    def _entities(self, rng) -> None:
+        P, ctl = self.P, self.ctl
+        x0, z0 = ctl.world_offset_x + 1.0, ctl.world_offset_z + 1.0
+        x1 = ctl.world_offset_x + ctl.grid_width * ctl.grid_cols - 1.0
+        z1 = ctl.world_offset_z + ctl.grid_height * ctl.grid_rows - 1.0
+        self.bounds = (x0, z0, x1, z1)
+        estart = P.settings.global_settings.entity_channel_id_start
+        SpatialInfo = P.controller.SpatialInfo
+        self.positions: dict[int, tuple[float, float]] = {}
+        self.entity_channels = []
+        for i in range(self.size["entities"]):
+            eid = estart + 1 + i
+            x, z = rng.uniform(x0, x1), rng.uniform(z0, z1)
+            info = SpatialInfo(x, 0, z)
+            cell_ch = P.channel.get_channel(ctl.get_channel_id(info))
+            owner = cell_ch.get_owner()
+            ch = P.channel.create_entity_channel(eid, owner)
+            d = P.sim_pb2.SimEntityChannelData()
+            d.state.entityId = eid
+            d.state.transform.position.x = x
+            d.state.transform.position.z = z
+            ch.init_data(d, None)
+            ch.spatial_notifier = ctl
+            P.sub.subscribe_to_channel(owner, ch, None)
+            cell_ch.execute(lambda c, e=eid, dd=d: c.get_data_message().add_entity(e, dd))
+            ctl.track_entity(eid, info)
+            self.positions[eid] = (x, z)
+            self.entity_channels.append(ch)
+        self.entity_ids = list(self.positions)
+
+    def _clients(self, rng) -> None:
+        P, ctl, size = self.P, self.ctl, self.size
+        x0, z0, x1, z1 = self.bounds
+        ops = P.ops
+        for i in range(size["followers"]):  # spheres and cones following entities
+            client = self.conn(1000 + i, "CLIENT")
+            eid = self.entity_ids[rng.randrange(len(self.entity_ids))]
+            if i % 2:
+                ctl.register_follow_interest(client, eid, ops.AOI_CONE, extent=(4000.0, 0.0),
+                                             direction=(1.0, 0.0), angle=0.6)
+            else:
+                ctl.register_follow_interest(client, eid, ops.AOI_SPHERE, extent=(3000.0, 0.0))
+        for i in range(size["sensors"]):  # static server sensors, box and sphere
+            ctl.register_sensor(f"sensor{i}", kind=(ops.AOI_BOX, ops.AOI_SPHERE)[i % 2],
+                                center=(rng.uniform(x0, x1), rng.uniform(z0, z1)),
+                                extent=(rng.uniform(1500, 5000), rng.uniform(1500, 5000)))
+        for i in range(size["subscribers"]):  # plain subscriptions at 33-200 ms
+            client = self.conn(5000 + i, "CLIENT")
+            for cid in rng.sample(self.spatial, 4):
+                opts = P.control_pb2.ChannelSubscriptionOptions(
+                    fanOutIntervalMs=rng.choice((33, 50, 100, 200)), fanOutDelayMs=0)
+                P.sub.subscribe_to_channel(client, P.channel.get_channel(cid), opts)
+
+    def move(self, eid: int, x: float, z: float) -> None:
+        P, ctl = self.P, self.ctl
+        upd = P.sim_pb2.SimEntityChannelData()
+        upd.state.entityId = eid
+        upd.state.transform.position.x = x
+        upd.state.transform.position.z = z
+
+        def apply(c, u=upd):
+            owner = c.get_owner()
+            c.data.on_update(u, c.get_time(), owner.id if owner is not None else 0, ctl)
+
+        P.channel.get_channel(eid).execute(apply)
+        self.positions[eid] = (x, z)
+
+    def drive(self, t: int) -> None:
+        """Every entity moves each tick (a bounded random walk); on a
+        storm tick entities // 8 gather into one cell, and they disperse
+        two ticks later."""
+        x0, z0, x1, z1 = self.bounds
+        rng, ctl = self.rng, self.ctl
+        storms = self.size["storms"]
+        if t in storms:
+            col, row = rng.randrange(ctl.grid_cols), rng.randrange(ctl.grid_rows)
+            cx = ctl.world_offset_x + (col + 0.5) * ctl.grid_width
+            cz = ctl.world_offset_z + (row + 0.5) * ctl.grid_height
+            self.crowd = rng.sample(self.entity_ids, self.size["entities"] // 8)
+            crowd = set(self.crowd)
+            for eid in self.crowd:
+                self.move(eid, cx + rng.uniform(-0.4, 0.4) * ctl.grid_width,
+                          cz + rng.uniform(-0.4, 0.4) * ctl.grid_height)
+        else:
+            crowd = set(self.crowd) if t - 2 in storms else set()
+            for eid in crowd:
+                self.move(eid, rng.uniform(x0, x1), rng.uniform(z0, z1))
+        for eid in self.entity_ids:
+            if eid in crowd:
+                continue
+            x, z = self.positions[eid]
+            self.move(eid, min(max(x + rng.uniform(-60, 60), x0), x1),
+                      min(max(z + rng.uniform(-60, 60), z0), z1))
+
+    def tick(self, t: int) -> dict:
+        """One GLOBAL tick; returns what it produced (digests) and its
+        costs. Host clock around the whole tick; device reads and host
+        waits counted over it on the card."""
+        P, eng = self.P, self.eng
+        self.clock.advance(GATEWAY_TICK_S)
+        self.drive(t)
+        now = time.monotonic_ns()
+        gch = P.channel.get_global_channel()
+        chans = P.channel.all_channels()
+        steps, crossings = len(self.step_ms), len(self.handovers)
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+        with Reads() as reads:
+            t0 = time.perf_counter()
+            for ch in self.entity_channels:
+                ch.tick_once(now)
+            t1 = time.perf_counter()
+            gch.tick_once(now)
+            t2 = time.perf_counter()
+            for cid in self.spatial:
+                chans[cid].tick_once(now)
+            t3 = time.perf_counter()
+        result = eng.last_result
+        check(result is not None, f"tick {t}: the engine did not step")
+        count, rows = eng.query_changed_rows(result)
+        census = "sim_census" in result
+        tables = hashlib.sha256()
+        for cid in self.spatial:
+            tables.update(chans[cid].get_data_message().SerializeToString(deterministic=True))
+        guard = P.guard.guard
+        return dict(
+            handovers=[r for rows in self.handovers[crossings:] for r in rows], q=(count, digest([rows[: min(count, len(rows))]])[0]),
+            tables=tables.hexdigest(),
+            sent={c.id: (c.count, c.digest.hexdigest()) for c in self.conns},
+            guard=(guard.state.name, dict(guard.failure_counts), guard.held_ticks),
+            sim=digest(sim_columns(eng)), census=census,
+            tick_ms=(t3 - t0) * 1e3, global_ms=(t2 - t1) * 1e3,
+            step_ms=self.step_ms[steps] if len(self.step_ms) > steps else None,
+            reads=reads.count, syncs=reads.syncs)
+
+    def close(self) -> None:
+        self._unwrap()
+        reset_gateway(self.P)
+
+
+def first_gateway_diff(a: dict, b: dict) -> Optional[str]:
+    """The first observation of one tick that differs between the legs,
+    with its detail (None when the tick is equal)."""
+    for key in ("handovers", "tables", "q", "sim", "census", "guard"):
+        if a[key] != b[key]:
+            if key == "handovers":
+                i = next((i for i, (x, y) in enumerate(zip(a[key], b[key])) if x != y),
+                         min(len(a[key]), len(b[key])))
+                return (f"handovers: {len(a[key])} vs {len(b[key])}, first differing "
+                        f"row {i}: {a[key][i:i + 1]} vs {b[key][i:i + 1]}")
+            return f"{key}: {str(a[key])[:200]} vs {str(b[key])[:200]}"
+    for conn_id, got in a["sent"].items():
+        if got != b["sent"].get(conn_id):
+            return (f"connection {conn_id}'s outbound stream: {got[0]} messages "
+                    f"(digest {got[1][:12]}) vs {b['sent'].get(conn_id)}")
+    return None
+
+
+def gateway_live_kernels(K, eng) -> None:
+    """K1 and K2 against their plain versions on the gateway engine's
+    live tensors (131,072 slots x 225 bins, 4,096 x 225 pairs), exact."""
+    grid, qs = eng.grid, eng._d_queries
+    pos, valid = eng._d_positions, eng._d_valid
+    err1 = max_abs_diff(zip(K.assign_and_count(grid, pos, valid),
+                            K.assign_and_count_plain(grid, pos, valid)))
+    args = (qs.kind, qs.center, qs.extent, qs.direction, torch.cos(qs.angle))
+    err2 = max_abs_diff(zip(K.aoi_tile(grid, *args), K.aoi_tile_plain(grid, *args)))
+    check(err1 == 0 and err2 == 0, f"the gateway's live tensors: K1 |diff| {err1}, K2 {err2}")
+    print(f"gateway path kernels on live tensors ({pos.shape[0]} slots x {grid.num_cells} bins, "
+          f"{args[0].shape[0]} x {grid.num_cells} pairs): K1 and K2 exact against plain")
+
+
+def profile_gateway(world: GatewayWorld, first: int, n: int = 5) -> dict:
+    """n more gateway ticks under torch.profiler: device busy and idle
+    share of a tick, K1/K2 launches per tick."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            world.tick(first + i)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    rows = [(e.key, getattr(e, "self_device_time_total", 0) / 1e3 / n, e.count / n)
+            for e in prof.key_averages()]
+    rows = [r for r in rows if r[1] > 0]
+    if not rows:
+        return dict(wall_ms=wall, busy_ms=None, idle=None, k1=None, k2=None, top=[])
+    busy = sum(r[1] for r in rows)
+    return dict(wall_ms=wall, busy_ms=busy, idle=1 - busy / wall,
+                k1=sum(c for k, _, c in rows if "assign_count" in k),
+                k2=sum(c for k, _, c in rows if "aoi_kernel" in k),
+                top=sorted(rows, key=lambda r: -r[1])[:6])
+
+
+def phase_gateway_lockstep(K, dev, size: dict) -> dict:
+    """6a: the port's gateway on the card against a lockstep CPU run of
+    it, tick for tick. Returns K1/K2 launches on this path."""
+    ticks = size["ticks"]
+    t_phase = time.perf_counter()
+    with FixedClock() as clock:
+        world = GatewayWorld(dev, clock, size)
+        setup_s = world.load_s
+        K.reset_launch_counts()
+        card = [world.tick(t) for t in range(ticks)]
+        launches = K.launch_counts()
+        for name, count in launches.items():
+            check(count == ticks, f"kernel {name} launched {count} times in {ticks} gateway ticks")
+        gateway_live_kernels(K, world.eng)
+        agents = world.eng.agent_count()
+        prof = profile_gateway(world, ticks)
+        fanout_ms, step_ms = world.fanout_ms, world.step_ms
+        world.close()
+        del world
+    t_card = time.perf_counter()
+    with FixedClock() as clock:
+        world = GatewayWorld(torch.device("cpu"), clock, size)
+        cpu = []
+        for t in range(ticks):
+            cpu.append(world.tick(t))
+            where = first_gateway_diff(card[t], cpu[t])
+            check(where is None, f"gateway tick {t}: cuda and cpu differ: {where}")
+        cpu_fanout = world.fanout_ms
+        world.close()
+        del world
+    secs = (time.perf_counter() - t_phase, t_card - t_phase)
+
+    def stats(xs):
+        return f"median {statistics.median(xs):.3f} ms p99 {float(np.percentile(xs, 99)):.3f} ms"
+
+    census_ticks = [t for t, o in enumerate(card) if o["census"]]
+    steady = [t for t in range(1, ticks) if t not in census_ticks]
+    check(census_ticks, "no census fell inside the run")
+    reads = sorted({card[t]["reads"] for t in steady})
+    check(reads == [2], f"device reads per steady gateway tick {reads}, not 2")
+    extra = sorted({card[t]["reads"] - 2 for t in census_ticks})
+    check(extra == [4], f"census ticks read {extra} more than a steady tick, not the 4 columns")
+    handovers = sum(len(o["handovers"]) for o in card)
+    check(handovers > 0, "no handover in the run")
+    host_share = [1 - o["step_ms"] / o["tick_ms"] for o in card[1:]]
+    print(f"gateway lockstep: {ticks} GLOBAL ticks of {size['entities']} moving entity channels "
+          f"on {GATEWAY_CONFIG} (storms of {size['entities'] // 8} at ticks {size['storms']}, "
+          f"{size['followers']} followers, {size['sensors']} sensors, {size['subscribers']} "
+          f"subscribers, the sim plane's {agents} agents, census ticks {census_ticks}) on cuda equal "
+          f"the CPU leg tick for tick: handovers ({handovers}), entity tables, every "
+          f"connection's outbound stream, changed query rows, sim columns bit for bit; "
+          f"launches {launches}; device_step_deadline_s {GATEWAY_DEADLINE_S} on both legs; "
+          f"phase {secs[0]:.1f} s (card leg {secs[1]:.1f} s, load_config {setup_s:.2f} s)")
+    for label, legs in (("cuda", card), ("cpu", cpu)):
+        print(f"gateway per tick on {label} (ticks 1-{ticks - 1}): tick "
+              f"{stats([o['tick_ms'] for o in legs[1:]])}; GLOBAL tick "
+              f"{stats([o['global_ms'] for o in legs[1:]])}; guarded device step "
+              f"{stats([o['step_ms'] for o in legs[1:]])}; host share "
+              f"{stats([1 - o['step_ms'] / o['tick_ms'] for o in legs[1:]]).replace(' ms', '')}")
+    print(f"fan-out decision (tick_data of a channel with subscribers, perf_counter): cuda "
+          f"{stats(fanout_ms)} over {len(fanout_ms)} passes; cpu {stats(cpu_fanout)}")
+    print(f"gateway reads per steady tick {reads} (the consume and changed-rows blobs), census "
+          f"tick +{extra[0]}; host waits per steady tick "
+          f"{sorted({card[t]['syncs'] for t in steady})}, census tick "
+          f"{sorted({card[t]['syncs'] for t in census_ticks})}; host share of a card tick "
+          f"median {statistics.median(host_share):.4f}")
+    if prof["busy_ms"] is None:
+        print("gateway profile: the trace recorded no device time (idle share not measured)")
+    else:
+        check(prof["k1"] == 1 and prof["k2"] == 1,
+              f"profiled gateway ticks ran K1 {prof['k1']} and K2 {prof['k2']} times per tick")
+        print(f"gateway profile (5 ticks): tick wall {prof['wall_ms']:.2f} ms, device busy "
+              f"{prof['busy_ms']:.3f} ms, idle share {prof['idle']:.4f}; top: " + "; ".join(
+                  f"{k[:48]} {ms:.3f} ms x{c:g}" for k, ms, c in prof["top"]))
+    return launches
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_gateway_live(dev_args=(), deadline_s: float = 180.0) -> None:
+    """6b: ``python -m channeld_tpu_torch`` as a child on the card, driven
+    over loopback TCP: a master and 9 servers claim the world, a server
+    sets a client's follow interest on an entity, the entity crosses
+    from one server's cell into another's; both servers get the
+    handover and the client its interest update; SIGTERM exits 0."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    from channeld_tpu_torch.client import Client
+    from channeld_tpu_torch.core.types import ChannelDataAccess, ChannelType, MessageType
+    from channeld_tpu_torch.models import sim_pb2
+    from channeld_tpu_torch.protocol import control_pb2, spatial_pb2
+    from channeld_tpu_torch.utils.anyutil import pack_any
+
+    sport, cport = free_port(), free_port()
+    scratch = tempfile.mkdtemp(prefix="gateway-")
+    log_path = os.path.join(scratch, "gateway.log")
+    log_fd = os.open(log_path, os.O_WRONLY | os.O_CREAT, 0o600)
+    cmd = [sys.executable, "-m", "channeld_tpu_torch", "-dev", "-loglevel", "0",
+           "-profilepath", scratch,
+           "-sn", "tcp", "-sa", f"127.0.0.1:{sport}", "-cn", "tcp", "-ca", f"127.0.0.1:{cport}",
+           "-mport", "0", "-cfsm", "config/client_authoritative_fsm.json",
+           "-scc", GATEWAY_CONFIG, "-imports", "channeld_tpu_torch.models.sim", *dev_args]
+    t0 = time.perf_counter()
+    child = subprocess.Popen(cmd, stdout=log_fd, stderr=subprocess.STDOUT)
+    os.close(log_fd)
+    clients = []
+
+    def log() -> str:
+        with open(log_path) as f:
+            return f.read()
+
+    def until(cond, what: str, timeout: float):
+        end = time.perf_counter() + timeout
+        while time.perf_counter() < end:
+            for c in clients:
+                c.tick(timeout=0.01)
+            if cond():
+                return
+            check(child.poll() is None, f"gateway child exited ({child.returncode}) while "
+                  f"waiting for {what}: {log()[-2000:]}")
+            time.sleep(0.02)
+        raise PhaseFailed(f"gateway child: no {what} within {timeout} s; log: {log()[-2000:]}")
+
+    def connect(name: str, port: int) -> Client:
+        c = Client(f"127.0.0.1:{port}")
+        clients.append(c)
+        c.auth(login_token=name, pit=name)
+        c.flush()
+        until(lambda: c.id != 0, f"{name}'s auth", 20)
+        return c
+
+    def record(c: Client, msg_type: int) -> list:
+        box: list = []
+        c.add_message_handler(msg_type, lambda _c, ch, m: box.append((ch, m)))
+        return box
+
+    try:
+        until(lambda: "listening for SERVER" in log(), "server listener", deadline_s)
+        ready_s = time.perf_counter() - t0
+        text = log()
+        check("spatial engine on cuda" in text or dev_args, "the child's engine is not on cuda")
+        check("kernels built and warmed in load_config" in text,
+              "the child did not build and warm its kernels in load_config")
+        master = connect("master", sport)
+        created = record(master, MessageType.CREATE_CHANNEL)
+        master.send(0, 0, MessageType.CREATE_CHANNEL,
+                    control_pb2.CreateChannelMessage(channelType=ChannelType.GLOBAL))
+        until(lambda: created, "GLOBAL's creation", 20)
+        until(lambda: "listening for CLIENT" in log(), "client listener", 20)
+        servers, ready, handovers = [], [], []
+        for i in range(9):
+            s = connect(f"spatial{i}", sport)
+            ready.append(record(s, MessageType.SPATIAL_CHANNELS_READY))
+            handovers.append(record(s, MessageType.CHANNEL_DATA_HANDOVER))
+            s.send(0, 0, MessageType.CREATE_CHANNEL, control_pb2.CreateChannelMessage(
+                channelType=ChannelType.SPATIAL,
+                subOptions=control_pb2.ChannelSubscriptionOptions(
+                    dataAccess=ChannelDataAccess.WRITE_ACCESS)))
+            servers.append(s)
+        until(lambda: all(ready), "SPATIAL_CHANNELS_READY on every server", 30)
+        client = connect("client", cport)
+        subs = record(client, MessageType.SUB_TO_CHANNEL)
+        unsubs = record(client, MessageType.UNSUB_FROM_CHANNEL)
+        # Server 0 (cells of columns 0-4) spawns an entity in column 4
+        # and has the client follow it with a 1,500 m sphere.
+        start, eid = 0x10000, 0x80000 + 1
+        d = sim_pb2.SimEntityChannelData()
+        d.state.entityId = eid
+        d.state.transform.position.x, d.state.transform.position.z = -5100.0, -14000.0
+        servers[0].send(0, 0, MessageType.CREATE_ENTITY_CHANNEL,
+                        spatial_pb2.CreateEntityChannelMessage(entityId=eid, data=pack_any(d)))
+        q = spatial_pb2.SpatialInterestQuery()
+        q.sphereAOI.center.x, q.sphereAOI.center.z, q.sphereAOI.radius = -5100.0, -14000.0, 1500.0
+        servers[0].send(start + 4, 0, MessageType.UPDATE_SPATIAL_INTEREST,
+                        spatial_pb2.UpdateSpatialInterestMessage(connId=client.id, query=q,
+                                                                 followEntityId=eid))
+        until(lambda: {ch for ch, _ in subs} >= {start + 4, start + 5},
+              "the client's follow interest (columns 4 and 5)", 20)
+        # The entity crosses into column 5 (server 1) and on: the interest
+        # moves to columns 5-6.
+        upd = sim_pb2.SimEntityChannelData()
+        upd.state.entityId = eid
+        upd.state.transform.position.x, upd.state.transform.position.z = -3100.0, -14000.0
+        servers[0].send(eid, 0, MessageType.CHANNEL_DATA_UPDATE,
+                        control_pb2.ChannelDataUpdateMessage(data=pack_any(upd)))
+        until(lambda: handovers[0] and handovers[1], "the handover on servers 0 and 1", 20)
+        until(lambda: any(ch == start + 6 for ch, _ in subs) and unsubs,
+              "the client's interest update after the crossing", 20)
+        child.send_signal(signal.SIGTERM)
+        try:
+            code = child.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            raise PhaseFailed(f"the gateway child did not exit within 20 s of SIGTERM: {log()[-2000:]}")
+        check(code == 0, f"the gateway child exited {code} on SIGTERM: {log()[-2000:]}")
+        print(f"gateway live: python -m channeld_tpu_torch on "
+              f"{'cuda' if not dev_args else ' '.join(dev_args)} listening in {ready_s:.1f} s "
+              f"(engine built and warmed in load_config), master + 9 servers claimed "
+              f"{GATEWAY_CONFIG} over TCP, the crossing handed entity {eid} from server 0 to "
+              f"server 1 ({len(handovers[0])} + {len(handovers[1])} handover messages), the "
+              f"follower's interest moved ({len(subs)} subs, {len(unsubs)} unsubs); SIGTERM exit 0")
+    finally:
+        for c in clients:
+            c.disconnect()
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=10)
+        shutil.rmtree(scratch, ignore_errors=True)
+
+
+def phase_gateway_threads(K, engine_mod, ops, dev, ticks: int = 100) -> None:
+    """6c: two engines ticked from two threads on one card (a watchdog's
+    zombie worker and the fresh one share K1's zero-ahead counts buffer
+    on the same stream); every tick's counts equal the plain version."""
+    import threading
+
+    grid = ops.GridSpec(**BENCH_GRID)
+    engines, errors = [], []
+    for i in range(2):
+        eng = engine_mod.SpatialEngine(grid, entity_capacity=1 << 17, query_capacity=64,
+                                       device=dev)
+        rng = np.random.default_rng(SEED + 60 + i)
+        pos = rng.uniform(-15000.0, 15000.0, (20_000, 2))
+        for j, (x, z) in enumerate(pos):
+            eng.add_entity(0x80000 + j, float(x), 0.0, float(z))
+        eng.warmup()
+        engines.append(eng)
+    barrier = threading.Barrier(2)
+
+    def work(i: int, eng) -> None:
+        rng = np.random.default_rng(SEED + 70 + i)
+        try:
+            with torch.cuda.device(dev):
+                barrier.wait(timeout=60)
+                for t in range(ticks):
+                    for j in rng.integers(0, 20_000, 500):
+                        x, z = rng.uniform(-15000.0, 15000.0, 2)
+                        eng.update_entity(0x80000 + int(j), float(x), 0.0, float(z))
+                    out = eng.tick(now_ms=33 * t)
+                    want = K.assign_and_count_plain(grid, eng._d_positions, eng._d_valid)[1]
+                    if not torch.equal(out["cell_counts"], want):
+                        errors.append((i, t))
+        except Exception as e:  # reported by the main thread
+            errors.append((i, repr(e)))
+
+    K.reset_launch_counts()
+    threads = [threading.Thread(target=work, args=(i, e)) for i, e in enumerate(engines)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    check(not any(th.is_alive() for th in threads), "a ticking thread did not finish")
+    check(not errors, f"K1 counts differ from plain across threads: {errors[:4]}")
+    launches = K.launch_counts()["assign_count"]
+    check(launches == 2 * ticks, f"K1 launched {launches} times, not {2 * ticks}")
+    print(f"gateway threads: two engines ticked {ticks} times each from two threads on one "
+          f"card; K1's counts equal the plain version on every tick ({launches} launches)")
+
+
 def phase_sidecar(service, dev) -> None:
     if not (importlib.util.find_spec("grpc") and importlib.util.find_spec("google.protobuf")):
         print("sidecar round trip: not run (grpc/protobuf not installed)")
@@ -1009,10 +1733,31 @@ def phase_sidecar(service, dev) -> None:
         server.stop(None)
 
 
+def main_gateway(entities: int, ticks: int) -> int:
+    """Phase 6a alone at another size (after the device and build
+    phases): ``python3 chip_smoke.py --gateway 50000 30``."""
+    from channeld_tpu_torch.ops import cuda_kernels as K
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    try:
+        name, _ = phase_device()
+        phase_build(K)
+        phase_gateway_lockstep(K, dev, gateway_size(entities, ticks))
+    except PhaseFailed as e:
+        print(f"FAILED: {e}")
+        return 1
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--gateway"]:
+        return main_gateway(int(sys.argv[2]), int(sys.argv[3]))
     from channeld_tpu_torch.ops import cuda_kernels as K
     from channeld_tpu_torch.ops import engine as engine_mod
     from channeld_tpu_torch.ops import service
@@ -1026,6 +1771,9 @@ def main() -> int:
         entries = phase_kernels(K, ops, dev)
         launches = phase_main_path(K, service, dev)
         sim_launches, sim_entries = phase_sim_world(K, engine_mod, ops, dev)
+        gateway_launches = phase_gateway_lockstep(K, dev, gateway_size())
+        phase_gateway_live()
+        phase_gateway_threads(K, engine_mod, ops, dev)
         phase_sidecar(service, dev)
     except PhaseFailed as e:
         print(f"FAILED: {e}")
@@ -1037,7 +1785,8 @@ def main() -> int:
             source=f"channeld_tpu_torch/ops/csrc/{spec.source}",
             replaces=spec.replaces, launches=launches[spec.name],
             launches_by_path={"sidecar": launches[spec.name],
-                              "sim_world": sim_launches[spec.name]},
+                              "sim_world": sim_launches[spec.name],
+                              "gateway": gateway_launches[spec.name]},
             library_ms=None, **entries[spec.name],
             sim_path=dict(sim_entries[spec.name], library_ms=None),
         ))

@@ -1,9 +1,11 @@
 """The port stands alone and never falls back to the CPU on its own.
 
 A fresh interpreter imports every module of ``channeld_tpu_torch`` (and
-``chip_smoke``); afterwards neither ``jax`` nor any ``channeld_tpu``
-module may be loaded. Without a CUDA device, the entry points raise
-unless they are given ``device="cpu"``; with one, they land on it.
+``chip_smoke``) and runs the gateway's ``-h``; afterwards neither
+``jax`` nor any ``channeld_tpu`` module may be loaded. Without a CUDA
+device, the entry points (the engine, the sidecar, the gateway's spatial
+controller) raise unless they are given the CPU; with one, they land on
+it.
 """
 
 import os
@@ -53,6 +55,50 @@ for name, call in entry_points.items():
         else:
             raise AssertionError(f"{name} ran without CUDA and without device='cpu'")
 assert SpatialEngine(grid, 8, 2, 2, device="cpu").device.type == "cpu"
+
+# The gateway's controller, as the configs select it.
+from channeld_tpu_torch.core import channel
+from channeld_tpu_torch.core.message import init_message_map
+from channeld_tpu_torch.core.settings import global_settings
+from channeld_tpu_torch.spatial import controller
+
+init_message_map()
+channel.init_channels()
+
+
+def init_controller():
+    controller.init_spatial_controller("config/spatial_tpu_4x4.json")
+    ctl = controller.get_spatial_controller()
+    assert type(ctl).__name__ == "GPUSpatialController", type(ctl)
+    return ctl.engine.device
+
+
+if torch.cuda.is_available():
+    assert init_controller().type == "cuda"
+else:
+    try:
+        init_controller()
+    except RuntimeError as e:
+        assert "CUDA" in str(e), e
+    else:
+        raise AssertionError("the controller ran without CUDA and without -spatial-device cpu")
+global_settings.spatial_device = "cpu"
+assert init_controller().type == "cpu"
+
+# The gateway's entry point, as `python -m channeld_tpu_torch -h` runs it.
+import runpy
+
+sys.argv = ["channeld_tpu_torch", "-h"]
+try:
+    runpy.run_module("channeld_tpu_torch", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    assert e.code in (0, None), e.code
+else:
+    raise AssertionError("-h did not exit")
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.")
+                or m == "channeld_tpu" or m.startswith("channeld_tpu."))
+assert not leaked, leaked
 print("ISOLATED", len(names))
 """
 
@@ -63,3 +109,11 @@ def test_port_imports_nothing_of_jax_and_does_not_fall_back():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "ISOLATED" in out.stdout
+
+
+def test_gateway_entry_point_help_exits_zero():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-m", "channeld_tpu_torch", "-h"], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "-spatial-device" in out.stdout
