@@ -360,7 +360,9 @@ class DeviceGuard:
             # stall in the controller) and handed on as numpy so the
             # controller's handover_list/_publish_due add no new
             # transfers: the consume blob (one transfer, parsed and
-            # cached on the result by the engine) ...
+            # cached on the result by the engine; a cells-plane mesh
+            # tick's blob also carries the overflow count and the
+            # undelivered slots the controller's shed reads) ...
             count, rows, _, due = engine.consume(result)
             result["handover_count"] = count
             result["handovers"] = rows

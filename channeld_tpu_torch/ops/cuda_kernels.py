@@ -43,6 +43,7 @@ import torch
 from .spatial_ops import (
     QuerySet,
     aoi_geometry,
+    apply_spots_block,
     apply_spots_overlay,
     assign_cells,
     cell_counts,
@@ -430,6 +431,24 @@ def aoi_masks_cuda(grid, queries: QuerySet):
         queries.direction, torch.cos(queries.angle),
     )
     return apply_spots_overlay(hit, dist, queries)
+
+
+def aoi_block_cuda(grid, queries: QuerySet, cell_base: int, cell_count: int,
+                   spot_dist_slice=None):
+    """The counterpart of ``aoi_masks_for_cells`` over the block of global
+    cell ids [cell_base, cell_base + cell_count), which may run past the
+    grid into padding ids (never interested): K2 over the block, then
+    the spots overlay of the table's ``[Q, cell_count]`` slice. The
+    cell-sharded plane's per-shard AOI."""
+    hit, dist = aoi_tile(
+        grid, queries.kind, queries.center, queries.extent,
+        queries.direction, torch.cos(queries.angle), cell_base, cell_count,
+    )
+    if spot_dist_slice is None:
+        return hit, dist
+    ids = torch.arange(cell_base, cell_base + cell_count, dtype=torch.int32,
+                       device=queries.kind.device)
+    return apply_spots_block(grid, hit, dist, queries.kind, ids, spot_dist_slice)
 
 
 # ---- what chip_smoke.py and the tests read -------------------------------

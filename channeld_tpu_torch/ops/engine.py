@@ -1,12 +1,22 @@
 """SpatialEngine: device-resident spatial decision state and its tick.
 
-The port of ``channeld_tpu/ops/engine.py`` for one device (the JAX
-engine with ``mesh=None``). Host-side façade over the step in
-``spatial_ops``: fixed-capacity slot arrays with a free-list for dynamic
-entity membership, a query table for client AOI interests, and the
-fan-out subscription clock. One ``tick()`` performs the whole per-frame
-decision pass on the engine's device (through the CUDA kernels when it
-is a CUDA device) and returns the step's tensors.
+The port of ``channeld_tpu/ops/engine.py``. Host-side façade over the
+step in ``spatial_ops``: fixed-capacity slot arrays with a free-list for
+dynamic entity membership, a query table for client AOI interests, and
+the fan-out subscription clock. One ``tick()`` performs the whole
+per-frame decision pass on the engine's device (through the CUDA
+kernels when it is a CUDA device) and returns the step's tensors.
+
+With a ``mesh`` (``parallel.spmd.Mesh``) the entity columns are held per
+shard, one tensor per mesh position on its device, and the tick runs the
+sharded step of ``parallel/mesh.py`` (``sharding="entities"``) or the
+cell-sharded serving step of ``parallel/spatial_alltoall.py``
+(``sharding="cells"``); queries, subscriptions and every replicated
+result live on the first shard's device (``self.device``). The serving
+results are the single-device engine's whenever no redistribution
+bucket overflows. A mesh tick reads the host once too: its ``consume``
+blob also carries the per-shard handover counts and, on the cells
+plane, the overflow and the ``undelivered`` mask.
 
 Dirty rows are staged host-side between ticks and shipped as one row
 scatter per table per tick (``index_copy_`` in place, where the JAX
@@ -22,9 +32,6 @@ plane (``seed_agents`` … ``sim_warmup``: agents in ordinary entity
 slots, stepped on the device before the spatial pass), and the recovery
 surface (``rebuild_device_state``, ``apply_grid``,
 ``verify_device_state``, ``corrupt_device_state_for_chaos``).
-
-Not in this slice: mesh sharding (``mesh``, ``sharding="cells"``,
-``cell_bucket``), which raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -74,17 +81,37 @@ class SpatialEngine:
         """``device``: where the tables live and the step runs; ``cuda``
         by default (raises without a CUDA device), ``"cpu"`` only when
         asked for. ``grid`` is any object with the six GridSpec fields.
-        ``mesh``/``sharding``/``cell_bucket`` select the multi-device
-        planes, which the port does not have yet. ``query_rows_max`` is
-        the standing-query plane's changed-rows budget per tick."""
+        ``query_rows_max`` is the standing-query plane's changed-rows
+        budget per tick.
+
+        ``mesh``: a ``parallel.spmd.Mesh`` to shard the entity slot
+        arrays over (``parallel.mesh.make_mesh``/``make_mesh_2d``/
+        ``mesh_from_config``); None = the single-device step. With a mesh
+        the tables live on its devices, the replicated ones on the first
+        (``device``, if given, must be of the same kind), and capacity is
+        rounded up to a multiple of the shard count. ``sharding`` picks
+        the meshed step: "entities" (psum occupancy, replicated AOI) or
+        "cells" (space-partitioned: all_to_all redistribution to
+        per-shard cell blocks + column-block AOI). "cells" with
+        ``cell_bucket`` > 0 caps the per-(source, dest) redistribution
+        bucket; overflowed entities are reported undelivered and
+        re-offered next tick (0 = exact delivery). Both only matter with
+        a mesh."""
         if sharding not in ("entities", "cells"):
             raise ValueError(f"unknown sharding {sharding!r}")
-        if mesh is not None or sharding != "entities" or cell_bucket:
-            raise NotImplementedError(
-                "mesh-sharded engines belong to the multi-device planes, "
-                "which the port does not have yet"
-            )
-        self.device = resolve_device(device)
+        self._mesh = mesh
+        self._sharding = sharding
+        self._cell_bucket = cell_bucket
+        self._mesh_step = None
+        if mesh is not None:
+            if device is not None and resolve_device(device).type != mesh.replica.type:
+                raise ValueError(f"device {device} is not of the mesh's kind ({mesh.replica})")
+            n_dev = mesh.size
+            # Entity arrays shard evenly over every mesh axis.
+            entity_capacity = ((entity_capacity + n_dev - 1) // n_dev) * n_dev
+            self.device = mesh.replica
+        else:
+            self.device = resolve_device(device)
         self.grid = grid
         self.entity_capacity = entity_capacity
         self.query_capacity = query_capacity
@@ -148,10 +175,10 @@ class SpatialEngine:
         self._sub_dirty_slots: set[int] = set()  # interval+active cols
         self._sub_last_dirty: set[int] = set()  # last-fan-out column
 
-        dev = self.device
-        self._d_positions = torch.zeros((entity_capacity, 3), dtype=torch.float32, device=dev)
-        self._d_valid = torch.zeros(entity_capacity, dtype=torch.bool, device=dev)
-        self._d_cell = torch.full((entity_capacity,), -1, dtype=torch.int32, device=dev)
+        # Entity columns: one tensor, or one per shard with a mesh.
+        self._d_positions = self._entity_upload(self._positions)
+        self._d_valid = self._entity_upload(self._valid)
+        self._d_cell = self._entity_upload(np.full(entity_capacity, -1, np.int32))
         self._d_queries: Optional[QuerySet] = None
         self._d_sub_state: Optional[tuple] = None
 
@@ -190,8 +217,9 @@ class SpatialEngine:
 
         self._start = time.monotonic()
         self.last_result: Optional[dict] = None
-        # The JAX engine's count of entities a cells-sharded mesh tick
-        # could not deliver; always 0 on one device.
+        # Entities the last consumed cells-plane tick could not deliver
+        # (its redistribution buckets were full); set when ``consume``
+        # reads the tick, always 0 otherwise.
         self.last_overflow = 0
         # Abandoned-step fence: a step abandoned by a watchdog must not
         # commit its tail state over a rebuilt engine (tick() re-checks
@@ -385,7 +413,10 @@ class SpatialEngine:
         ``entries`` is [(entity_id, x, y, z)]. ``vels``/``states``/
         ``targets`` restore a census (WAL replay, federation adoption);
         a fresh spawn starts IDLE at rest, targeting its own position.
-        Returns the slots used."""
+        Mesh-sharded engines don't run the sim pass (the step is
+        single-device, as in the JAX package). Returns the slots used."""
+        if self._mesh is not None:
+            raise RuntimeError("sim plane requires a single-device engine")
         slots = []
         for i, (eid, x, y, z) in enumerate(entries):
             slot = self.add_entity(eid, float(x), float(y), float(z))
@@ -466,11 +497,12 @@ class SpatialEngine:
         caller holds from an earlier tick changes."""
         live = self.agent_slots()
         n = max(1, len(live) // 4)
-        rows = torch.from_numpy(live[:n].astype(np.int64)).to(self.device)
-        self._d_cell = self._d_cell.index_fill(0, rows, 1 << 24)
-        self._d_positions = self._d_positions.index_fill(0, rows, float("nan"))
+        rows = live[:n].astype(np.int64)
+        self._d_cell = self._entity_fill(self._d_cell, rows, 1 << 24)
+        self._d_positions = self._entity_fill(self._d_positions, rows, float("nan"))
         if self._d_vel is not None:
-            self._d_vel = self._d_vel.index_fill(0, rows, float("nan"))
+            self._d_vel = self._d_vel.index_fill(
+                0, torch.from_numpy(rows).to(self.device), float("nan"))
 
     def _count_sim_rebuild(self, result: str) -> None:
         """Double-entry sim rebuild accounting: the Python ledger and the
@@ -495,6 +527,64 @@ class SpatialEngine:
         idx = np.fromiter(rows, np.int64, len(rows))
         return idx, torch.from_numpy(idx).to(self.device)
 
+    # Entity columns are one tensor, or with a mesh one tensor per shard
+    # (shard s holds slots [s * size, (s + 1) * size) on its device):
+    # these helpers route host rows to where they live.
+
+    def _entity_upload(self, arr: np.ndarray):
+        """A device copy of a whole host entity column."""
+        if self._mesh is None:
+            return self._upload(arr)
+        size = arr.shape[0] // self._mesh.size
+        return [torch.tensor(arr[s * size:(s + 1) * size], device=d)
+                for s, d in enumerate(self._mesh.devices)]
+
+    def _stage_entity_rows(self, idx: np.ndarray, values) -> list:
+        """Rows for the entity slots ``idx`` (``values``: one host array
+        per column, aligned with ``idx``), uploaded where they will be
+        stored: [(shard or None, device index, [rows])]."""
+        if self._mesh is None:
+            d_idx = torch.from_numpy(idx).to(self.device)
+            return [(None, d_idx, [self._upload(v) for v in values])]
+        # One upload per column, rows ordered by shard, then split on the
+        # device (a view, or a device-to-device copy to another card).
+        size = self.entity_capacity // self._mesh.size
+        order = np.argsort(idx // size, kind="stable")
+        shard_of = idx[order] // size
+        counts = np.bincount(shard_of, minlength=self._mesh.size).tolist()
+        local = torch.from_numpy(idx[order] - shard_of * size).to(self.device)
+        columns = [self._upload(v[order]) for v in values]
+        staged = []
+        for s, parts in enumerate(zip(local.split(counts), *(c.split(counts) for c in columns))):
+            if counts[s]:
+                dev = self._mesh.devices[s]
+                staged.append((s, parts[0].to(dev), [p.to(dev) for p in parts[1:]]))
+        return staged
+
+    @staticmethod
+    def _store_entity_rows(targets, staged) -> None:
+        """Scatter staged rows into the entity columns ``targets``, in place."""
+        for shard, d_idx, rows in staged:
+            for dst, src in zip(targets, rows):
+                (dst if shard is None else dst[shard]).index_copy_(0, d_idx, src)
+
+    def _entity_fill(self, column, slots: np.ndarray, value):
+        """A new entity column with the rows ``slots`` set to ``value``."""
+        if self._mesh is None:
+            return column.index_fill(0, torch.from_numpy(slots).to(self.device), value)
+        size = self.entity_capacity // self._mesh.size
+        out = []
+        for s, part in enumerate(column):
+            rows = slots[(slots // size) == s] - s * size
+            out.append(part.index_fill(0, torch.from_numpy(rows).to(part.device), value))
+        return out
+
+    def _entity_host(self, column) -> np.ndarray:
+        """A whole entity column on the host (recovery path only)."""
+        if self._mesh is None:
+            return column.cpu().numpy()
+        return np.concatenate([part.cpu().numpy() for part in column])
+
     def _flush_host_state(self, expect_generation: Optional[int] = None) -> None:
         def _fence() -> None:
             # Stale-tick fence: a watchdog-abandoned worker that unwedges
@@ -507,19 +597,17 @@ class SpatialEngine:
 
         _fence()
         if self._dirty_slots:
-            idx, d_idx = self._stage_rows(self._dirty_slots)
-            pos = self._upload(self._positions[idx])
-            valid = self._upload(self._valid[idx])
+            idx = np.fromiter(self._dirty_slots, np.int64, len(self._dirty_slots))
+            staged = self._stage_entity_rows(idx, (self._positions[idx], self._valid[idx]))
             _fence()
-            self._d_positions.index_copy_(0, d_idx, pos)
-            self._d_valid.index_copy_(0, d_idx, valid)
+            self._store_entity_rows((self._d_positions, self._d_valid), staged)
             self._dirty_slots.clear()
         if self._seed_cells:
-            _, d_idx = self._stage_rows(self._seed_cells.keys())
-            cells = self._upload(np.fromiter(
-                self._seed_cells.values(), np.int32, len(self._seed_cells)))
+            idx = np.fromiter(self._seed_cells.keys(), np.int64, len(self._seed_cells))
+            cells = np.fromiter(self._seed_cells.values(), np.int32, len(self._seed_cells))
+            staged = self._stage_entity_rows(idx, (cells,))
             _fence()
-            self._d_cell.index_copy_(0, d_idx, cells)
+            self._store_entity_rows((self._d_cell,), staged)
             self._seed_cells.clear()
         if self.sim_enabled:
             sim_host = (self._vel, self._sim_state, self._sim_target, self._agent_mask)
@@ -638,7 +726,8 @@ class SpatialEngine:
         sim_committed = None
         census_due = False
         positions = self._d_positions
-        if self.sim_enabled and self.run_sim_pass and self._d_vel is not None:
+        if (self.sim_enabled and self.run_sim_pass and self._mesh is None
+                and self._d_vel is not None):
             flee = self._d_flee
             if flee is None:
                 flee = torch.zeros(num_cells(self.grid), dtype=torch.bool, device=self.device)
@@ -649,16 +738,19 @@ class SpatialEngine:
             )
             positions = sim_committed[0]
             census_due = self.sim_census_due
-        out = spatial_step(
-            self.grid,
-            positions,
-            self._d_cell,
-            self._d_valid,
-            self._d_queries,
-            self._d_sub_state,
-            self.max_handovers,
-            int(now_ms),
-        )
+        if self._mesh is not None:
+            out = self._mesh_tick(now_ms)
+        else:
+            out = spatial_step(
+                self.grid,
+                positions,
+                self._d_cell,
+                self._d_valid,
+                self._d_queries,
+                self._d_sub_state,
+                self.max_handovers,
+                int(now_ms),
+            )
         q_prev = None
         if self.track_query_changes:
             prev = self._d_q_prev
@@ -711,20 +803,93 @@ class SpatialEngine:
         self.last_result = out
         return out
 
+    def _mesh_step_fn(self):
+        """The sharded step, built once per (grid, with_spots)."""
+        with_spots = self._d_queries.spot_dist is not None
+        if self._mesh_step is None or self._mesh_step.with_spots != with_spots:
+            n_shards = self._mesh.size
+            per_shard = max(1, -(-self.max_handovers // n_shards))
+            if self._sharding == "cells":
+                from ..parallel.spatial_alltoall import build_cell_serving_step
+
+                bucket = self._cell_bucket or (self.entity_capacity // n_shards)
+                self._mesh_step = build_cell_serving_step(
+                    self.grid, self._mesh, bucket, per_shard, with_spots)
+            else:
+                from ..parallel.mesh import build_sharded_step
+
+                self._mesh_step = build_sharded_step(
+                    self.grid, self._mesh, per_shard, with_spots)
+        return self._mesh_step
+
+    def _mesh_tick(self, now_ms: int) -> dict:
+        """The sharded decision pass, normalized to the single-device
+        result contract, with its ``consume`` blob. Reads nothing back:
+        the merge of the per-shard rows and the overflow happen when the
+        blob is consumed."""
+        from ..parallel.mesh import mesh_consume_blob
+
+        step = self._mesh_step_fn()
+        args = (step, self._d_positions, self._d_cell, self._d_valid,
+                self._d_queries, self._d_sub_state, now_ms)
+        if self._sharding == "cells":
+            from ..parallel.spatial_alltoall import cell_serving_spatial_step
+
+            out = cell_serving_spatial_step(*args)
+        else:
+            from ..parallel.mesh import sharded_spatial_step
+
+            out = sharded_spatial_step(*args)
+        out["consume"] = mesh_consume_blob(out, self._mesh)
+        # Rows per shard as the step was built (the budget, clamped to a
+        # shard's slots), for parsing the blob.
+        out["rows_per_shard"] = int(out["handovers"].shape[1])
+        return out
+
+    def undelivered_slots(self, result: dict) -> list[int]:
+        """Slots whose cells-plane redistribution bucket was full this
+        tick (empty for exact delivery / other shardings), read with the
+        tick's consume blob. They remain in the ingest arrays and are
+        re-offered automatically next tick; the controller sheds visibly
+        (metric + security log)."""
+        if result.get("undelivered") is None:
+            return []
+        self.consume(result)
+        return np.nonzero(result["undelivered_host"])[0].tolist()
+
     # ---- reading a tick's results on the host ----------------------------
 
     def consume(self, result: dict) -> tuple[int, np.ndarray, np.ndarray, np.ndarray]:
         """(handover_count, handover rows i32[K,3], cell counts i32[C],
         due u8[S]) of a tick, from ONE device->host copy of the step's
         ``consume`` blob. The parsed blob is cached on the result dict,
-        so every reader of the tick shares that one transfer."""
+        so every reader of the tick shares that one transfer.
+
+        A mesh tick's rows are every shard's reported rows merged in
+        shard order, and its count is theirs (``merge_handover_shards``,
+        as the JAX engine reports it: it can exceed ``max_handovers``,
+        since per-shard budgets round up). On the cells plane the same
+        read sets ``last_overflow`` and caches the ``undelivered`` mask
+        for ``undelivered_slots``."""
         parsed = result.get("consume_host")
         if parsed is None:
             blob = result["consume"].cpu().numpy()
-            parsed = parse_consume_blob(
-                blob, min(self.max_handovers, self.entity_capacity),
-                num_cells(self.grid), self.sub_capacity,
-            )
+            if self._mesh is None:
+                parsed = parse_consume_blob(
+                    blob, min(self.max_handovers, self.entity_capacity),
+                    num_cells(self.grid), self.sub_capacity,
+                )
+            else:
+                from ..parallel.mesh import parse_mesh_consume_blob
+
+                parsed, overflow, undelivered = parse_mesh_consume_blob(
+                    blob, self._mesh.size, result["rows_per_shard"],
+                    num_cells(self.grid), self.sub_capacity,
+                    self.entity_capacity if "undelivered" in result else 0,
+                )
+                if undelivered is not None:
+                    result["undelivered_host"] = undelivered
+                    self.last_overflow = overflow
             result["consume_host"] = parsed
         return parsed
 
@@ -833,9 +998,9 @@ class SpatialEngine:
             now_ms = self.now_ms()
         if expect_generation is None:
             expect_generation = self.generation
-        d_positions = self._upload(self._positions)
-        d_valid = self._upload(self._valid)
-        d_cell = self._upload(self._cell_baselines(slot_cells))
+        d_positions = self._entity_upload(self._positions)
+        d_valid = self._entity_upload(self._valid)
+        d_cell = self._entity_upload(self._cell_baselines(slot_cells))
         if expect_generation != self.generation:
             raise RuntimeError("stale rebuild abandoned by watchdog")
         self.generation += 1
@@ -881,6 +1046,8 @@ class SpatialEngine:
         spots table re-rasterizes from each query's spots; the flee mask
         is dropped (its owner re-rasterizes it for the new geometry)."""
         self.grid = grid
+        # The grid is baked into the mesh step: rebuilt on the next tick.
+        self._mesh_step = None
         self._q_spot_dist = None
         self._d_spot_dist = None
         self._spot_dirty_rows.clear()
@@ -901,12 +1068,15 @@ class SpatialEngine:
         def same(dev: torch.Tensor, host: np.ndarray, equal_nan: bool = False) -> bool:
             return np.array_equal(dev.cpu().numpy(), host, equal_nan=equal_nan)
 
+        def same_entity(column, host: np.ndarray, equal_nan: bool = False) -> bool:
+            return np.array_equal(self._entity_host(column), host, equal_nan=equal_nan)
+
         errors: list[str] = []
-        if not same(self._d_positions, self._positions, True):
+        if not same_entity(self._d_positions, self._positions, True):
             errors.append("positions differ from host shadow")
-        if not same(self._d_valid, self._valid):
+        if not same_entity(self._d_valid, self._valid):
             errors.append("valid mask differs from host shadow")
-        if not same(self._d_cell, self._cell_baselines(slot_cells)):
+        if not same_entity(self._d_cell, self._cell_baselines(slot_cells)):
             errors.append("cell baselines differ from placement seeds")
         if self._d_queries is not None:
             for name, dev, host, has_nan in (
@@ -948,10 +1118,8 @@ class SpatialEngine:
         cells in the next tick's handover rows, the readback sentinel's
         signature) and NaN positions on a disjoint quarter. New tensors,
         like the reference's functional updates."""
-        live = list(self._slot_of_entity.values())
+        live = np.fromiter(self._slot_of_entity.values(), np.int64, len(self._slot_of_entity))
         n = max(1, len(live) // 4)
-        garbage = torch.tensor(live[:n], dtype=torch.int64, device=self.device)
-        nan_rows = torch.tensor(live[n:2 * n], dtype=torch.int64, device=self.device)
-        self._d_cell = self._d_cell.index_fill(0, garbage, 1 << 24)
-        if len(nan_rows):
-            self._d_positions = self._d_positions.index_fill(0, nan_rows, float("nan"))
+        self._d_cell = self._entity_fill(self._d_cell, live[:n], 1 << 24)
+        if len(live[n:2 * n]):
+            self._d_positions = self._entity_fill(self._d_positions, live[n:2 * n], float("nan"))

@@ -22,8 +22,10 @@ Serving properties (as in the reference):
 Port specifics: the engine runs on ``device`` (``cuda`` unless the
 server is created with ``device="cpu"``); a step reads the tick back
 with one blob transfer, plus one transfer of just the interest rows it
-reports. The multi-device engine is not ported yet, so
-``meshDevices > 1`` answers INVALID_ARGUMENT. ``grpc`` and
+reports. ``meshDevices``/``meshHosts`` shard the engine over that many
+devices of the server's kind (``parallel.mesh.mesh_from_config``); a
+mesh wider than the cards present answers INVALID_ARGUMENT, as the JAX
+sidecar does. ``grpc`` and
 ``service_pb2`` (protobuf) are imported lazily, inside this module only,
 so ``channeld_tpu_torch.ops`` imports without them; ``install`` and
 ``decide`` drive the same decision pass in-process without either.
@@ -181,14 +183,16 @@ class SpatialDecisionServicer:
 
     def install(self, request) -> None:
         """Build and swap in a fresh engine for a ConfigRequest (or any
-        object with its fields). Raises _ConfigError for a mesh."""
+        object with its fields). Raises _ConfigError for a mesh the
+        devices present cannot hold."""
+        from ..parallel.mesh import mesh_from_config
         from .engine import SpatialEngine
 
-        if request.meshDevices > 1:
-            raise _ConfigError(
-                f"meshDevices={request.meshDevices}: the multi-device engine "
-                "is not ported yet; use 0 or 1"
-            )
+        try:
+            mesh = mesh_from_config(request.meshDevices, request.meshHosts or 1,
+                                    device=self.device)
+        except ValueError as e:
+            raise _ConfigError(str(e)) from e
         engine = SpatialEngine(
             GridSpec(
                 offset_x=request.worldOffsetX,
@@ -201,6 +205,7 @@ class SpatialDecisionServicer:
             entity_capacity=request.entityCapacity or (1 << 17),
             query_capacity=request.queryCapacity or (1 << 12),
             sub_capacity=request.subCapacity or (1 << 16),
+            mesh=mesh,
             device=self.device,
         )
         # Builds the kernels on CUDA, so the first Step does not pay nvcc.
@@ -208,9 +213,10 @@ class SpatialDecisionServicer:
         with self._swap_lock:
             self._state = _EngineState(engine)
         logger.info(
-            "configured engine on %s: %dx%d grid, %d entity slots",
+            "configured engine on %s: %dx%d grid, %d entity slots, mesh=%s",
             self.device, request.gridCols, request.gridRows,
             request.entityCapacity or (1 << 17),
+            f"{request.meshDevices}dev" if request.meshDevices else "none",
         )
 
     def decide(self, request, caller: object = "in-process") -> StepDecision:

@@ -215,6 +215,15 @@ class QuerySet(NamedTuple):
     spot_dist: Optional[torch.Tensor] = None  # i32[Q,C]; -1 = no interest
 
 
+def cell_centres(grid, cell_ids):
+    """(x, z) f32[Cb] of the cells ``cell_ids``: ``(col + 0.5) * w + offset``,
+    the product rounded before the sum (see ROADMAP.md, F6)."""
+    cols = int(grid.cols)
+    col = (cell_ids % cols).to(torch.float32)
+    row = torch.div(cell_ids, cols, rounding_mode="floor").to(torch.float32)
+    return (col + 0.5) * grid.cell_w + grid.offset_x, (row + 0.5) * grid.cell_h + grid.offset_z
+
+
 def aoi_geometry(grid, kind, center, extent, direction, cos_angle, cell_ids):
     """Geometric interest of every query in the cells ``cell_ids``.
 
@@ -225,11 +234,7 @@ def aoi_geometry(grid, kind, center, extent, direction, cos_angle, cell_ids):
     and sum is a separate op (no FMA), mirroring the kernel's
     ``__fmul_rn``/``__fadd_rn``.
     """
-    cols = int(grid.cols)
-    col = (cell_ids % cols).to(torch.float32)
-    row = torch.div(cell_ids, cols, rounding_mode="floor").to(torch.float32)
-    ccx = (col + 0.5) * grid.cell_w + grid.offset_x  # [Cb]
-    ccz = (row + 0.5) * grid.cell_h + grid.offset_z
+    ccx, ccz = cell_centres(grid, cell_ids)  # [Cb]
     cell_valid = (cell_ids >= 0) & (cell_ids < num_cells(grid))
     half_w = grid.cell_w * 0.5
     half_h = grid.cell_h * 0.5
@@ -288,10 +293,18 @@ def aoi_masks_for_cells(grid, queries: QuerySet, cell_ids, spot_dist_slice=None)
         grid, queries.kind, queries.center, queries.extent,
         queries.direction, torch.cos(queries.angle), cell_ids,
     )
+    return apply_spots_block(grid, hit, dist, queries.kind, cell_ids, spot_dist_slice)
+
+
+def apply_spots_block(grid, hit, dist, kind, cell_ids, spot_dist_slice):
+    """The spots overlay of ``aoi_masks_for_cells`` on geometric planes
+    over the cells ``cell_ids``: a spots query's interest is its table's
+    ``[Q, Cb]`` slice (``>= 0``) in cells inside the grid, with the
+    table's dist there. ``spot_dist_slice`` None = no spots queries."""
     if spot_dist_slice is None:
         return hit, dist
     cell_valid = (cell_ids >= 0) & (cell_ids < num_cells(grid))
-    is_spots = queries.kind[:, None] == AOI_SPOTS
+    is_spots = kind[:, None] == AOI_SPOTS
     spots_hit = (spot_dist_slice >= 0) & cell_valid[None, :]
     hit = torch.where(is_spots, spots_hit, hit)
     dist = torch.where(is_spots & spots_hit, spot_dist_slice, dist)

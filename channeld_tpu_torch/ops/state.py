@@ -41,6 +41,11 @@ The per-tick flags (``run_sim_pass``, ``sim_census_due``,
 
 The state is taken between ticks with nothing staged: every mutation
 made since the last tick must have been flushed by a tick first.
+
+A meshed engine (the JAX engine's sharded arrays arrive as numpy in
+global slot order) loads into a port engine built over a mesh of the
+same size: its entity columns are split into the port's per-shard
+tensors.
 """
 
 from __future__ import annotations
@@ -116,9 +121,9 @@ def load_reference_state(engine: SpatialEngine, state: dict) -> None:
     # The sim columns and the flee mask re-upload whole on the flush.
     engine._d_vel = engine._d_sim_state = engine._d_sim_target = None
     engine._d_agent = engine._d_flee = None
-    engine._d_positions = engine._upload(engine._positions)
-    engine._d_valid = engine._upload(engine._valid)
-    engine._d_cell = engine._upload(prev_cell)
+    engine._d_positions = engine._entity_upload(engine._positions)
+    engine._d_valid = engine._entity_upload(engine._valid)
+    engine._d_cell = engine._entity_upload(prev_cell)
     engine._d_spot_dist = None
     engine._d_queries = None
     engine._queries_dirty = True

@@ -12,9 +12,10 @@ unchanged on this package's gateway:
 
 The engine lives on ``global_settings.spatial_device`` (``cuda`` unless
 ``-spatial-device cpu``), and its kernels are built in ``load_config``,
-before listeners open. One device only: a mesh (``MeshDevices``,
-``MeshHosts``), ``Sharding: "cells"`` or ``CellBucket`` raise
-NotImplementedError.
+before listeners open. ``MeshDevices``/``MeshHosts`` shard it over that
+many devices of that kind (``parallel.mesh.mesh_from_config``: the first
+cards, or shards on the CPU); ``Sharding``/``CellBucket`` pick the
+meshed plane, as in the JAX controller.
 
 Inherits all control-plane behavior (channel creation, regions, border
 subscriptions, AOI query host semantics) from StaticGrid2DSpatialController
@@ -75,6 +76,7 @@ class GPUSpatialController(StaticGrid2DSpatialController):
         self._due_pending: dict[int, dict[int, int]] = {}  # ch_id -> {slot: seq}
         self._device_sub_count = 0
         self._shed_logged: dict[str, float] = {}  # table -> last log time
+        self._overflow_logged = -1e9
         # Overload deferrals (doc/overload.md): crossings past the L2+
         # per-tick orchestration cap wait here, keyed by entity so a
         # chain of deferred moves collapses into ONE crossing from the
@@ -112,18 +114,6 @@ class GPUSpatialController(StaticGrid2DSpatialController):
     def load_config(self, config: dict) -> None:
         import time as _time
 
-        # The controller Config's MeshDevices/MeshHosts keys win over the
-        # -mesh-devices/-mesh-hosts flags; a mesh belongs to the
-        # multi-device planes, which this package does not have yet.
-        mesh_devices = int(config.get("MeshDevices",
-                                      global_settings.tpu_mesh_devices))
-        mesh_hosts = int(config.get("MeshHosts",
-                                    global_settings.tpu_mesh_hosts))
-        if mesh_devices > 0 or mesh_hosts > 1:
-            raise NotImplementedError(
-                "a meshed spatial engine belongs to the multi-device "
-                "planes, which this package does not have yet"
-            )
         super().load_config(config)
         from ..ops.engine import SpatialEngine
         from ..ops.spatial_ops import GridSpec
@@ -132,8 +122,26 @@ class GPUSpatialController(StaticGrid2DSpatialController):
         # grid controller's load_config (polymorphic: the device-side
         # cleanup in our untrack_entity override still runs).
 
-        # Sharding/CellBucket select the cells-sharded plane, which the
-        # engine refuses (NotImplementedError) like a mesh.
+        # Mesh selection: the controller Config's MeshDevices/MeshHosts keys
+        # win over the -mesh-devices/-mesh-hosts flags. With a mesh, the
+        # live serving engine runs the sharded step over the mesh's
+        # devices, on the engine's device kind — the gateway-facing
+        # results are identical (pinned by
+        # tests/test_torch_mesh.py::test_meshed_engine_equals_jax_and_single_device).
+        from ..parallel.mesh import mesh_from_config
+
+        mesh = mesh_from_config(
+            int(config.get("MeshDevices", global_settings.tpu_mesh_devices)),
+            int(config.get("MeshHosts", global_settings.tpu_mesh_hosts)),
+            device=global_settings.spatial_device,
+        )
+        if mesh is not None:
+            logger.info("spatial engine meshed over %s", mesh)
+
+        # Sharding selection: Config {"Sharding": "cells"} serves from the
+        # space-partitioned plane (all_to_all redistribution + column-block
+        # AOI); default "entities" is the psum plane. Only meaningful with
+        # a mesh.
         self._refresh_micro()
         t0 = _time.monotonic()
         self.engine = SpatialEngine(
@@ -147,6 +155,7 @@ class GPUSpatialController(StaticGrid2DSpatialController):
             ),
             entity_capacity=global_settings.tpu_entity_capacity,
             query_capacity=global_settings.tpu_query_capacity,
+            mesh=mesh,
             sharding=str(config.get("Sharding", "entities")),
             cell_bucket=int(config.get("CellBucket", 0)),
             query_rows_max=global_settings.queryplane_rows_max,
@@ -162,10 +171,11 @@ class GPUSpatialController(StaticGrid2DSpatialController):
         # open: a cold nvcc build inside a guarded step would miss the
         # watchdog deadline and read as a hang.
         self.engine.warmup()
-        if global_settings.sim_enabled:
+        if global_settings.sim_enabled and mesh is None:
             # On-device world simulation (channeld_tpu_torch/sim;
             # doc/simulation.md): spawn/restore the agent population and
-            # warm the sim step — still before listeners open.
+            # warm the sim step — still before listeners open. The sim
+            # step is single-device; a meshed engine skips the plane.
             from ..sim.plane import SimPlane
 
             self.simplane = SimPlane(self, self.engine)
@@ -748,6 +758,26 @@ class GPUSpatialController(StaticGrid2DSpatialController):
         # handover-list readback.
         _trace.stage("device_step", int(t0 * 1e9))
         metrics.tpu_entities.set(self.engine.entity_count())
+        if "overflow" in result:
+            # Cells-plane bucket overflow: the undelivered entities stay
+            # in the ingest arrays and are re-offered next tick; surface
+            # the shed so a sustained overflow is operator-visible. The
+            # count and the slots came with the tick's consume blob.
+            overflow = self.engine.last_overflow
+            metrics.tpu_cell_overflow.set(overflow)
+            if overflow:
+                # Cumulative counter so a soak can assert the shed path
+                # actually fired even when the final tick was clean.
+                metrics.tpu_cell_overflow_total.inc(overflow)
+            if overflow and _time.monotonic() - self._overflow_logged >= 5.0:
+                self._overflow_logged = _time.monotonic()
+                from ..utils.logger import security_logger
+
+                security_logger().warning(
+                    "cells-plane bucket overflow: %d entities undelivered "
+                    "this tick (slots %s...), re-offered next tick",
+                    overflow, self.engine.undelivered_slots(result)[:8],
+                )
         if self.simplane is not None:
             # Census-cadence absorb/journal/commit (a no-op on every
             # non-census tick beyond one counter diff).

@@ -29,3 +29,21 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "no CUDA device available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def mesh_devices(n: int, device: Optional[Union[str, torch.device]] = None) -> list[torch.device]:
+    """The devices of an ``n``-shard mesh on ``device``'s kind (``cuda``
+    when None, as ``resolve_device``): on the CPU, ``n`` shards on
+    ``cpu`` (the port's counterpart of XLA's virtual host devices); on
+    CUDA, the first ``n`` cards, and ValueError when fewer are present.
+    Never spreads shards over fewer cards on its own: a mesh with
+    repeated devices is built explicitly with ``parallel.mesh.make_mesh``."""
+    if n < 1:
+        raise ValueError(f"a mesh needs at least one device, got {n}")
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return [torch.device("cpu")] * n
+    present = torch.cuda.device_count()
+    if present < n:
+        raise ValueError(f"mesh wants {n} devices but only {present} present")
+    return [torch.device("cuda", i) for i in range(n)]

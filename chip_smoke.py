@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --gateway 50000 30   # phase 6a alone, at another size
+    python3 chip_smoke.py --mesh               # phase 7 alone
 
 Needs one CUDA card, nvcc, and the ``channeld_tpu_torch`` package beside
 this file; imports nothing of JAX or of ``channeld_tpu``. Phases (each
@@ -79,7 +80,35 @@ prints one line; any failure exits non-zero before the final line):
       interest update; SIGTERM must end it with exit code 0;
    c. threads: two engines ticked from two threads on one card keep
       K1's counts exact against the plain version;
-7. if grpc and protobuf are installed, one real sidecar round trip on
+7. the multi-device planes (``channeld_tpu_torch/parallel``), on 8
+   shards over the cards present (all on one card when there is one,
+   which it prints), each held against the same mesh on the CPU, every
+   int and bool output equal on every tick (each mismatch printed):
+   a. the steps at the sidecar's width (1<<17 slots, 4,096 queries of
+      every kind with spots, 65,536 subscriptions, 4,096 handover rows,
+      BENCH_GRID): the entity-sharded step on 8 shards and on a (2, 4)
+      mesh and the cells serving step on 8 shards with a bucket the
+      storm overflows, 30 ticks of 100,000 moving entities with churn,
+      a burst past one shard's 512 rows and a storm; also against the
+      single-device step on the card fed the same inputs (every output
+      on ticks without overflow); K1 once per shard per tick, K2 once
+      (entities) or once per shard (cells), each exact against its
+      plain version on the live tensors; step times by host clock and
+      CUDA events beside the single-device step's, 5 profiled ticks;
+      then the halo plane on SIM_GRID (100,000 entities, 8 rows per
+      shard) against the dense computation;
+   b. ``SpatialEngine(mesh=...)`` in both shardings at the same width
+      with the standing-query plane on, 30 ticks through the engine API
+      against the meshed engine on the CPU and the unmeshed engine on
+      the card (counts only on ticks without bucket overflow); 2 reads
+      per steady tick; rebuild, corrupt + rebuild and ``apply_grid``,
+      each verified clean;
+   c. the gateway (phase 6a's world, cut to 5,000 entities x 12 ticks)
+      with ``Sharding: "cells"``, ``MeshDevices`` = min(cards, 8) and a
+      ``CellBucket`` that overflows, card leg against CPU leg tick for
+      tick (handovers, tables, outbound streams, changed rows,
+      undelivered slots, the ``tpu_cell_overflow_total`` delta);
+8. if grpc and protobuf are installed, one real sidecar round trip on
    ``cuda`` (otherwise says it was not run).
 
 The line before the last is a JSON object with one entry per kernel
@@ -87,12 +116,14 @@ The line before the last is a JSON object with one entry per kernel
 this run's shapes; ``ms`` is the kernel alone by events, ``call_ms`` one
 wrapper call; ``launches`` on the sidecar path, ``launches_by_path`` on
 each path (the gateway's shapes are the sidecar's), ``sim_path`` the
-same figures at the sim world's shapes); the
+same figures at the sim world's shapes, ``mesh_path`` at one shard's
+shapes of phase 7 with the launches per mesh tick); the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import importlib.util
 import json
@@ -524,7 +555,7 @@ def config_request():
     return NS(worldOffsetX=BENCH_GRID["offset_x"], worldOffsetZ=BENCH_GRID["offset_z"],
               gridWidth=BENCH_GRID["cell_w"], gridHeight=BENCH_GRID["cell_h"],
               gridCols=BENCH_GRID["cols"], gridRows=BENCH_GRID["rows"],
-              entityCapacity=0, queryCapacity=0, subCapacity=0, meshDevices=0)
+              entityCapacity=0, queryCapacity=0, subCapacity=0, meshDevices=0, meshHosts=0)
 
 
 def same_decision(a, b) -> list[str]:
@@ -602,6 +633,19 @@ def phase_main_path(K, service, dev, steps: int = 30) -> dict:
     return counts
 
 
+def device_rows(prof, n: int) -> list:
+    """[(name, device ms per tick, launches per tick)] of the device-side
+    events of a torch.profiler trace over n ticks: kernels, copies and
+    fills. The CPU-side operator events are left out: some carry the
+    device time of the kernels they launch as their own, which would
+    count that time twice."""
+    from torch.autograd import DeviceType
+
+    return [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+
+
 def profile_window(servicer, load, first_step: int, n: int = 5) -> None:
     """Where a step's time goes: n more steps under torch.profiler,
     after the counted run. Prints device time per step (kernels and
@@ -619,9 +663,7 @@ def profile_window(servicer, load, first_step: int, n: int = 5) -> None:
             servicer.decide(req)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    rows = [(e.key, getattr(e, "self_device_time_total", 0) / 1e3 / n, e.count // n)
-            for e in prof.key_averages()]
-    rows = [r for r in rows if r[1] > 0]
+    rows = [(k, ms, int(c)) for k, ms, c in device_rows(prof, n)]
     device_ms = sum(r[1] for r in rows)
     if not rows:
         print("profile: the trace recorded no device time (not measured)")
@@ -849,9 +891,7 @@ def profile_ticks(world: SimWorld, first: int, n: int = 5) -> dict:
             world.tick(first + i)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n
-    rows = [(e.key, getattr(e, "self_device_time_total", 0) / 1e3 / n, e.count / n)
-            for e in prof.key_averages()]
-    rows = [r for r in rows if r[1] > 0]
+    rows = device_rows(prof, n)
     if not rows:
         return dict(wall_ms=wall, busy_ms=None, idle=None, k1=None, k2=None, top=[])
     busy = sum(r[1] for r in rows)
@@ -1122,6 +1162,7 @@ def gateway_modules() -> NS:
                  control_pb2="protocol.control_pb2", sim_pb2="models.sim_pb2",
                  sim_models="models.sim", controller="spatial.controller",
                  balancer="spatial.balancer", partition="spatial.partition",
+                 metrics="core.metrics",
                  sim_plane="sim.plane", ops="ops.spatial_ops", logger="utils.logger")
     return NS(**{k: importlib.import_module(f"channeld_tpu_torch.{v}") for k, v in names.items()})
 
@@ -1170,7 +1211,7 @@ class GatewayWorld:
         P.channel.init_channels()
         P.sim_models.register_sim_types()
         t0 = time.perf_counter()
-        P.controller.init_spatial_controller(GATEWAY_CONFIG)
+        P.controller.init_spatial_controller(size.get("config", GATEWAY_CONFIG))
         self.load_s = time.perf_counter() - t0
         ctl = self.ctl = P.controller.get_spatial_controller()
         self.eng = ctl.engine
@@ -1369,12 +1410,16 @@ class GatewayWorld:
         for cid in self.spatial:
             tables.update(chans[cid].get_data_message().SerializeToString(deterministic=True))
         guard = P.guard.guard
+        overflow = P.metrics.tpu_cell_overflow_total._value.get()
+        delta = int(overflow - getattr(self, "overflow_total", overflow))
+        self.overflow_total = overflow
         return dict(
             handovers=[r for rows in self.handovers[crossings:] for r in rows], q=(count, digest([rows[: min(count, len(rows))]])[0]),
             tables=tables.hexdigest(),
             sent={c.id: (c.count, c.digest.hexdigest()) for c in self.conns},
             guard=(guard.state.name, dict(guard.failure_counts), guard.held_ticks),
-            sim=digest(sim_columns(eng)), census=census,
+            sim=digest(sim_columns(eng)) if eng._d_vel is not None else None, census=census,
+            overflow=delta, undelivered=eng.undelivered_slots(result),
             tick_ms=(t3 - t0) * 1e3, global_ms=(t2 - t1) * 1e3,
             step_ms=self.step_ms[steps] if len(self.step_ms) > steps else None,
             reads=reads.count, syncs=reads.syncs)
@@ -1387,7 +1432,7 @@ class GatewayWorld:
 def first_gateway_diff(a: dict, b: dict) -> Optional[str]:
     """The first observation of one tick that differs between the legs,
     with its detail (None when the tick is equal)."""
-    for key in ("handovers", "tables", "q", "sim", "census", "guard"):
+    for key in ("handovers", "tables", "q", "sim", "census", "guard", "overflow", "undelivered"):
         if a[key] != b[key]:
             if key == "handovers":
                 i = next((i for i, (x, y) in enumerate(zip(a[key], b[key])) if x != y),
@@ -1428,9 +1473,7 @@ def profile_gateway(world: GatewayWorld, first: int, n: int = 5) -> dict:
             world.tick(first + i)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n
-    rows = [(e.key, getattr(e, "self_device_time_total", 0) / 1e3 / n, e.count / n)
-            for e in prof.key_averages()]
-    rows = [r for r in rows if r[1] > 0]
+    rows = device_rows(prof, n)
     if not rows:
         return dict(wall_ms=wall, busy_ms=None, idle=None, k1=None, k2=None, top=[])
     busy = sum(r[1] for r in rows)
@@ -1733,6 +1776,749 @@ def phase_sidecar(service, dev) -> None:
         server.stop(None)
 
 
+# ---- the multi-device planes (phase 7) ------------------------------------
+
+# 7a/7b: the sidecar's width (1<<17 slots, 4,096 queries of every kind,
+# 65,536 subscription slots, 4,096 handover rows) on BENCH_GRID over 8
+# shards; 7c: phase 6a's world on a mesh, cut to 5,000 entities x 12 ticks.
+MESH_SHARDS = 8
+MESH_SIZE = dict(entities=100_000, slots=1 << 17, queries=4096, subs=1 << 16, rows=4096,
+                 ticks=30, burst=10, storm=20)
+MESH_GATEWAY = dict(entities=5_000, ticks=12)
+
+
+def mesh_cards(n: int = MESH_SHARDS) -> list:
+    """n shards over the cards present, round-robin: a real multi-card
+    mesh where there are 2 or more, shards sharing one card otherwise."""
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i % count) for i in range(n)]
+
+
+def sync_cards() -> None:
+    """Wait for every card (``torch.cuda.synchronize()`` waits for the
+    current one only)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def mesh_note() -> str:
+    count = torch.cuda.device_count()
+    return (f"{count} cards: a real multi-card mesh" if count >= 2
+            else "1 card: the shards were virtual, all on cuda:0")
+
+
+class MeshLoad:
+    """Phase 7a's seeded traffic on BENCH_GRID, in slot arrays: 100,000
+    moving entities in 1<<17 slots (pinned NaN/±inf/1e20/boundary rows;
+    50 leave and 50 join per tick), 4,096 queries of every kind with a
+    spots table, 65,536 subscriptions at 33-200 ms. Tick ``burst`` moves
+    entities // 50 (2,000) of shard 2's entities one cell over (past its 512-row
+    budget; the others stay under theirs); tick ``storm`` gathers
+    entities // 8 into cell 7 (block 0 of the cells plane, past its
+    bucket), and they disperse two ticks later."""
+
+    WORLD = 30000.0
+
+    def __init__(self, rng: np.random.Generator, size: dict = MESH_SIZE):
+        self.rng, self.size = rng, size
+        n, cap = size["entities"], size["slots"]
+        lo = self.lo = BENCH_GRID["offset_x"]
+        self.pos = np.zeros((cap, 3), np.float32)
+        self.pos[:n] = rng.uniform(lo, lo + self.WORLD, (n, 3))
+        self.pos[:, 1] = 0.0
+        self.valid = np.zeros(cap, bool)
+        self.valid[:n] = True
+        speed, heading = rng.uniform(0, 60, cap), rng.uniform(0, 2 * np.pi, cap)
+        self.vel = np.stack([speed * np.cos(heading), np.zeros(cap), speed * np.sin(heading)],
+                            axis=1).astype(np.float32)
+        self.pos[:6, 0] = [np.nan, np.inf, -np.inf, 1e20, -15000.0, 1000.0]
+        self.pos[:6, 2] = [0.0, 0.0, 0.0, 0.0, -13000.0, np.nan]
+        self.vel[:6] = 0.0
+        grid = NS(**BENCH_GRID)
+        c = grid.cols * grid.rows
+        self.grid = grid
+        q = size["queries"]
+        kind, center, extent, direction, angle = (
+            t.numpy() for t in query_inputs(grid, q, rng, "cpu"))
+        spot = np.full((q, c), -1, np.int32)
+        for row in np.nonzero(kind == 4)[0]:
+            cells = rng.choice(c, int(rng.integers(1, 8)), replace=False)
+            spot[row, cells] = rng.integers(0, 6, cells.size)
+        self.queries = (kind, center, extent, direction, angle, spot)
+        s = size["subs"]
+        self.subs = (rng.integers(0, 200, s).astype(np.int32),
+                     rng.integers(33, 201, s).astype(np.int32), rng.random(s) < 0.9)
+        self.crowd = None
+
+    def wrap(self, v):
+        with np.errstate(invalid="ignore"):
+            return ((v - self.lo) % self.WORLD + self.lo).astype(np.float32)
+
+    def step(self, t: int):
+        """(positions, valid) of tick t."""
+        r, size, cap = self.rng, self.size, self.size["slots"]
+        live = np.nonzero(self.valid)[0]
+        live = live[live >= 6]
+        moved = self.pos[live] + self.vel[live]
+        self.pos[live, 0], self.pos[live, 2] = self.wrap(moved[:, 0]), self.wrap(moved[:, 2])
+        shard = cap // MESH_SHARDS
+        if t == size["burst"]:
+            mine = live[(live >= 2 * shard) & (live < 3 * shard)]
+            burst = r.choice(mine, size["entities"] // 50, replace=False)
+            self.pos[burst, 0] = self.wrap(self.pos[burst, 0] + 2000.0)
+        if t == size["storm"]:
+            cx, cz = self.lo + 7.5 * 2000.0, self.lo + 0.5 * 2000.0  # cell 7: block 0
+            self.crowd = r.choice(live, size["entities"] // 8, replace=False)
+            self.pos[self.crowd, 0] = cx + r.uniform(-800, 800, self.crowd.size)
+            self.pos[self.crowd, 2] = cz + r.uniform(-800, 800, self.crowd.size)
+        if t == size["storm"] + 2:
+            self.pos[self.crowd, 0] = r.uniform(self.lo, self.lo + self.WORLD, self.crowd.size)
+            self.pos[self.crowd, 2] = r.uniform(self.lo, self.lo + self.WORLD, self.crowd.size)
+        if t > 0:  # churn: 50 leave, 50 join in free slots
+            self.valid[r.choice(live, 50, replace=False)] = False
+            free = np.nonzero(~self.valid)[0]
+            join = r.choice(free[free >= 6], 50, replace=False)
+            self.valid[join] = True
+            self.pos[join, 0::2] = r.uniform(self.lo, self.lo + self.WORLD, (50, 2))
+        return self.pos.copy(), self.valid.copy()
+
+
+def flat(x) -> torch.Tensor:
+    """A step output as one CPU tensor (per-shard lists concatenated)."""
+    if isinstance(x, (list, tuple)):
+        return torch.cat([p.cpu() for p in x])
+    return x.cpu()
+
+
+def mesh_diffs(card: dict, cpu: dict, label: str) -> list[str]:
+    """Every output of a mesh step that differs between the card and the
+    CPU leg, with where."""
+    out = []
+    for key, value in cpu.items():
+        a, b = flat(card[key]), flat(value)
+        if a.shape != b.shape or not torch.equal(a, b):
+            where = ((a != b).nonzero()[:3].tolist() if a.shape == b.shape
+                     else f"shapes {tuple(a.shape)} vs {tuple(b.shape)}")
+            out.append(f"{label}: {key} differs at {where}")
+    return out
+
+
+class MeshStepRun:
+    """One mesh configuration of phase 7a on one device kind: the step
+    function and the committed state (prev_cell per shard, last fan-out)
+    advanced from its own results."""
+
+    def __init__(self, grid, mesh, kind: str, bucket: int, per_shard: int):
+        from channeld_tpu_torch.parallel import mesh as PM
+        from channeld_tpu_torch.parallel import spatial_alltoall as PA
+
+        self.mesh, self.kind = mesh, kind
+        if kind == "cells":
+            self.step = PA.build_cell_serving_step(grid, mesh, bucket, per_shard, True)
+            self.drive = PA.cell_serving_spatial_step
+        else:
+            self.step = PM.build_sharded_step(grid, mesh, per_shard, True)
+            self.drive = PM.sharded_spatial_step
+        self.prev = None
+        self.last = None
+
+    def tick(self, load_arrays, now_ms: int) -> dict:
+        pos, valid, queries, subs = load_arrays
+        dev = self.mesh.replica
+        if self.prev is None:
+            self.prev = torch.full((pos.shape[0],), -1, dtype=torch.int32, device=dev)
+            self.last = subs[0]
+        out = self.drive(self.step, pos, self.prev, valid, queries,
+                         (self.last, subs[1], subs[2]), now_ms)
+        self.prev, self.last = out["committed_prev"], out["new_last_fanout_ms"]
+        return out
+
+
+def mesh_inputs(ops, load: MeshLoad, pos, valid, dev):
+    kind, center, extent, direction, angle, spot = load.queries
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    queries = ops.QuerySet(t(kind), t(center), t(extent), t(direction), t(angle), t(spot))
+    return t(pos), t(valid), queries, tuple(t(a) for a in load.subs)
+
+
+def mesh_kernel_entries(K, ops, grid, pos, valid, queries, n_shards: int) -> dict:
+    """K1 and K2 at one shard's shapes of this path (16,384 slots x 225
+    bins; 4,096 queries x one 29-cell block, the last running past the
+    grid), each exact against its plain version, with times and bounds."""
+    from channeld_tpu_torch.parallel.spatial_alltoall import cells_per_shard
+
+    n = pos.shape[0] // n_shards
+    c = grid.num_cells
+    p, v = pos[:n].contiguous(), valid[:n].contiguous()
+    err1 = max_abs_diff(zip(K.assign_and_count(grid, p, v), K.assign_and_count_plain(grid, p, v)))
+    check(err1 == 0, f"K1 at one shard's shape differs from plain (max |diff| {err1})")
+    blk = cells_per_shard(grid, n_shards)
+    base = (n_shards - 1) * blk
+    args = (queries.kind, queries.center, queries.extent, queries.direction,
+            torch.cos(queries.angle))
+    q = args[0].shape[0]
+    err2 = max_abs_diff(zip(K.aoi_tile(grid, *args, base, blk),
+                            K.aoi_tile_plain(grid, *args, base, blk)))
+    check(err2 == 0, f"K2 on the last block differs from plain (max |diff| {err2})")
+    ids = [i for i in range(base, base + blk) if i < c]
+    axes = len({i % grid.cols for i in ids}) + len({i // grid.cols for i in ids})
+    b1, by1 = bound_ms(p.numel() * 4 + n + 4 * n + 4 * c, ASSIGN_OPS_PER_SLOT * n)
+    b2, by2 = bound_ms(q * (4 + 3 * 8 + 4) + q * blk * 5,
+                       AOI_OPS_PER_PAIR * q * len(ids) + AOI_OPS_PER_AXIS * q * axes)
+    out = {
+        "assign_count": dict(
+            shape=f"{n} slots x {c} bins per shard", max_abs_err=err1, bound_ms=b1,
+            bound_by=by1, ms=queued_ms(K.prepare_assign_count(grid, p, v).run),
+            plain_ms=median_ms(lambda: K.assign_and_count_plain(grid, p, v)), library_ms=None),
+        "aoi": dict(
+            shape=f"{q} x {blk} pairs per shard (cell_base {base}, ids to {base + blk - 1} "
+                  f"of {c})", max_abs_err=err2, bound_ms=b2, bound_by=by2,
+            ms=queued_ms(K.prepare_aoi(grid, *args, base, blk).run),
+            plain_ms=median_ms(lambda: K.aoi_tile_plain(grid, *args, base, blk), reps=20,
+                               warmup=2), library_ms=None),
+    }
+    for name, e in out.items():
+        print(f"{name} at the mesh path's per-shard shape ({e['shape']}): exact; alone "
+              f"{e['ms']:.4f} ms (events, bare launches), plain {e['plain_ms']:.4f} ms, "
+              f"bound {e['bound_ms']:.5f} ms ({e['bound_by']})")
+    return out
+
+
+class StepTicker:
+    """A mesh run ticked by profile_ticks (the tick's inputs re-sent)."""
+
+    def __init__(self, run: MeshStepRun, inputs):
+        self.run, self.inputs = run, inputs
+
+    def tick(self, t: int) -> None:
+        self.run.tick(self.inputs, 1000 + 33 * t)
+
+
+def phase_mesh_steps(K, ops) -> tuple[dict, dict]:
+    """7a: the entity-sharded step on 8 shards and on a (2, 4) mesh, the
+    cells serving step on 8 shards with a bucket the storm overflows, on
+    the card, each tick against the same mesh on the CPU (exactly) and,
+    on ticks without overflow, against the single-device step on the
+    card fed the same inputs; then the halo plane at the sim world's
+    grid against the dense computation. Returns (launches on this path,
+    the kernels' per-shard entries)."""
+    from channeld_tpu_torch.parallel import mesh as PM
+    from channeld_tpu_torch.parallel import spatial_alltoall as PA
+
+    grid = ops.GridSpec(**BENCH_GRID)
+    cards, cpus = mesh_cards(), [torch.device("cpu")] * MESH_SHARDS
+    dev = cards[0]
+    per_shard = -(-MESH_SIZE["rows"] // MESH_SHARDS)
+    first = MeshLoad(np.random.default_rng(SEED + 7))
+    bucket = storm_bucket(ops, grid, first.pos, first.valid, MESH_SIZE["entities"] // 8)
+    configs = [("entities 8", lambda d: PM.make_mesh(d), "entities"),
+               ("entities 2x4", lambda d: PM.make_mesh_2d(2, d), "entities"),
+               ("cells 8", lambda d: PA.make_space_mesh(d), "cells")]
+    ticks = MESH_SIZE["ticks"]
+    launches = {"assign_count": 0, "aoi": 0}
+    mismatches: list[str] = []
+    t_phase = time.perf_counter()
+    kernels = None
+    for label, make, kind in configs:
+        load = MeshLoad(np.random.default_rng(SEED + 7))
+        card = MeshStepRun(grid, make(cards), kind, bucket, per_shard)
+        cpu = MeshStepRun(grid, make(cpus), kind, bucket, per_shard)
+        host_ms, event_ms, single_ms, compared, overflow_ticks = [], [], [], 0, []
+        for t in range(ticks):
+            pos, valid = load.step(t)
+            now = 1000 + 33 * t
+            ins = mesh_inputs(ops, load, pos, valid, dev)
+            prev_in = [p.clone() for p in card.prev] if card.prev is not None else None
+            last_in = card.last.clone() if card.last is not None else ins[3][0]
+            sync_cards()
+            K.reset_launch_counts()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = card.tick(ins, now)
+            end.record()
+            sync_cards()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            event_ms.append(start.elapsed_time(end))
+            got = K.launch_counts()
+            want = {"assign_count": MESH_SHARDS, "aoi": MESH_SHARDS if kind == "cells" else 1}
+            if got != want:
+                mismatches.append(f"{label} tick {t}: launches {got}, not {want}")
+            for k in launches:
+                launches[k] += got[k]
+            ref = cpu.tick(mesh_inputs(ops, load, pos, valid, "cpu"), now)
+            mismatches += mesh_diffs(out, ref, f"{label} tick {t}")
+            # The single-device step on the same inputs: equal wherever
+            # nothing overflowed (no shard past its rows, no bucket full).
+            prev_single = (torch.cat([p.to(dev) for p in prev_in]) if prev_in is not None
+                           else torch.full((pos.shape[0],), -1, dtype=torch.int32, device=dev))
+            t1 = time.perf_counter()
+            single = ops.spatial_step(grid, ins[0], prev_single, ins[1], ins[2],
+                                      (last_in, ins[3][1], ins[3][2]), MESH_SIZE["rows"], now)
+            sync_cards()
+            single_ms.append((time.perf_counter() - t1) * 1e3)
+            # What does not depend on a budget is always equal; the rows
+            # and the committed baseline only while no shard is past its
+            # rows, the counts only while no bucket is full.
+            keys = ["cell_of", "interest", "dist", "due", "new_last_fanout_ms"]
+            rows_over = bool((out["handover_counts"].cpu() > per_shard).any())
+            bucket_over = kind == "cells" and int(out["overflow"].sum()) > 0
+            if rows_over or bucket_over:
+                overflow_ticks.append(t)
+            if not bucket_over:
+                keys.append("cell_counts")
+            if not rows_over:
+                keys.append("committed_prev")
+                count, rows = PM.merge_handover_shards(out["handover_counts"], out["handovers"])
+                want_rows = single["handovers"][: int(single["handover_count"])].cpu().numpy()
+                if count != int(single["handover_count"]) or rows.tolist() != want_rows.tolist():
+                    mismatches.append(f"{label} tick {t}: handovers differ from the single-device "
+                                      f"step ({count} vs {int(single['handover_count'])})")
+            compared += not (rows_over or bucket_over)
+            for key in keys:
+                if not torch.equal(flat(out[key]), single[key].cpu()):
+                    mismatches.append(f"{label} tick {t}: {key} differs from the single-device "
+                                      f"step")
+        for line in mismatches[:60]:
+            print(f"MISMATCH {line}")
+        check(not mismatches, f"7a {label}: {len(mismatches)} mismatches (printed above)")
+        check(overflow_ticks, f"7a {label}: no tick overflowed")
+        check(compared >= MESH_SIZE["burst"], f"7a {label}: only {compared} ticks without "
+              f"overflow to compare whole with the single-device step")
+        # K1 and K2 on the last tick's live shard tensors, against plain.
+        shards = card.mesh.size
+        for s, (p, v) in enumerate(zip(torch.chunk(ins[0], shards), torch.chunk(ins[1], shards))):
+            err = max_abs_diff(zip(K.assign_and_count(grid, p, v),
+                                   K.assign_and_count_plain(grid, p, v)))
+            check(err == 0, f"7a {label}: K1 on shard {s}'s live tensors differs from plain")
+        if kind == "cells":
+            blk = PA.cells_per_shard(grid, shards)
+            q = ins[2]
+            args = (q.kind, q.center, q.extent, q.direction, torch.cos(q.angle))
+            for s in range(shards):
+                err = max_abs_diff(zip(K.aoi_tile(grid, *args, s * blk, blk),
+                                       K.aoi_tile_plain(grid, *args, s * blk, blk)))
+                check(err == 0, f"7a {label}: K2 on block {s}'s live tensors differs from plain")
+            kernels = mesh_kernel_entries(K, ops, grid, ins[0], ins[1], ins[2], shards)
+        prof = profile_ticks(StepTicker(card, ins), ticks)
+
+        def stats(xs):
+            return f"median {statistics.median(xs):.3f} ms p99 {float(np.percentile(xs, 99)):.3f} ms"
+
+        print(f"7a {label} ({kind} plane, mesh {card.mesh.shape}): {ticks} ticks of "
+              f"{MESH_SIZE['entities']} moving entities on cuda equal the same mesh on the CPU "
+              f"on every output; equal to the single-device step on every output of the "
+              f"{compared} ticks without overflow, and on all but the rows, baseline and (bucket "
+              f"full) counts of the overflow ticks {overflow_ticks}; launches per tick K1 "
+              f"{MESH_SHARDS}, K2 {MESH_SHARDS if kind == 'cells' else 1}; step host "
+              f"{stats(host_ms[1:])}, events {stats(event_ms[1:])}; single-device step host "
+              f"{stats(single_ms[1:])}")
+        if prof["busy_ms"] is None:
+            print(f"7a {label} profile: the trace recorded no device time (not measured)")
+        else:
+            print(f"7a {label} profile (5 ticks): tick wall {prof['wall_ms']:.2f} ms, device "
+                  f"busy {prof['busy_ms']:.3f} ms, idle share {prof['idle']:.4f}; K1 "
+                  f"{prof['k1']:g} and K2 {prof['k2']:g} per tick; top: " + "; ".join(
+                      f"{k[:40]} {ms:.3f} ms x{c:g}" for k, ms, c in prof["top"]))
+    phase_halo_plane(K, ops, cards)
+    print(f"7a: {time.perf_counter() - t_phase:.1f} s; {mesh_note()}")
+    return launches, kernels
+
+
+def phase_halo_plane(K, ops, cards, ticks: int = 3) -> None:
+    """7a, the ingest plane with ring halos: 100,000 entities on the sim
+    world's 64x64 grid of 100 m cells (8 rows per shard), on the card
+    against the CPU (exactly) and against the dense computation."""
+    from channeld_tpu_torch.parallel import spatial_alltoall as PA
+
+    grid = ops.GridSpec(**SIM_GRID)
+    rng = np.random.default_rng(SEED + 8)
+    cap, n = MESH_SIZE["slots"], MESH_SIZE["entities"]
+    pos = np.zeros((cap, 3), np.float32)
+    pos[:n, 0::2] = rng.uniform(0, 6400, (n, 2))
+    valid = np.zeros(cap, bool)
+    valid[:n] = True
+    ids = np.arange(cap, dtype=np.int32) + 0x80000
+    bucket = cap // MESH_SHARDS // 4  # twice a shard's even share per block
+    card = PA.build_cell_sharded_step(grid, PA.make_space_mesh(cards), bucket)
+    cpu = PA.build_cell_sharded_step(grid, PA.make_space_mesh(["cpu"] * MESH_SHARDS), bucket)
+    launches = {"assign_count": 0, "aoi": 0}
+    for t in range(ticks):
+        pos[:n, 0::2] = np.clip(pos[:n, 0::2] + rng.uniform(-30, 30, (n, 2)), 0, 6399.9)
+        args = [torch.from_numpy(a.copy()) for a in (pos, valid, ids)]
+        K.reset_launch_counts()
+        got = card(*(a.to(cards[0]) for a in args))
+        for k, v in K.launch_counts().items():
+            launches[k] += v
+        want = cpu(*args)
+        names = ("owned_ids", "owned_cells", "owned_xyz", "counts", "halo_lo", "halo_hi",
+                 "undelivered", "overflow")
+        bad = [name for name, a, b in zip(names, got, want) if not torch.equal(a.cpu(), b)]
+        for name in bad:
+            print(f"MISMATCH 7a halo plane tick {t}: {name} differs between cuda and cpu")
+        check(not bad, f"7a halo plane tick {t}: cuda and cpu differ in {bad}")
+        counts = got[3].cpu()
+        dense = ops.cell_counts(ops.assign_cells(grid, args[0], args[1]), grid.num_cells)
+        check(torch.equal(counts.reshape(-1), dense), f"7a halo plane tick {t}: counts differ "
+              f"from the dense histogram")
+        check(int(got[7].sum()) == 0, f"7a halo plane tick {t}: a bucket overflowed")
+        cols = grid.cols
+        for s in range(MESH_SHARDS):
+            lo = counts[s - 1][-cols:] if s > 0 else torch.zeros(cols, dtype=torch.int32)
+            hi = counts[s + 1][:cols] if s < MESH_SHARDS - 1 else torch.zeros(cols, dtype=torch.int32)
+            check(torch.equal(got[4][s].cpu(), lo) and torch.equal(got[5][s].cpu(), hi),
+                  f"7a halo plane tick {t}: shard {s}'s halos are not its neighbours' rows")
+        owned = got[0].cpu().reshape(-1)
+        check(sorted(owned[owned >= 0].tolist()) == ids[:n].tolist(),
+              f"7a halo plane tick {t}: entities lost or delivered twice")
+    check(launches == {"assign_count": ticks * MESH_SHARDS, "aoi": 0},
+          f"7a halo plane launched {launches}")
+    print(f"7a halo plane: {ticks} ticks of {n} entities on the 64x64 grid over "
+          f"{MESH_SHARDS} shards of 8 rows, bucket {bucket}: cuda equal to cpu on every output, "
+          f"counts equal to the dense histogram, halos equal to the neighbours' rows, every "
+          f"entity delivered once; K1 {launches['assign_count']} launches")
+
+
+class MeshEngineLoad:
+    """Phase 7b's seeded traffic through the engine API at the sidecar's
+    width: 100,000 entities on BENCH_GRID of which a fifth move each tick
+    (50 leave and 50 join), 4,096 standing queries (sphere, box, cone,
+    and spots on every ninth), 16,384 subscriptions at 33-200 ms with
+    churn; tick ``storm`` gathers entities // 50 (2,000) into cell 7
+    (past the cells plane's bucket for block 0, under every row budget),
+    and they disperse two ticks later."""
+
+    WORLD = 30000.0
+
+    def __init__(self, rng: np.random.Generator, n: int, queries: int, subs: int, storm: int):
+        self.rng, self.storm = rng, storm
+        self.crowd_size = n // 50
+        self.lo = BENCH_GRID["offset_x"]
+        self.ids = list(range(0x80001, 0x80001 + n))
+        self.next_id = self.ids[-1] + 1
+        self.pos = {e: (float(x), 0.0, float(z)) for e, (x, z) in
+                    zip(self.ids, rng.uniform(self.lo, self.lo + self.WORLD, (n, 2)))}
+        self.n_queries, self.n_subs = queries, subs
+        self.subs: list[int] = []
+
+    def point(self):
+        x, z = self.rng.uniform(self.lo, self.lo + self.WORLD, 2)
+        return float(np.float32(x)), 0.0, float(np.float32(z))
+
+    def query(self, conn: int):
+        r = self.rng
+        if conn % 9 == 0:
+            spots = [tuple(float(v) for v in r.uniform(self.lo, self.lo + self.WORLD, 2))
+                     for _ in range(int(r.integers(1, 6)))]
+            return ("set_spots_query", conn, spots,
+                    [int(d) for d in r.integers(0, 5, int(r.integers(0, len(spots) + 1)))] or None)
+        d = r.normal(size=2)
+        return ("set_query", conn, int(r.integers(1, 4)), self.point()[::2],
+                tuple(float(v) for v in r.uniform(100, 8000, 2)), (float(d[0]), float(d[1])),
+                float(r.uniform(0.05, 1.5)))
+
+    def setup(self) -> list:
+        ops = [("add_entity", e, *p) for e, p in self.pos.items()]
+        ops += [self.query(c) for c in range(1, self.n_queries + 1)]
+        ops += [("add_subscription", int(self.rng.integers(33, 201)),
+                 int(self.rng.integers(0, 200))) for _ in range(self.n_subs)]
+        return ops
+
+    def step(self, t: int) -> list:
+        r, ops = self.rng, []
+        for i in r.choice(len(self.ids), len(self.ids) // 5, replace=False):
+            e = self.ids[i]
+            x, _, z = self.pos[e]
+            x = float(np.float32((x + r.uniform(-60, 60) - self.lo) % self.WORLD + self.lo))
+            z = float(np.float32((z + r.uniform(-60, 60) - self.lo) % self.WORLD + self.lo))
+            self.pos[e] = (x, 0.0, z)
+            ops.append(("update_entity", e, x, 0.0, z))
+        if t == self.storm:
+            cx, cz = self.lo + 7.5 * 2000.0, self.lo + 0.5 * 2000.0  # cell 7: block 0
+            self.crowd = [self.ids[i] for i in r.choice(len(self.ids), self.crowd_size,
+                                                        replace=False)]
+            for e in self.crowd:
+                self.pos[e] = (float(np.float32(cx + r.uniform(-800, 800))), 0.0,
+                               float(np.float32(cz + r.uniform(-800, 800))))
+                ops.append(("update_entity", e, *self.pos[e]))
+        if t == self.storm + 2:
+            for e in self.crowd:
+                if e in self.pos:
+                    self.pos[e] = self.point()
+                    ops.append(("update_entity", e, *self.pos[e]))
+        if t > 0:
+            for i in sorted(r.choice(len(self.ids), 50, replace=False), reverse=True):
+                e = self.ids.pop(int(i))
+                del self.pos[e]
+                ops.append(("remove_entity", e))
+            for _ in range(50):
+                e, self.next_id = self.next_id, self.next_id + 1
+                self.ids.append(e)
+                self.pos[e] = self.point()
+                ops.append(("add_entity", e, *self.pos[e]))
+            for c in r.choice(self.n_queries, 16, replace=False):
+                ops.append(self.query(int(c) + 1))
+            for s in r.choice(len(self.subs), 50, replace=False) if self.subs else ():
+                ops.append(("reset_sub_clock", self.subs[int(s)], 1000 + 33 * t))
+        return ops
+
+
+def storm_bucket(ops, grid, pos: np.ndarray, valid: np.ndarray, crowd: int) -> int:
+    """A cells-plane bucket that a quiet tick fills to within half of a
+    storm's share and a storm of ``crowd`` entities into block 0 (drawn
+    from every shard that holds entities) overflows: the largest (source
+    shard, block 0) load of the slot arrays ``pos``/``valid`` plus half
+    of each source's share of the crowd."""
+    from channeld_tpu_torch.parallel.spatial_alltoall import cells_per_shard
+
+    cells = ops.assign_cells(grid, torch.from_numpy(pos), torch.from_numpy(valid)).numpy()
+    live = cells >= 0
+    source = np.arange(pos.shape[0])[live] // (pos.shape[0] // MESH_SHARDS)
+    load = np.bincount(source[cells[live] < cells_per_shard(grid, MESH_SHARDS)],
+                       minlength=MESH_SHARDS)
+    return int(load.max()) + crowd // len(np.unique(source)) // 2
+
+
+def apply_ops(engines, ops, load: MeshEngineLoad) -> None:
+    for op in ops:
+        slots = {getattr(eng, op[0])(*op[1:]) for eng in engines}
+        if op[0] == "add_subscription":
+            check(len(slots) == 1, "the engines gave one subscription different slots")
+            load.subs.append(slots.pop())
+
+
+def engine_tick_obs(eng, now: int, reads=None) -> dict:
+    """One engine tick and everything the host reads of it."""
+    t0 = time.perf_counter()
+    with reads if reads is not None else contextlib.nullcontext():
+        result = eng.tick(now)
+        count, rows, counts, due = eng.consume(result)
+        q = eng.query_changed_rows(result)
+        undelivered = eng.undelivered_slots(result)
+    ms = (time.perf_counter() - t0) * 1e3
+    return dict(handovers=eng.handover_list(result), count=count, counts=counts.copy(),
+                due=np.nonzero(due)[0].tolist(), q=(q[0], q[1][: min(q[0], len(q[1]))].tolist()),
+                undelivered=undelivered, overflow=eng.last_overflow, ms=ms)
+
+
+class EngineTicker:
+    def __init__(self, eng):
+        self.eng = eng
+
+    def tick(self, t: int) -> None:
+        self.eng.tick(1000 + 33 * t)
+        self.eng.consume(self.eng.last_result)
+
+
+def phase_mesh_engine(K, engine_mod, ops) -> dict:
+    """7b: SpatialEngine(mesh=...) in both shardings at the sidecar's
+    width with the standing-query plane on, 30 ticks, on the card against
+    the meshed engine on the CPU (exactly) and against the unmeshed
+    engine on the card (counts only on ticks without overflow); reads
+    and host waits per steady tick; rebuild, corrupt + rebuild and
+    apply_grid, each verified clean. Returns launches on this path."""
+    from channeld_tpu_torch.parallel import mesh as PM
+
+    grid = ops.GridSpec(**BENCH_GRID)
+    swap = ops.GridSpec(-15000.0, -15000.0, 1000.0, 1000.0, 30, 30)
+    cards = mesh_cards()
+    dev = cards[0]
+    ticks, storm = MESH_SIZE["ticks"], MESH_SIZE["storm"]
+    launches = {"assign_count": 0, "aoi": 0}
+    caps = dict(entity_capacity=MESH_SIZE["slots"], query_capacity=MESH_SIZE["queries"],
+                sub_capacity=MESH_SIZE["subs"], max_handovers=MESH_SIZE["rows"],
+                query_rows_max=QUERY_ROWS_MAX)
+    t_phase = time.perf_counter()
+    for sharding in ("entities", "cells"):
+        load = MeshEngineLoad(np.random.default_rng(SEED + 9), MESH_SIZE["entities"],
+                              MESH_SIZE["queries"], MESH_SIZE["subs"] // 4, storm)
+        setup = load.setup()
+        bucket = 0
+        if sharding == "cells":
+            # Entities take slots in the order they are added.
+            cap = caps["entity_capacity"]
+            pos = np.zeros((cap, 3), np.float32)
+            pos[:len(load.ids)] = [load.pos[e] for e in load.ids]
+            bucket = storm_bucket(ops, grid, pos, np.arange(cap) < len(load.ids),
+                                  load.crowd_size)
+        card = engine_mod.SpatialEngine(grid, mesh=PM.make_mesh(cards), sharding=sharding,
+                                        cell_bucket=bucket, device="cuda", **caps)
+        cpu = engine_mod.SpatialEngine(grid, mesh=PM.make_mesh(["cpu"] * MESH_SHARDS),
+                                       sharding=sharding, cell_bucket=bucket, device="cpu", **caps)
+        single = engine_mod.SpatialEngine(grid, device=dev, **caps)
+        engines = (card, cpu, single)
+        for eng in engines:
+            eng.warmup()  # on the empty tables: builds the kernels, changes nothing
+            eng.track_query_changes = True
+        apply_ops(engines, setup, load)
+        card_ms, single_ms, reads, syncs, overflow_ticks = [], [], [], [], []
+        single_reads, single_syncs = [], []
+        mismatches: list[str] = []
+        want = {"assign_count": MESH_SHARDS, "aoi": MESH_SHARDS if sharding == "cells" else 1}
+        for t in range(ticks):
+            apply_ops(engines, load.step(t), load)
+            now = 1000 + 33 * t
+            sync_cards()
+            K.reset_launch_counts()
+            r = Reads()
+            a = engine_tick_obs(card, now, r)
+            got = K.launch_counts()
+            if got != want:
+                mismatches.append(f"{sharding} tick {t}: launches {got}, not {want}")
+            for k in launches:
+                launches[k] += got[k]
+            reads.append(r.count)
+            syncs.append(r.syncs)
+            card_ms.append(a["ms"])
+            b = engine_tick_obs(cpu, now)
+            sync_cards()
+            rs = Reads()
+            s = engine_tick_obs(single, now, rs)
+            single_reads.append(rs.count)
+            single_syncs.append(rs.syncs)
+            single_ms.append(s["ms"])
+            for key in ("handovers", "count", "due", "q", "undelivered", "overflow"):
+                if a[key] != b[key]:
+                    mismatches.append(f"{sharding} tick {t}: {key} differs between cuda and cpu")
+            if not np.array_equal(a["counts"], b["counts"]):
+                mismatches.append(f"{sharding} tick {t}: counts differ between cuda and cpu")
+            for key in ("handovers", "due", "q"):
+                if a[key] != s[key]:
+                    mismatches.append(f"{sharding} tick {t}: {key} differs from the unmeshed "
+                                      f"engine")
+            if a["overflow"]:
+                overflow_ticks.append(t)
+            elif not np.array_equal(a["counts"], s["counts"]):
+                mismatches.append(f"{sharding} tick {t}: counts differ from the unmeshed engine")
+        for line in mismatches[:60]:
+            print(f"MISMATCH 7b {line}")
+        check(not mismatches, f"7b {sharding}: {len(mismatches)} mismatches (printed above)")
+        steady = [t for t in range(1, ticks) if t not in (storm, storm + 2)]
+        check(sorted({reads[t] for t in steady}) == [2],
+              f"7b {sharding}: device reads per steady tick {sorted(set(reads))}, not 2")
+        if sharding == "cells":
+            check(storm in overflow_ticks, f"7b cells: the storm did not overflow the bucket "
+                  f"(overflow ticks {overflow_ticks})")
+        prof = profile_ticks(EngineTicker(card), ticks)
+        recover = {}
+        for name, fn in (("rebuild", lambda e: e.rebuild_device_state(cell_seeds(e, grid), 9000)),
+                         ("corrupt_rebuild", lambda e: (e.corrupt_device_state_for_chaos(),
+                                                        e.rebuild_device_state(cell_seeds(e, grid),
+                                                                               9000))),
+                         ("apply_grid", lambda e: e.apply_grid(swap, cell_seeds(e, swap), 9000))):
+            for eng in (card, cpu):
+                t0 = time.perf_counter()
+                fn(eng)
+                errors = eng.verify_device_state(cell_seeds(eng, eng.grid))
+                if eng is card:
+                    sync_cards()
+                    recover[name] = (time.perf_counter() - t0) * 1e3
+                check(not errors, f"7b {sharding} {name} on {eng.device}: verify found {errors}")
+        a, b = engine_tick_obs(card, 10_000), engine_tick_obs(cpu, 10_000)
+        check(all(a[k] == b[k] for k in ("handovers", "count", "due", "q", "undelivered"))
+              and np.array_equal(a["counts"], b["counts"]),
+              f"7b {sharding}: cuda and cpu differ on the tick after apply_grid")
+
+        def stats(xs):
+            return f"median {statistics.median(xs):.3f} ms p99 {float(np.percentile(xs, 99)):.3f} ms"
+
+        print(f"7b engine {sharding} on {MESH_SHARDS} shards (cell_bucket {bucket or 'exact'}): {ticks} "
+              f"ticks at 1<<17 slots, {len(load.ids)} entities (a fifth moving), 4,096 queries, "
+              f"16,384 subscriptions, the standing-query plane on: cuda equal to the CPU mesh on "
+              f"every read, and to the unmeshed engine on handovers, due ids and changed rows "
+              f"(counts on the ticks without overflow; overflow ticks {overflow_ticks}); "
+              f"launches per tick {want}; reads per steady tick {sorted({reads[t] for t in steady})} "
+              f"(unmeshed {sorted({single_reads[t] for t in steady})}), host waits "
+              f"{sorted({syncs[t] for t in steady})} (unmeshed "
+              f"{sorted({single_syncs[t] for t in steady})}); tick+reads host {stats(card_ms[1:])} "
+              f"(unmeshed {stats(single_ms[1:])}); rebuild + verify "
+              f"{recover['rebuild']:.2f} ms, corrupt + rebuild + verify "
+              f"{recover['corrupt_rebuild']:.2f} ms, apply_grid + verify "
+              f"{recover['apply_grid']:.2f} ms, each clean, and the next tick equal on both")
+        if prof["busy_ms"] is None:
+            print(f"7b {sharding} profile: the trace recorded no device time (not measured)")
+        else:
+            print(f"7b {sharding} profile (5 ticks): tick wall {prof['wall_ms']:.2f} ms, device "
+                  f"busy {prof['busy_ms']:.3f} ms, idle share {prof['idle']:.4f}; top: "
+                  + "; ".join(f"{k[:40]} {ms:.3f} ms x{c:g}" for k, ms, c in prof["top"]))
+        del card, cpu, single
+    print(f"7b: {time.perf_counter() - t_phase:.1f} s; {mesh_note()}")
+    return launches
+
+
+def phase_mesh_gateway(K, size: dict = MESH_GATEWAY) -> dict:
+    """7c: phase 6a's world through the port's controller on a mesh
+    (Sharding "cells", MeshDevices = min(cards, 8), a CellBucket below
+    the entities per shard), card leg against CPU leg at the same mesh,
+    tick for tick. Returns launches on this path."""
+    import json
+    import shutil
+    import tempfile
+
+    n_dev = min(torch.cuda.device_count(), MESH_SHARDS)
+    with open(GATEWAY_CONFIG) as f:
+        cfg = json.load(f)
+    # Every entity lives in shard 0's slots (slots are handed out from 0),
+    # so each (source 0, destination) bucket carries its block's share;
+    # a bucket of 15/16 of an even share overflows (on a mesh of one,
+    # every tick, by about entities // 16).
+    bucket = max(1, (size["entities"] * 15) // (16 * n_dev))
+    cfg["Config"].update(MeshDevices=n_dev, Sharding="cells", CellBucket=bucket)
+    scratch = tempfile.mkdtemp(prefix="mesh-gateway-")
+    path = f"{scratch}/spatial_tpu_cells_mesh.json"
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    gsize = dict(gateway_size(size["entities"], size["ticks"]), config=path)
+    ticks = gsize["ticks"]
+    t_phase = time.perf_counter()
+    try:
+        with FixedClock() as clock:
+            world = GatewayWorld(torch.device("cuda", 0), clock, gsize)
+            check(world.eng._mesh is not None and world.eng._mesh.size == n_dev,
+                  "the gateway's engine is not meshed")
+            K.reset_launch_counts()
+            card = [world.tick(t) for t in range(ticks)]
+            launches = K.launch_counts()
+            world.close()
+            del world
+        with FixedClock() as clock:
+            world = GatewayWorld(torch.device("cpu"), clock, gsize)
+            cpu = []
+            for t in range(ticks):
+                cpu.append(world.tick(t))
+                where = first_gateway_diff(card[t], cpu[t])
+                if where is not None:
+                    print(f"MISMATCH 7c gateway tick {t}: {where}")
+                check(where is None, f"7c gateway tick {t}: cuda and cpu differ: {where}")
+            world.close()
+            del world
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    want = {"assign_count": ticks * n_dev, "aoi": ticks * n_dev}
+    check(launches == want, f"7c: launches {launches}, not {want}")
+    overflow = [o["overflow"] for o in card]
+    check(sum(overflow) > 0, "7c: the bucket never overflowed")
+    reads = sorted({o["reads"] for o in card[1:]})
+    check(reads == [2], f"7c: device reads per steady gateway tick {reads}, not 2")
+    handovers = sum(len(o["handovers"]) for o in card)
+    check(handovers > 0, "7c: no handover in the run")
+
+    def stats(xs):
+        return f"median {statistics.median(xs):.3f} ms p99 {float(np.percentile(xs, 99)):.3f} ms"
+
+    print(f"7c gateway on a mesh of {n_dev} (Sharding cells, CellBucket {bucket}): {ticks} "
+          f"GLOBAL ticks of {size['entities']} moving entity channels on {GATEWAY_CONFIG} "
+          f"(storms at {gsize['storms']}; no sim plane on a mesh) on cuda equal the CPU leg "
+          f"tick for tick: handovers ({handovers}), entity tables, every outbound stream, "
+          f"changed query rows, undelivered slots and the tpu_cell_overflow_total delta "
+          f"(per tick {overflow}); launches {launches}; reads per steady tick {reads}, host "
+          f"waits {sorted({o['syncs'] for o in card[1:]})}; tick {stats([o['tick_ms'] for o in card[1:]])}, "
+          f"GLOBAL tick {stats([o['global_ms'] for o in card[1:]])}, guarded device step "
+          f"{stats([o['step_ms'] for o in card[1:]])}; phase {time.perf_counter() - t_phase:.1f} s; "
+          f"{mesh_note() if n_dev > 1 else '1 card: a mesh of one (the mesh path, bucket and shed)'}")
+    return launches
+
+
 def main_gateway(entities: int, ticks: int) -> int:
     """Phase 6a alone at another size (after the device and build
     phases): ``python3 chip_smoke.py --gateway 50000 30``."""
@@ -1752,12 +2538,37 @@ def main_gateway(entities: int, ticks: int) -> int:
     return 0
 
 
+def main_mesh() -> int:
+    """Phase 7 alone (after the device and build phases):
+    ``python3 chip_smoke.py --mesh``."""
+    from channeld_tpu_torch.ops import cuda_kernels as K
+    from channeld_tpu_torch.ops import engine as engine_mod
+    from channeld_tpu_torch.ops import spatial_ops as ops
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    try:
+        name, _ = phase_device()
+        phase_build(K)
+        phase_mesh_steps(K, ops)
+        phase_mesh_engine(K, engine_mod, ops)
+        phase_mesh_gateway(K)
+    except PhaseFailed as e:
+        print(f"FAILED: {e}")
+        return 1
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     if sys.argv[1:2] == ["--gateway"]:
         return main_gateway(int(sys.argv[2]), int(sys.argv[3]))
+    if sys.argv[1:2] == ["--mesh"]:
+        return main_mesh()
     from channeld_tpu_torch.ops import cuda_kernels as K
     from channeld_tpu_torch.ops import engine as engine_mod
     from channeld_tpu_torch.ops import service
@@ -1774,6 +2585,9 @@ def main() -> int:
         gateway_launches = phase_gateway_lockstep(K, dev, gateway_size())
         phase_gateway_live()
         phase_gateway_threads(K, engine_mod, ops, dev)
+        mesh_launches, mesh_entries = phase_mesh_steps(K, ops)
+        mesh_engine_launches = phase_mesh_engine(K, engine_mod, ops)
+        mesh_gateway_launches = phase_mesh_gateway(K)
         phase_sidecar(service, dev)
     except PhaseFailed as e:
         print(f"FAILED: {e}")
@@ -1786,9 +2600,15 @@ def main() -> int:
             replaces=spec.replaces, launches=launches[spec.name],
             launches_by_path={"sidecar": launches[spec.name],
                               "sim_world": sim_launches[spec.name],
-                              "gateway": gateway_launches[spec.name]},
+                              "gateway": gateway_launches[spec.name],
+                              "mesh_steps": mesh_launches[spec.name],
+                              "mesh_engine": mesh_engine_launches[spec.name],
+                              "mesh_gateway": mesh_gateway_launches[spec.name]},
             library_ms=None, **entries[spec.name],
             sim_path=dict(sim_entries[spec.name], library_ms=None),
+            mesh_path=dict(mesh_entries[spec.name], launches_per_mesh_tick={
+                "entities": MESH_SHARDS if spec.name == "assign_count" else 1,
+                "cells": MESH_SHARDS}),
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

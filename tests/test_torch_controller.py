@@ -10,7 +10,9 @@ contention path, and its torch classification: an allocator OOM is
 transient, a sticky CUDA error fatal and terminal), the device due
 mask, the standing-query plane's one changed-rows transfer per tick,
 the sim plane with its census read and WAL replay, ``-profile gpu``,
-and the mesh options the port refuses. The kernels' CUDA side is held
+and the meshed controller (handover parity and the device due mask on
+both shardings, the cells plane's overflow shed, a mesh wider than the
+cards present). The kernels' CUDA side is held
 by ``tests/test_torch_kernels.py`` and ``chip_smoke.py``.
 """
 
@@ -351,7 +353,19 @@ def data_updates(conn):
 
 
 def test_spatial_fanout_consumes_device_due_mask():
-    ctl, _, _ = make_world()
+    run_fanout_consumes_device_due_mask()
+
+
+def test_spatial_fanout_device_due_cells_sharded():
+    """Ports test_device_fanout.py::test_spatial_fanout_device_due_cells_sharded:
+    the same device-due contract served from the cell-sharded plane over
+    8 shards."""
+    ctl = run_fanout_consumes_device_due_mask(MeshDevices=8, Sharding="cells")
+    assert ctl.engine._sharding == "cells" and ctl.engine._mesh.size == 8
+
+
+def run_fanout_consumes_device_due_mask(**cfg):
+    ctl, _, _ = make_world(**cfg)
     ch = get_channel(START)
     ch.init_data(sim_pb2.SimSpatialChannelData(), None)
     client = stub(9)
@@ -378,6 +392,7 @@ def test_spatial_fanout_consumes_device_due_mask():
         if len(data_updates(client)) == 2:
             break
     assert len(data_updates(client)) == 2
+    return ctl
 
 
 def test_pending_due_survives_missed_channel_ticks():
@@ -633,11 +648,23 @@ def test_profile_gpu_writes_a_trace_on_the_cpu(tmp_path):
     assert '"traceEvents"' in trace and "aten::" in trace
 
 
-@pytest.mark.parametrize("cfg", [dict(MeshDevices=2), dict(Sharding="cells"),
-                                 dict(CellBucket=64), dict(MeshHosts=2)],
+@pytest.mark.parametrize("cfg", [dict(MeshDevices=2), dict(MeshDevices=2, Sharding="cells"),
+                                 dict(MeshDevices=2, Sharding="cells", CellBucket=64),
+                                 dict(MeshDevices=4, MeshHosts=2)],
                          ids=["mesh", "cells", "bucket", "hosts"])
-def test_load_config_refuses_the_multi_device_planes(cfg):
-    with pytest.raises(NotImplementedError):
+def test_load_config_mesh_wider_than_the_cards_raises(monkeypatch, cfg):
+    """On ``cuda`` the mesh takes the first MeshDevices cards, and
+    load_config raises ValueError when fewer are present, as the JAX
+    controller does (mesh_from_config); the same config on the CPU
+    builds its mesh of CPU shards."""
+    ctl, _, _ = make_world(**cfg)
+    assert ctl.engine._mesh.size == cfg["MeshDevices"]
+    assert ctl.engine._sharding == cfg.get("Sharding", "entities")
+    assert ctl.engine._mesh.shape[0] == cfg.get("MeshHosts", cfg["MeshDevices"])
+    global_settings.spatial_device = "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="only 1 present"):
         make_world(**cfg)
 
 
@@ -689,3 +716,94 @@ def test_two_threads_ticking_two_engines_keep_k1_counts_exact():
         th.join(timeout=120)
     assert not any(th.is_alive() for th in threads)
     assert not errors, errors[:4]
+
+
+# ---- the meshed controller --------------------------------------------------
+
+
+@pytest.mark.parametrize("cfg", [dict(MeshDevices=8), dict(MeshDevices=8, Sharding="cells")],
+                         ids=["entities", "cells"])
+def test_handover_parity_meshed(cfg):
+    """Ports test_handover.py's meshed handover parity: with the engine
+    sharded over 8 shards (either plane), a crossing found by the batched
+    tick runs the host path's orchestration: owner swap, entity-table
+    move, one handover message to the new owner."""
+    ctl, (server_a, server_b), _ = make_world(**cfg)
+    assert ctl.engine._mesh.size == 8 and ctl.engine._sharding == cfg.get("Sharding", "entities")
+    assert ctl.simplane is None
+    eid = ENTITY_START + 21
+    entity_ch = add_entity(ctl, server_a, eid, 50, 50)
+    subscribe_to_channel(server_a, entity_ch, None)
+    ctl.tick()
+    entity_ch.data.on_update(entity_data(eid, 150, 50), 0, server_a.id, ctl)
+    assert entity_ch.get_owner() is server_a  # batch detection: not yet
+    ctl.tick()
+    src_ch, dst_ch = get_channel(START), get_channel(START + 1)
+    src_ch.tick_once(0)
+    dst_ch.tick_once(0)
+    assert entity_ch.get_owner() is server_b
+    assert eid not in src_ch.get_data_message().entities
+    assert eid in dst_ch.get_data_message().entities
+    assert len([c for c in server_b.sent
+                if c.msg_type == MessageType.CHANNEL_DATA_HANDOVER]) == 1
+
+
+def test_cells_overflow_shed_is_counted_logged_and_reoffered():
+    """The port's counterpart of test_chaos.py::test_live_overflow_shed_regression,
+    with the guard's deadline far above any tick so the shed, not a
+    watchdog race on a loaded box, is what runs: a crowd of 24 in cell 0
+    over 8 shards of 8 slots with a CellBucket of 1 leaves 3 x 7 slots
+    undelivered. The tick's one blob read brings the count and the
+    slots: the gauge and the _total counter move by 21, the security log
+    names the slots once, the guard stays ACTIVE, no entity is lost, and
+    a crossing still hands over after re-offers."""
+    import logging
+
+    from channeld_tpu_torch.utils.logger import security_logger
+
+    global_settings.device_step_deadline_s = 60.0
+    ctl, (server_a, server_b), _ = make_world(MeshDevices=8, Sharding="cells", CellBucket=1)
+    eids = [ENTITY_START + 10 + i for i in range(24)]
+    for i, eid in enumerate(eids):
+        ctl.track_entity(eid, SpatialInfo(20 + i * 2, 0, 50))
+    records = []
+
+    class Capture(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    handler = Capture()
+    security_logger().addHandler(handler)
+    before = metrics.tpu_cell_overflow_total._value.get()
+    recoveries = sum(metrics.device_recoveries.labels(cause=c)._value.get()
+                     for c in ("transient", "fatal", "hang", "corruption"))
+    try:
+        ctl.tick()
+        ctl.tick()  # still crowded: counted again, logged once per 5 s
+    finally:
+        security_logger().removeHandler(handler)
+    assert metrics.tpu_cell_overflow_total._value.get() - before == 2 * 21
+    assert metrics.tpu_cell_overflow._value.get() == 21 == ctl.engine.last_overflow
+    shed_logs = [m for m in records if "overflow" in m]
+    assert len(shed_logs) == 1 and "21 entities undelivered" in shed_logs[0]
+    assert guard.state == DeviceState.ACTIVE
+    assert recoveries == sum(metrics.device_recoveries.labels(cause=c)._value.get()
+                             for c in ("transient", "fatal", "hang", "corruption"))
+    assert all(ctl.engine.slot_of_entity(e) is not None for e in eids)
+    eid = eids[0]
+    entity_ch = create_entity_channel(eid, server_a)
+    entity_ch.init_data(entity_data(eid, 30, 50), None)
+    entity_ch.spatial_notifier = ctl
+    subscribe_to_channel(server_a, entity_ch, None)
+    get_channel(START).get_data_message().add_entity(eid, entity_ch.get_data_message())
+    entity_ch.data.on_update(entity_data(eid, 150, 50), 0, server_a.id, ctl)
+    for _ in range(4):  # re-offers settle within a few ticks
+        ctl.tick()
+        if entity_ch.get_owner() is server_b:
+            break
+        get_channel(START).tick_once(0)
+        get_channel(START + 1).tick_once(0)
+    get_channel(START).tick_once(0)
+    get_channel(START + 1).tick_once(0)
+    assert entity_ch.get_owner() is server_b
+    assert eid in get_channel(START + 1).get_data_message().entities

@@ -36,6 +36,8 @@ EDITED = {
     "ops/engine.py": "the engine on torch (ported)",
     "ops/service.py": "the sidecar on the torch engine (ported)",
     "ops/spatial_ops.py": "the device step as torch ops (ported)",
+    "parallel/mesh.py": "the entity-sharded step over a list of torch devices (ported)",
+    "parallel/spatial_alltoall.py": "the cell-sharded planes over a list of torch devices (ported)",
 }
 
 _ABSOLUTE = re.compile(rb"^(\s*)(from|import) channeld_tpu\.", re.M)

@@ -8,11 +8,12 @@ and FSM states exact on every tick, agent floats within the tolerance
 of tests/test_torch_sim.py per tick. Also: every method of the sim
 plane and the recovery surface called on a JAX/port pair, loading a
 ticked JAX engine's state (agents and diff baseline included) into a
-port engine, and mesh engines raising NotImplementedError.
+port engine, and a mesh wider than the cards present raising ValueError.
 """
 
 import numpy as np
 import pytest
+import torch
 
 from channeld_tpu.ops import spatial_ops as J
 from channeld_tpu.ops.engine import SpatialEngine as JaxEngine
@@ -212,11 +213,26 @@ def test_load_reference_state_checks_shapes():
         load_reference_state(SpatialEngine(GRID, device="cpu", **CAPS), state)
 
 
-@pytest.mark.parametrize("kwargs", [dict(mesh=object()), dict(sharding="cells"),
-                                    dict(cell_bucket=8)])
-def test_mesh_engines_raise(kwargs):
-    with pytest.raises(NotImplementedError):
-        SpatialEngine(GRID, device="cpu", **kwargs)
+@pytest.mark.parametrize("devices,hosts", [(2, 1), (8, 1), (8, 2)])
+def test_mesh_wider_than_the_cards_present_raises(monkeypatch, devices, hosts):
+    """As the JAX package's mesh_from_config raises for more devices than
+    present (16 of its 8 virtual ones), the port's raises ValueError for
+    more cards than present (one here), before any engine is built; on
+    the CPU the same widths are shards of ``cpu``."""
+    from channeld_tpu.parallel.mesh import mesh_from_config as jax_mesh_from_config
+    from channeld_tpu_torch.parallel.mesh import mesh_from_config
+
+    with pytest.raises(ValueError, match="devices"):
+        jax_mesh_from_config(16, hosts)
+    mesh = mesh_from_config(devices, hosts, device="cpu")
+    assert mesh.shape == ((hosts, devices // hosts) if hosts > 1 else (devices,))
+    eng = SpatialEngine(GRID, mesh=mesh, sharding="cells" if hosts == 1 else "entities",
+                        device="cpu", **CAPS)
+    assert eng.device.type == "cpu" and len(eng._d_positions) == devices
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match=f"mesh wants {devices} devices but only 1 present"):
+        mesh_from_config(devices, hosts, device="cuda")
 
 
 def test_generation_fence_refuses_a_stale_tick():

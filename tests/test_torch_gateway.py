@@ -38,6 +38,7 @@ from test_torch_sim import tol
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT, JAX = "channeld_tpu_torch", "channeld_tpu"
 CONFIG_4X4 = os.path.join(REPO, "config", "spatial_tpu_4x4.json")
+CONFIG_CELLS = os.path.join(REPO, "config", "spatial_tpu_cells_2x2.json")
 TICK_S = 0.033
 
 
@@ -204,7 +205,8 @@ class World:
     queries, server sensors and subscriptions at 33-200 ms, on one
     package's gateway."""
 
-    def __init__(self, pkg: str, clock: FixedClock, entities: int, sim: bool):
+    def __init__(self, pkg: str, clock: FixedClock, entities: int, sim: bool,
+                 config: str = CONFIG_4X4):
         self.pkg, self.clock = pkg, clock
         clock.reset()
         fresh_runtime(pkg)
@@ -221,7 +223,7 @@ class World:
             s.sim_census_every_ticks = 5
         mod(pkg, "models.sim").register_sim_types()
         sc = mod(pkg, "spatial.controller")
-        sc.init_spatial_controller(CONFIG_4X4)
+        sc.init_spatial_controller(config)
         self.ctl = ctl = sc.get_spatial_controller()
         self.eng = ctl.engine
         # A small handover row budget, so the burst overflows it and the
@@ -373,7 +375,11 @@ class World:
             obs["query"] = (count, rows[: min(count, len(rows))].tolist(),
                             result.get("query_epoch"))
             obs["due"] = due_slots(self.pkg, eng, result)
+            obs["undelivered"] = eng.undelivered_slots(result)
         obs["pending"] = {ch: list(p.items()) for ch, p in ctl._due_pending.items()}
+        overflow = P("core.metrics").tpu_cell_overflow_total._value.get()
+        obs["overflow"] = overflow - getattr(self, "overflow_total", overflow)
+        self.overflow_total = overflow
         for cid in self.spatial:
             chans[cid].tick_once(now)
         obs["tables"] = {cid: chans[cid].get_data_message().SerializeToString(deterministic=True)
@@ -403,11 +409,11 @@ def first_difference(a: dict, b: dict) -> str:
     return ""
 
 
-def run_both(monkeypatch, ticks: int, entities: int, sim: bool):
+def run_both(monkeypatch, ticks: int, entities: int, sim: bool, config: str = CONFIG_4X4):
     clock = FixedClock(monkeypatch)
     legs = {}
     for pkg in (JAX, PORT):
-        world = World(pkg, clock, entities, sim)
+        world = World(pkg, clock, entities, sim, config)
         legs[pkg] = [(world.tick(t), world.sim_columns() if sim else None)
                      for t in range(ticks)]
         legs[pkg + ".world"] = world
@@ -430,6 +436,33 @@ def test_port_gateway_equals_jax_gateway_tick_for_tick(monkeypatch):
     assert sum(o["query"][0] for o, _ in legs[PORT]) > 20
     followers = [c for c in world.stubs if 100 <= c.id < 200]
     assert all(c.spatial_subscriptions for c in followers)
+
+
+def test_port_gateway_on_the_cells_mesh_equals_jax_gateway(monkeypatch, tmp_path):
+    """config/spatial_tpu_cells_2x2.json's world (8 shards, Sharding
+    "cells") with a CellBucket of 24: the JAX gateway on its 8 virtual
+    devices and the port's on 8 CPU shards, tick for tick: handovers,
+    entity tables, every outbound stream, changed query rows, due slots,
+    the undelivered slots and the tpu_cell_overflow_total delta. The
+    burst of 120 into one cell overflows the buckets; nothing is lost."""
+    import json
+
+    with open(CONFIG_CELLS) as f:
+        cfg = json.load(f)
+    cfg["Config"]["CellBucket"] = 24
+    path = tmp_path / "cells_bucket.json"
+    path.write_text(json.dumps(cfg))
+    legs = run_both(monkeypatch, ticks=16, entities=300, sim=False, config=str(path))
+    for t, ((want, _), (got, _)) in enumerate(zip(legs[JAX], legs[PORT])):
+        assert got == want, f"tick {t}: {first_difference(want, got)}"
+    world = legs[PORT + ".world"]
+    assert world.eng._mesh.size == 8 and world.eng._sharding == "cells"
+    assert world.eng._cell_bucket == 24
+    port = [o for o, _ in legs[PORT]]
+    assert sum(o["overflow"] for o in port) > 0
+    assert any(o["undelivered"] for o in port)
+    assert sum(len(h) for o in port for h in o["handovers"]) > 100
+    assert all(world.eng.slot_of_entity(e) is not None for e in world.entity_ids)
 
 
 def test_port_gateway_sim_plane_equals_jax_gateway(monkeypatch):

@@ -391,3 +391,61 @@ def test_cuda_kernels_match_plain_versions_on_the_card():
                     assert torch.equal(a, b)
     torch.cuda.synchronize()
     assert K.launch_counts() == {"assign_count": 12, "aoi": 24}
+
+
+@pytest.mark.cuda
+def test_mesh_steps_run_both_kernels_per_shard_on_the_card():
+    """The sharded steps on 8 shards of one card (a mesh of repeated
+    devices) against the same steps on 8 CPU shards, every output equal:
+    K1 launches once per shard in both planes and K2 once (entity plane)
+    or once per shard (cells plane: 15x15 cells in blocks of 29, the
+    last running past the grid to id 231); the psum of the per-shard K1
+    counts equals the plain counts, and a block past C equals its plain
+    version with no interest past the grid."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from channeld_tpu_torch.parallel import mesh as PM
+    from channeld_tpu_torch.parallel import spatial_alltoall as PA
+
+    dev = torch.device("cuda", 0)
+    grid = GRIDS["15x15"]
+    rng = np.random.default_rng(11)
+    pos, valid = entity_inputs(grid, 1 << 14, rng)
+    prev = rng.integers(-1, grid.num_cells, 1 << 14).astype(np.int32)
+    qs = query_inputs(grid, 512, rng)[:5]
+    subs = (rng.integers(0, 100, 64).astype(np.int32), np.full(64, 50, np.int32),
+            rng.random(64) < 0.9)
+
+    def run(device, cells):
+        mesh = (PA.make_space_mesh if cells else PM.make_mesh)([device] * 8)
+        args = [torch.from_numpy(a).to(device) for a in (pos, prev, valid)]
+        q = T.QuerySet(*(torch.from_numpy(a).to(device) for a in qs))
+        sub = tuple(torch.from_numpy(a).to(device) for a in subs)
+        if cells:
+            return PA.cell_serving_spatial_step(PA.build_cell_serving_step(grid, mesh, 256, 64),
+                                                *args, q, sub, 120)
+        return PM.sharded_spatial_step(PM.build_sharded_step(grid, mesh, 64), *args, q, sub, 120)
+
+    for cells in (False, True):
+        want = run(torch.device("cpu"), cells)
+        K.reset_launch_counts()
+        got = run(dev, cells)
+        torch.cuda.synchronize()
+        assert K.launch_counts() == {"assign_count": 8, "aoi": 8 if cells else 1}
+        for key, value in want.items():
+            a = torch.cat(value) if isinstance(value, list) else value
+            b = torch.cat(got[key]).cpu() if isinstance(got[key], list) else got[key].cpu()
+            assert torch.equal(a, b), key
+    counts = torch.zeros(grid.num_cells, dtype=torch.int32, device=dev)
+    for part_pos, part_valid in zip(torch.from_numpy(pos).to(dev).chunk(8),
+                                    torch.from_numpy(valid).to(dev).chunk(8)):
+        counts += K.assign_and_count(grid, part_pos, part_valid)[1]
+    plain = K.assign_and_count_plain(grid, torch.from_numpy(pos).to(dev),
+                                     torch.from_numpy(valid).to(dev))[1]
+    assert torch.equal(counts, plain)
+    kind, center, extent, direction, angle = (torch.from_numpy(a).to(dev) for a in qs)
+    cos_a = torch.cos(angle)
+    hit, dist = K.aoi_tile(grid, kind, center, extent, direction, cos_a, 203, 29)
+    hit_p, dist_p = K.aoi_tile_plain(grid, kind, center, extent, direction, cos_a, 203, 29)
+    assert torch.equal(hit, hit_p) and torch.equal(dist, dist_p)
+    assert not hit[:, 225 - 203:].any()

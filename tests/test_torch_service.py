@@ -9,6 +9,7 @@ descriptor, so the responses are messages of the same classes.
 import grpc
 import numpy as np
 import pytest
+import torch
 
 from channeld_tpu.ops import service as jax_service
 from channeld_tpu_torch.ops import service as port_service
@@ -160,14 +161,44 @@ def test_unary_validation_error_is_invalid_argument(sidecars):
     assert e.value.code() == grpc.StatusCode.INVALID_ARGUMENT
 
 
-def test_mesh_configure_is_refused_until_the_multi_device_slice(sidecars):
-    _, pc, servicer, _ = sidecars
-    with pytest.raises(grpc.RpcError) as e:
-        pc.configure(meshDevices=2, **CONFIG)
-    assert e.value.code() == grpc.StatusCode.INVALID_ARGUMENT
-    assert servicer.engine is None
-    pc.configure(meshDevices=1, **CONFIG)  # one device is the plain engine
-    assert servicer.engine.device.type == "cpu"
+@pytest.mark.parametrize("mesh_devices", [0, 1, 8])
+def test_sidecars_answer_the_same_meshed_steps(sidecars, mesh_devices):
+    """Ports test_service.py::test_sidecar_step_roundtrip's mesh cases:
+    Configure(meshDevices=N) shards both engines (the JAX one over N
+    virtual devices, the port's over N shards on the CPU; N = 1 is a mesh
+    of one in both) and every response is equal."""
+    jc, pc, servicer, _ = sidecars
+    jc.configure(meshDevices=mesh_devices, **CONFIG)
+    pc.configure(meshDevices=mesh_devices, **CONFIG)
+    mesh = servicer.engine._mesh
+    assert (mesh.size if mesh is not None else 0) == mesh_devices
+    for i, req in enumerate(step_requests(seed=7, steps=8)):
+        ra, rb = jc.step(req), pc.step(req)
+        assert ra == rb, f"step {i}"
+
+
+def test_mesh_wider_than_the_devices_present_is_invalid_argument(sidecars, monkeypatch):
+    """As the JAX sidecar answers a mesh wider than its devices: the JAX
+    one asked for 16 of its 8 virtual devices, the port's (on ``cuda``)
+    for 2 cards where one is present; both INVALID_ARGUMENT, and no
+    engine is installed."""
+    jc, _, _, _ = sidecars
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    server, servicer, port = port_service.create_server(port=0, auth_token="", device="cuda")
+    server.start()
+    client = port_service.SpatialDecisionClient(f"127.0.0.1:{port}")
+    try:
+        codes = []
+        for c, n in ((jc, 16), (client, 2)):
+            with pytest.raises(grpc.RpcError) as e:
+                c.configure(meshDevices=n, **CONFIG)
+            codes.append(e.value.code())
+        assert codes == [grpc.StatusCode.INVALID_ARGUMENT] * 2
+        assert servicer.engine is None
+    finally:
+        client.close()
+        server.stop(None)
 
 
 def test_step_before_configure_fails_precondition(sidecars):
