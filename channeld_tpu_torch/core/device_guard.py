@@ -375,6 +375,7 @@ class DeviceGuard:
                 # ... and, on census ticks only, the sim plane's four
                 # kinematic columns.
                 result["sim_census"] = tuple(
+                    # tpulint: disable=hot-readback -- the sim plane's census-cadence batched fetch (its ONLY readback, doc/simulation.md), pre-fetched inside the guarded window
                     a.cpu().numpy() for a in result["sim_census"]
                 )
         return result

@@ -64,7 +64,9 @@
 //
 // Numerics match the plain torch version (and so the reference) bit
 // for bit: every product and sum is rounded on its own (__fmul_rn,
-// __fadd_rn; the build also passes -fmad=false), the cone's division
+// __fadd_rn; the build also passes -fmad=false), but for the cell centre
+// under `fused_centre` (one __fmaf_rn, as the plain version's fma_f32),
+// the cone's division
 // and the root are IEEE (__fdiv_rn, __fsqrt_rn), the division by the
 // cell diagonal is a multiplication by its float32 reciprocal (as XLA
 // compiles the reference's division by a constant), NaN propagates
@@ -97,11 +99,15 @@ __device__ __forceinline__ float relu_keep_nan(float x) {
 
 // One query's terms against one cell column (or row) `index`:
 // x = delta^2, y = gap^2, z = -delta * dir, w = box test as int bits.
+// The centre (index + 0.5) * size + offset is rounded once when `fused`
+// (the cells serving plane, whose JAX counterpart XLA:CPU contracts
+// into an FMA), else the product before the sum.
 __device__ __forceinline__ float4 axis_terms(int index, float size, float offset,
                                              float half, float qc, float dir,
-                                             float reach) {
+                                             float reach, bool fused) {
+    const float mid = __fadd_rn(static_cast<float>(index), 0.5f);
     const float centre =
-        __fadd_rn(__fmul_rn(__fadd_rn(static_cast<float>(index), 0.5f), size), offset);
+        fused ? __fmaf_rn(mid, size, offset) : __fadd_rn(__fmul_rn(mid, size), offset);
     const float dd = __fsub_rn(qc, centre);
     const float d = fabsf(dd);
     const float gap = relu_keep_nan(__fsub_rn(d, half));
@@ -181,7 +187,7 @@ __global__ void __launch_bounds__(kWarp * kQueriesPerBlock)
 aoi_kernel(const int32_t* __restrict__ kind, const float* __restrict__ center,
            const float* __restrict__ extent, const float* __restrict__ direction,
            const float* __restrict__ cos_angle, int num_queries, SpatialGrid g,
-           float inv_diagonal, int cell_base, int cell_count, int tile,
+           float inv_diagonal, int cell_base, int cell_count, int tile, bool fused,
            uint8_t* __restrict__ hit, int32_t* __restrict__ dist) {
     extern __shared__ float4 column_terms[];  // [kQueriesPerBlock][cols]
     const int lane = threadIdx.x;
@@ -195,7 +201,7 @@ aoi_kernel(const int32_t* __restrict__ kind, const float* __restrict__ center,
     if (kColumnTable) {
         for (int c = lane; c < g.cols; c += kWarp)
             columns[c] = axis_terms(c, g.cell_w, g.offset_x, half_w, qy.qx, qy.dir_x,
-                                    qy.reach_x);
+                                    qy.reach_x, fused);
         __syncwarp();
     }
 
@@ -214,12 +220,14 @@ aoi_kernel(const int32_t* __restrict__ kind, const float* __restrict__ center,
 
     for (int j = begin + lane; j < end; j += kWarp) {
         if (row != row_now) {
-            rz = axis_terms(row, g.cell_h, g.offset_z, half_h, qy.qz, qy.dir_z, qy.reach_z);
+            rz = axis_terms(row, g.cell_h, g.offset_z, half_h, qy.qz, qy.dir_z, qy.reach_z,
+                            fused);
             row_now = row;
         }
         const float4 cx = kColumnTable
             ? columns[col]
-            : axis_terms(col, g.cell_w, g.offset_x, half_w, qy.qx, qy.dir_x, qy.reach_x);
+            : axis_terms(col, g.cell_w, g.offset_x, half_w, qy.qx, qy.dir_x, qy.reach_x,
+                         fused);
         int d;
         const bool h = pair(qy, inv_diagonal, cx, rz, &d);
         hit[out_row + j] = (h && j < real_end) ? 1 : 0;
@@ -238,14 +246,16 @@ aoi_kernel(const int32_t* __restrict__ kind, const float* __restrict__ center,
 // Query SoA (kind i32[q], center/extent/direction f32[q,2], cos_angle
 // f32[q]) -> hit u8[q, cell_count], dist i32[q, cell_count] for the
 // global cell ids [cell_base, cell_base + cell_count), on device
-// `device` and `stream`. Returns the launch's cudaError_t (0 = launched).
+// `device` and `stream`; `fused_centre` != 0 rounds each cell centre
+// once (see axis_terms). Returns the launch's cudaError_t (0 = launched).
 extern "C" int chtpu_aoi(const int32_t* kind, const float* center,
                          const float* extent, const float* direction,
                          const float* cos_angle, int num_queries, float offset_x,
                          float offset_z, float cell_w, float cell_h,
                          float inv_cell_w, float inv_cell_h, int cols, int rows,
                          float inv_diagonal, int cell_base, int cell_count,
-                         uint8_t* hit, int32_t* dist, int device, void* stream) {
+                         int fused_centre, uint8_t* hit, int32_t* dist, int device,
+                         void* stream) {
     if (num_queries <= 0 || cell_count <= 0) return 0;
     const DeviceGuard guard(device);
     if (guard.error != cudaSuccess) return static_cast<int>(guard.error);
@@ -272,11 +282,11 @@ extern "C" int chtpu_aoi(const int32_t* kind, const float* center,
         }
         aoi_kernel<true><<<grid, block, smem, s>>>(
             kind, center, extent, direction, cos_angle, num_queries, g, inv_diagonal,
-            cell_base, cell_count, static_cast<int>(tile), hit, dist);
+            cell_base, cell_count, static_cast<int>(tile), fused_centre != 0, hit, dist);
     } else {
         aoi_kernel<false><<<grid, block, 0, s>>>(
             kind, center, extent, direction, cos_angle, num_queries, g, inv_diagonal,
-            cell_base, cell_count, static_cast<int>(tile), hit, dist);
+            cell_base, cell_count, static_cast<int>(tile), fused_centre != 0, hit, dist);
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -83,7 +83,8 @@ KERNEL_SPECS = (
     KernelSpec(
         "aoi", "aoi.cu",
         "channeld_tpu/ops/pallas_kernels.py:109", "chtpu_aoi",
-        (_P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _I, _I, _F, _I, _I, _P, _P, _I, _P),
+        (_P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _I, _I, _F, _I, _I, _I, _P, _P, _I,
+         _P),
     ),
 )
 
@@ -339,14 +340,15 @@ def prepare_assign_count(grid, positions: torch.Tensor, valid: torch.Tensor) -> 
 
 
 def aoi_tile_plain(grid, kind, center, extent, direction, cos_angle,
-                   cell_base: int = 0, cell_count: Optional[int] = None):
+                   cell_base: int = 0, cell_count: Optional[int] = None,
+                   fused_centre: bool = False):
     """Plain PyTorch K2 over the global cell ids [cell_base,
     cell_base + cell_count): (hit bool[Q,Cb], dist i32[Q,Cb])."""
     if cell_count is None:
         cell_count = num_cells(grid) - cell_base
     ids = torch.arange(cell_base, cell_base + cell_count, dtype=torch.int32,
                        device=kind.device)
-    return aoi_geometry(grid, kind, center, extent, direction, cos_angle, ids)
+    return aoi_geometry(grid, kind, center, extent, direction, cos_angle, ids, fused_centre)
 
 
 def sqrt_threshold(r: torch.Tensor) -> torch.Tensor:
@@ -375,13 +377,16 @@ def sqrt_threshold(r: torch.Tensor) -> torch.Tensor:
 
 
 def aoi_tile(grid, kind, center, extent, direction, cos_angle,
-             cell_base: int = 0, cell_count: Optional[int] = None):
+             cell_base: int = 0, cell_count: Optional[int] = None,
+             fused_centre: bool = False):
     """Geometric AOI pass over the global cell ids [cell_base,
     cell_base + cell_count) (default: the whole grid).
 
     kind i32[Q], center/extent/direction f32[Q,2], cos_angle f32[Q] ->
     (hit bool[Q,Cb], dist i32[Q,Cb]). The CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+    the plain version for CPU tensors. ``fused_centre`` rounds each cell
+    centre once (``spatial_ops.cell_centres``), as the cells serving
+    plane needs."""
     dev = kind.device
     q = kind.shape[0] if kind.dim() == 1 else -1
     _check(kind, "kind", torch.int32, (q,), dev)
@@ -394,9 +399,9 @@ def aoi_tile(grid, kind, center, extent, direction, cos_angle,
         raise ValueError(f"bad cell block [{cell_base}, {cell_base}+{cell_count})")
     if _device_kind(dev) == "cpu":
         return aoi_tile_plain(grid, kind, center, extent, direction, cos_angle,
-                              cell_base, cell_count)
+                              cell_base, cell_count, fused_centre)
     launch = prepare_aoi(grid, kind, center, extent, direction, cos_angle,
-                         cell_base, cell_count)
+                         cell_base, cell_count, fused_centre)
     launch.run()
     aoi_tile.launches += 1
     return launch.outputs
@@ -406,7 +411,7 @@ aoi_tile.launches = 0
 
 
 def prepare_aoi(grid, kind, center, extent, direction, cos_angle,
-                cell_base: int, cell_count: int) -> Launch:
+                cell_base: int, cell_count: int, fused_centre: bool = False) -> Launch:
     """K2's launch on CUDA tensors that ``aoi_tile`` has checked:
     allocates (hit, dist) and returns the bare launch."""
     dev = kind.device
@@ -416,7 +421,7 @@ def prepare_aoi(grid, kind, center, extent, direction, cos_angle,
     dist = torch.empty((q, cell_count), dtype=torch.int32, device=dev)
     args = (kind.data_ptr(), center.data_ptr(), extent.data_ptr(), direction.data_ptr(),
             cos_angle.data_ptr(), q, *_grid_args(grid), cell_base, cell_count,
-            hit.data_ptr(), dist.data_ptr(), dev.index,
+            int(fused_centre), hit.data_ptr(), dist.data_ptr(), dev.index,
             _current_stream(dev))
     return Launch("aoi", lib, lib.chtpu_aoi, args, (hit, dist))
 
@@ -434,15 +439,16 @@ def aoi_masks_cuda(grid, queries: QuerySet):
 
 
 def aoi_block_cuda(grid, queries: QuerySet, cell_base: int, cell_count: int,
-                   spot_dist_slice=None):
+                   spot_dist_slice=None, fused_centre: bool = False):
     """The counterpart of ``aoi_masks_for_cells`` over the block of global
     cell ids [cell_base, cell_base + cell_count), which may run past the
     grid into padding ids (never interested): K2 over the block, then
     the spots overlay of the table's ``[Q, cell_count]`` slice. The
-    cell-sharded plane's per-shard AOI."""
+    cell-sharded plane's per-shard AOI, with ``fused_centre`` set there
+    (the JAX plane's ids are runtime values; ROADMAP.md, F6)."""
     hit, dist = aoi_tile(
         grid, queries.kind, queries.center, queries.extent,
-        queries.direction, torch.cos(queries.angle), cell_base, cell_count,
+        queries.direction, torch.cos(queries.angle), cell_base, cell_count, fused_centre,
     )
     if spot_dist_slice is None:
         return hit, dist

@@ -102,7 +102,13 @@ class SpatialEngine:
         self._mesh = mesh
         self._sharding = sharding
         self._cell_bucket = cell_bucket
-        self._mesh_step = None
+        # Engine state written from the tick loop (mutators, the unguarded
+        # step) and the device guard's worker (the guarded step, the
+        # rebuild): the loop blocks on the worker, so the only overlap is
+        # a watchdog-abandoned worker unwedging late, which the generation
+        # fence makes safe (tpulint's fence-discipline rule checks every
+        # store). Each such attribute is declared shared=fence.
+        self._mesh_step = None  # tpulint: shared=fence
         if mesh is not None:
             if device is not None and resolve_device(device).type != mesh.replica.type:
                 raise ValueError(f"device {device} is not of the mesh's kind ({mesh.replica})")
@@ -124,8 +130,8 @@ class SpatialEngine:
         self._free = list(range(entity_capacity - 1, -1, -1))
         self._slot_of_entity: dict[int, int] = {}
         self._entity_of_slot = np.zeros(entity_capacity, np.uint32)
-        self._dirty_slots: set[int] = set()
-        self._seed_cells: dict[int, int] = {}  # slot -> forced prev cell
+        self._dirty_slots: set[int] = set()  # tpulint: shared=fence
+        self._seed_cells: dict[int, int] = {}  # slot -> forced prev cell  # tpulint: shared=fence
 
         self._q_kind = np.zeros(query_capacity, np.int32)
         self._q_center = np.zeros((query_capacity, 2), np.float32)
@@ -140,9 +146,9 @@ class SpatialEngine:
         # World-space spot sources per connection (the rows above are in
         # cell space; a grid swap re-rasterizes from these).
         self._spot_sources: dict[int, tuple] = {}
-        self._d_spot_dist: Optional[torch.Tensor] = None
-        self._spot_dirty_rows: set[int] = set()
-        self._queries_dirty = True
+        self._d_spot_dist: Optional[torch.Tensor] = None  # tpulint: shared=fence
+        self._spot_dirty_rows: set[int] = set()  # tpulint: shared=fence
+        self._queries_dirty = True  # tpulint: shared=fence
 
         # Standing-query plane (doc/query_engine.md): when enabled the
         # tick diffs this tick's interest/dist masks against the
@@ -152,11 +158,11 @@ class SpatialEngine:
         self.query_rows_max = query_rows_max
         # Committed (interest, dist) baseline pair; None = empty baseline
         # (the next diff full-emits every interested row).
-        self._d_q_prev: Optional[tuple] = None
+        self._d_q_prev: Optional[tuple] = None  # tpulint: shared=fence
         # Rows whose baseline is zeroed before the next diff: a freshly
         # allocated (or freed) row may be reused by a new query, and a
         # stale baseline would swallow the overlap of old and new masks.
-        self._q_prev_reset_rows: set[int] = set()
+        self._q_prev_reset_rows: set[int] = set()  # tpulint: shared=fence
         # Bumped whenever the committed baseline is thrown away wholesale
         # (rebuild_device_state / apply_grid): the host plane must then
         # full-resync its mirrors.
@@ -172,15 +178,15 @@ class SpatialEngine:
         self._sub_free = list(range(sub_capacity - 1, -1, -1))
         # Per-column dirty tracking: an interval/active write must never
         # drag the stale host `last` along.
-        self._sub_dirty_slots: set[int] = set()  # interval+active cols
-        self._sub_last_dirty: set[int] = set()  # last-fan-out column
+        self._sub_dirty_slots: set[int] = set()  # interval+active cols  # tpulint: shared=fence
+        self._sub_last_dirty: set[int] = set()  # last-fan-out column  # tpulint: shared=fence
 
         # Entity columns: one tensor, or one per shard with a mesh.
-        self._d_positions = self._entity_upload(self._positions)
+        self._d_positions = self._entity_upload(self._positions)  # tpulint: shared=fence
         self._d_valid = self._entity_upload(self._valid)
-        self._d_cell = self._entity_upload(np.full(entity_capacity, -1, np.int32))
-        self._d_queries: Optional[QuerySet] = None
-        self._d_sub_state: Optional[tuple] = None
+        self._d_cell = self._entity_upload(np.full(entity_capacity, -1, np.int32))  # tpulint: shared=fence
+        self._d_queries: Optional[QuerySet] = None  # tpulint: shared=fence
+        self._d_sub_state: Optional[tuple] = None  # tpulint: shared=fence
 
         # Simulation plane (doc/simulation.md): agents occupy ordinary
         # entity slots, and the sim pass advances their positions in the
@@ -194,7 +200,7 @@ class SpatialEngine:
         self.sim_enabled = False
         self.sim_seed = 0
         self.sim_params: Optional[SimParams] = None
-        self.sim_tick = 0  # counter-based RNG cursor
+        self.sim_tick = 0  # counter-based RNG cursor  # tpulint: shared=fence
         # Per-tick scheduling flags, staged by the caller before a tick.
         self.run_sim_pass = False
         self.sim_census_due = False
@@ -202,29 +208,29 @@ class SpatialEngine:
         self._vel = np.zeros((entity_capacity, 3), np.float32)
         self._sim_state = np.zeros(entity_capacity, np.int32)
         self._sim_target = np.zeros((entity_capacity, 3), np.float32)
-        self._sim_dirty: set[int] = set()
+        self._sim_dirty: set[int] = set()  # tpulint: shared=fence
         # Danger mask (bool[num_cells]) driving FLEE; uploaded only when
         # set_flee_cells changes it, never per tick.
         self._flee_cells: Optional[np.ndarray] = None
-        self._flee_dirty = False
+        self._flee_dirty = False  # tpulint: shared=fence
         self._d_agent: Optional[torch.Tensor] = None
         self._d_vel: Optional[torch.Tensor] = None
         self._d_sim_state: Optional[torch.Tensor] = None
         self._d_sim_target: Optional[torch.Tensor] = None
-        self._d_flee: Optional[torch.Tensor] = None
+        self._d_flee: Optional[torch.Tensor] = None  # tpulint: shared=fence
         # Ledger of sim rebuild verifications by result.
         self.sim_rebuild_counts: dict[str, int] = {}
 
         self._start = time.monotonic()
-        self.last_result: Optional[dict] = None
+        self.last_result: Optional[dict] = None  # tpulint: shared=fence
         # Entities the last consumed cells-plane tick could not deliver
         # (its redistribution buckets were full); set when ``consume``
         # reads the tick, always 0 otherwise.
-        self.last_overflow = 0
+        self.last_overflow = 0  # tpulint: shared=fence
         # Abandoned-step fence: a step abandoned by a watchdog must not
         # commit its tail state over a rebuilt engine (tick() re-checks
         # before committing).
-        self.generation = 0
+        self.generation = 0  # tpulint: shared=fence
         # Serializes rebuild bodies (core/device_guard.py): an abandoned
         # rebuild that unwedges late never overlaps a newer one.
         self._rebuild_lock = threading.Lock()
@@ -771,6 +777,12 @@ class SpatialEngine:
             # No baseline while tracking is off — when it turns on, the
             # None baseline full-emits anyway, so pending resets are moot.
             self._q_prev_reset_rows.clear()
+        census = None
+        if sim_committed is not None and census_due:
+            # The census columns, copied on the device before the fence
+            # (nothing runs between the fence and the stores): later
+            # flushes scatter host rows into the engine's columns in place.
+            census = tuple(t.clone() for t in sim_committed)
         if gen != self.generation:
             # The watchdog abandoned this step: committing this tick's
             # tail state would corrupt the fresh baseline.
@@ -782,10 +794,8 @@ class SpatialEngine:
             (self._d_positions, self._d_vel, self._d_sim_state,
              self._d_sim_target) = sim_committed
             self.sim_tick += 1
-            if census_due:
-                # The census columns, copied on the device: later flushes
-                # scatter host rows into the engine's columns in place.
-                out["sim_census"] = tuple(t.clone() for t in sim_committed)
+            if census is not None:
+                out["sim_census"] = census
                 out["sim_tick"] = self.sim_tick
         # Baseline for the next tick: crossings that overflowed the handover
         # row budget keep their old cell so they are re-detected, not lost.

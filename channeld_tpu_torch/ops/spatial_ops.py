@@ -215,16 +215,41 @@ class QuerySet(NamedTuple):
     spot_dist: Optional[torch.Tensor] = None  # i32[Q,C]; -1 = no interest
 
 
-def cell_centres(grid, cell_ids):
-    """(x, z) f32[Cb] of the cells ``cell_ids``: ``(col + 0.5) * w + offset``,
-    the product rounded before the sum (see ROADMAP.md, F6)."""
+def fma_f32(a: torch.Tensor, b: float, c: float) -> torch.Tensor:
+    """``fmaf(a, b, c)`` for a float32 tensor and two constants rounded
+    to float32: ``a * b + c`` rounded once. The product of two float32
+    values is exact in float64; the float64 sum is rounded to odd (its
+    TwoSum error term sets the last bit when the sum is inexact), and a
+    float64 rounded to odd rounds to float32 as the exact value does
+    (53 >= 24 + 2 bits)."""
+    p = a.to(torch.float64) * _f32(b)
+    c = _f32(c)
+    s = p + c
+    back = s - p
+    err = (p - (s - back)) + (c - back)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, float("inf"), float("-inf")).to(torch.float64)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def cell_centres(grid, cell_ids, fused: bool = False):
+    """(x, z) f32[Cb] of the cells ``cell_ids``: ``(col + 0.5) * w + offset``.
+    Unfused, the product is rounded before the sum, as XLA computes it
+    for constant ids (every single-device and entity-sharded path).
+    Fused, it is rounded once, as XLA:CPU contracts it into an FMA for
+    runtime ids (the cells serving plane; see ROADMAP.md, F6)."""
     cols = int(grid.cols)
     col = (cell_ids % cols).to(torch.float32)
     row = torch.div(cell_ids, cols, rounding_mode="floor").to(torch.float32)
+    if fused:
+        return (fma_f32(col + 0.5, grid.cell_w, grid.offset_x),
+                fma_f32(row + 0.5, grid.cell_h, grid.offset_z))
     return (col + 0.5) * grid.cell_w + grid.offset_x, (row + 0.5) * grid.cell_h + grid.offset_z
 
 
-def aoi_geometry(grid, kind, center, extent, direction, cos_angle, cell_ids):
+def aoi_geometry(grid, kind, center, extent, direction, cos_angle, cell_ids,
+                 fused_centre: bool = False):
     """Geometric interest of every query in the cells ``cell_ids``.
 
     Returns (hit bool[Q,Cb], dist i32[Q,Cb]). ``cos_angle`` is the cone
@@ -232,9 +257,11 @@ def aoi_geometry(grid, kind, center, extent, direction, cos_angle, cell_ids):
     CUDA kernel and this plain version compare against the same value.
     Ids outside [0, num_cells) are padding and never hit. Each product
     and sum is a separate op (no FMA), mirroring the kernel's
-    ``__fmul_rn``/``__fadd_rn``.
+    ``__fmul_rn``/``__fadd_rn``, except the cell centre when
+    ``fused_centre`` is set (the kernel's ``__fmaf_rn``; see
+    ``cell_centres``).
     """
-    ccx, ccz = cell_centres(grid, cell_ids)  # [Cb]
+    ccx, ccz = cell_centres(grid, cell_ids, fused_centre)  # [Cb]
     cell_valid = (cell_ids >= 0) & (cell_ids < num_cells(grid))
     half_w = grid.cell_w * 0.5
     half_h = grid.cell_h * 0.5

@@ -253,7 +253,10 @@ def build_cell_serving_step(grid, mesh: Mesh, bucket: int,
                 # (see cell_serving_spatial_step), so the last block's
                 # slice is in range and aligned with its cell ids.
                 spot_slice = spot_dist[:, s * cells_blk:(s + 1) * cells_blk].to(dev)
-            hit, dist = aoi_block_cuda(grid, q, s * cells_blk, cells_blk, spot_slice)
+            # The JAX plane's block ids are runtime values (axis_index),
+            # so XLA:CPU rounds each cell centre once (ROADMAP.md, F6).
+            hit, dist = aoi_block_cuda(grid, q, s * cells_blk, cells_blk, spot_slice,
+                                       fused_centre=True)
             return blk_counts, hit, dist
 
         blk_counts, blk_hit, blk_dist = zip(*spmd.run_shards(mesh, block))

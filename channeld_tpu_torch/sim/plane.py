@@ -247,6 +247,7 @@ class SimPlane:
             return
         t0 = time.monotonic()
         pos, vel, state, target = (
+            # tpulint: disable=hot-readback -- census-cadence batched fetch (the sim plane's ONLY readback, doc/simulation.md); a no-op under the guard, which pre-fetched the columns
             a if isinstance(a, np.ndarray) else a.cpu().numpy()
             for a in census
         )

@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --gateway 50000 30   # phase 6a alone, at another size
     python3 chip_smoke.py --mesh               # phase 7 alone
+    python3 chip_smoke.py --engine-adapter 10000 12   # phase 8a alone, at another size
 
 Needs one CUDA card, nvcc, and the ``channeld_tpu_torch`` package beside
 this file; imports nothing of JAX or of ``channeld_tpu``. Phases (each
@@ -108,7 +109,30 @@ prints one line; any failure exits non-zero before the final line):
       ``CellBucket`` that overflows, card leg against CPU leg tick for
       tick (handovers, tables, outbound streams, changed rows,
       undelivered slots, the ``tpu_cell_overflow_total`` delta);
-8. if grpc and protobuf are installed, one real sidecar round trip on
+8. the engines' paths through the gateway, each leg on the card
+   against a CPU leg under a fixed clock, every tick equal:
+   a. the engine adapter (``models/engine_adapter.py``) on phase 6a's
+      config4 at the gateway's default capacities: 10,000 objects
+      (every 16th a non-spatial game-mode actor) spawned by SPAWN (103)
+      with locations over the grid, moved +-60 m per tick by entity
+      channel updates, a storm of an eighth into one cell and back, a
+      tenth destroyed by DESTROY (104) at the middle tick and spawned
+      again, 256 followers, 256 clients with 4 subscriptions at 33-200
+      ms; 12 ticks (``--engine-adapter OBJECTS TICKS`` runs it alone).
+      Digests of handovers, every spatial channel's entity table, the
+      adapter's recovery table and every outbound stream; K1 and K2 on
+      every card tick; 2 reads per steady tick; 5 profiled ticks;
+   b. the same traffic in the Unreal SDK's types
+      (``compat/unreal.py``: unrealpb.FVector spawn locations, Z-up
+      swapped to Y-up), 1,000 objects x 6 ticks;
+   c. ``python -m channeld_tpu_torch -imports channeld_tpu_torch.compat``
+      as a child on ``cuda``; ``python -m channeld_tpu_torch.replay run``
+      replays examples/sessions/chat_demo.cpr with 8 connections against
+      it: exit 0, every connection authenticated, every packet sent,
+      ``device_state`` 0 on /metrics afterwards;
+   and one line saying whether the port's native codec was built from
+   its ``codec.cc`` and taken by the framing;
+9. if grpc and protobuf are installed, one real sidecar round trip on
    ``cuda`` (otherwise says it was not run).
 
 The line before the last is a JSON object with one entry per kernel
@@ -117,7 +141,8 @@ this run's shapes; ``ms`` is the kernel alone by events, ``call_ms`` one
 wrapper call; ``launches`` on the sidecar path, ``launches_by_path`` on
 each path (the gateway's shapes are the sidecar's), ``sim_path`` the
 same figures at the sim world's shapes, ``mesh_path`` at one shard's
-shapes of phase 7 with the launches per mesh tick); the
+shapes of phase 7 with the launches per mesh tick, ``fused_block`` K2's
+fused-centre block of the cells plane beside the unfused launch); the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -160,6 +185,9 @@ K1_CASES = (("15x15", BENCH_GRID, 1 << 17, "uniform"),
             ("256x256", WIDE_GRID, 1 << 17, "uniform"),
             ("256x256 crowd", WIDE_GRID, 1 << 17, "crowd"))
 K2_CASES = (("15x15", BENCH_GRID, 4096), ("256x256", WIDE_GRID, 1024))
+# F6: cells whose centres are not exact in float32, where the cells
+# plane's fused centre (one rounding) moves pairs.
+ODD_GRID = dict(offset_x=-317.5, offset_z=-123.25, cell_w=37.3, cell_h=61.1, cols=11, rows=5)
 # Phase 5: scripts/sim_bench.py's world (its 100K-agent claim), uncut.
 SIM_GRID = dict(offset_x=0.0, offset_z=0.0, cell_w=100.0, cell_h=100.0, cols=64, rows=64)
 SIM_SWAP_GRID = dict(offset_x=0.0, offset_z=0.0, cell_w=200.0, cell_h=200.0, cols=32, rows=32)
@@ -184,6 +212,10 @@ def check(cond: bool, what: str) -> None:
 
 def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def tick_stats(xs) -> str:
+    return f"median {statistics.median(xs):.3f} ms p99 {float(np.percentile(xs, 99)):.3f} ms"
 
 
 def median_ms(fn, reps: int = 100, warmup: int = 10) -> float:
@@ -438,7 +470,57 @@ def phase_kernels(K, ops, dev) -> dict:
             print(f"K2 write floor {label}: hit.fill_(0) + dist.fill_(0) on "
                   f"[{q},{c}] {floor:.4f} ms (events); kernel alone / floor "
                   f"{alone[label] / floor:.3f}")
+    entries["aoi"]["fused_block"] = phase_fused_block(K, ops, dev)
     return entries
+
+
+def phase_fused_block(K, ops, dev) -> dict:
+    """K2 with ``fused_centre`` (the cells serving plane's: each cell
+    centre rounded once, ROADMAP F6) against its plain twin, exact, on
+    11x5 cells of 37.3 x 61.1 m in the plane's blocks over 8 shards and
+    whole; then one shard's block of the sidecar's grid (4,096 x 29 from
+    cell 203) timed fused and unfused, bare launches by events."""
+    grid = ops.GridSpec(**ODD_GRID)
+    rng = np.random.default_rng(SEED + 300)
+    kind, center, extent, direction, angle = query_inputs(grid, 4096, rng, dev)
+    args = (kind, center, extent, direction, torch.cos(angle))
+    moved = 0
+    for base, count in [(s * 7, 7) for s in range(8)] + [(0, grid.num_cells)]:
+        got = K.aoi_tile(grid, *args, base, count, fused_centre=True)
+        want = K.aoi_tile_plain(grid, *args, base, count, fused_centre=True)
+        unfused = K.aoi_tile(grid, *args, base, count)
+        torch.cuda.synchronize()
+        err = max_abs_diff(zip(got, want))
+        check(err == 0, f"K2 fused block [{base}, +{count}): kernel differs from plain "
+                        f"(max |diff| {err})")
+        if count == grid.num_cells:
+            moved = sum(int((a != b).sum()) for a, b in zip(got, unfused))
+    grid = ops.GridSpec(**BENCH_GRID)
+    kind, center, extent, direction, angle = query_inputs(grid, 4096, rng, dev)
+    args = (kind, center, extent, direction, torch.cos(angle))
+    base, blk = 203, 29
+    got = K.aoi_tile(grid, *args, base, blk, fused_centre=True)
+    want = K.aoi_tile_plain(grid, *args, base, blk, fused_centre=True)
+    torch.cuda.synchronize()
+    err = max_abs_diff(zip(got, want))
+    check(err == 0, f"K2 fused block 4096 x {blk}: kernel differs from plain (max |diff| {err})")
+    fused_ms = queued_ms(K.prepare_aoi(grid, *args, base, blk, fused_centre=True).run)
+    unfused_ms = queued_ms(K.prepare_aoi(grid, *args, base, blk).run)
+    plain = median_ms(lambda: K.aoi_tile_plain(grid, *args, base, blk, fused_centre=True),
+                      reps=20, warmup=2)
+    q = kind.shape[0]
+    axes = min(grid.cols, blk) + len({i // grid.cols for i in range(base, base + blk)})
+    b, by = bound_ms(q * (4 + 3 * 8 + 4) + q * blk * 5,
+                     AOI_OPS_PER_PAIR * q * blk + AOI_OPS_PER_AXIS * q * axes)
+    print(f"K2 fused centre (cells plane, F6): exact against plain on {ODD_GRID['cols']}x"
+          f"{ODD_GRID['rows']} cells of {ODD_GRID['cell_w']} x {ODD_GRID['cell_h']} m in 8 "
+          f"blocks of 7 and whole ({moved} hit/dist values of 4096 x 55 differ from the "
+          f"unfused kernel); 4096 x {blk} from cell {base} on 15x15: alone fused "
+          f"{fused_ms:.4f} ms, unfused {unfused_ms:.4f} ms (events, bare launches), plain "
+          f"{plain:.4f} ms, bound {b:.5f} ms ({by})")
+    return dict(shape=f"4096 x {blk} from cell {base}", max_abs_err=err, ms=fused_ms,
+                unfused_ms=unfused_ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                library_ms=None)
 
 
 # ---- the main path ------------------------------------------------------
@@ -1204,12 +1286,12 @@ class GatewayWorld:
         s = P.settings.global_settings
         s.development = True
         s.spatial_device = dev.type
-        s.sim_enabled = True
+        s.sim_enabled = size.get("sim", True)
         s.sim_census_every_ticks = size["census_every"]
         s.device_step_deadline_s = GATEWAY_DEADLINE_S
         P.message.init_message_map()
         P.channel.init_channels()
-        P.sim_models.register_sim_types()
+        self._register_types()
         t0 = time.perf_counter()
         P.controller.init_spatial_controller(size.get("config", GATEWAY_CONFIG))
         self.load_s = time.perf_counter() - t0
@@ -1225,6 +1307,9 @@ class GatewayWorld:
         self._servers()
         self._entities(rng)
         self._clients(rng)
+
+    def _register_types(self) -> None:
+        self.P.sim_models.register_sim_types()
 
     def conn(self, conn_id: int, kind: str) -> GatewayConn:
         c = GatewayConn(self.P, conn_id, kind)
@@ -1432,14 +1517,15 @@ class GatewayWorld:
 def first_gateway_diff(a: dict, b: dict) -> Optional[str]:
     """The first observation of one tick that differs between the legs,
     with its detail (None when the tick is equal)."""
-    for key in ("handovers", "tables", "q", "sim", "census", "guard", "overflow", "undelivered"):
-        if a[key] != b[key]:
+    for key in ("handovers", "tables", "q", "sim", "census", "guard", "overflow", "undelivered",
+                "recovery"):
+        if a.get(key) != b.get(key):
             if key == "handovers":
                 i = next((i for i, (x, y) in enumerate(zip(a[key], b[key])) if x != y),
                          min(len(a[key]), len(b[key])))
                 return (f"handovers: {len(a[key])} vs {len(b[key])}, first differing "
                         f"row {i}: {a[key][i:i + 1]} vs {b[key][i:i + 1]}")
-            return f"{key}: {str(a[key])[:200]} vs {str(b[key])[:200]}"
+            return f"{key}: {str(a.get(key))[:200]} vs {str(b.get(key))[:200]}"
     for conn_id, got in a["sent"].items():
         if got != b["sent"].get(conn_id):
             return (f"connection {conn_id}'s outbound stream: {got[0]} messages "
@@ -1515,9 +1601,6 @@ def phase_gateway_lockstep(K, dev, size: dict) -> dict:
         del world
     secs = (time.perf_counter() - t_phase, t_card - t_phase)
 
-    def stats(xs):
-        return f"median {statistics.median(xs):.3f} ms p99 {float(np.percentile(xs, 99)):.3f} ms"
-
     census_ticks = [t for t, o in enumerate(card) if o["census"]]
     steady = [t for t in range(1, ticks) if t not in census_ticks]
     check(census_ticks, "no census fell inside the run")
@@ -1538,12 +1621,12 @@ def phase_gateway_lockstep(K, dev, size: dict) -> dict:
           f"phase {secs[0]:.1f} s (card leg {secs[1]:.1f} s, load_config {setup_s:.2f} s)")
     for label, legs in (("cuda", card), ("cpu", cpu)):
         print(f"gateway per tick on {label} (ticks 1-{ticks - 1}): tick "
-              f"{stats([o['tick_ms'] for o in legs[1:]])}; GLOBAL tick "
-              f"{stats([o['global_ms'] for o in legs[1:]])}; guarded device step "
-              f"{stats([o['step_ms'] for o in legs[1:]])}; host share "
-              f"{stats([1 - o['step_ms'] / o['tick_ms'] for o in legs[1:]]).replace(' ms', '')}")
+              f"{tick_stats([o['tick_ms'] for o in legs[1:]])}; GLOBAL tick "
+              f"{tick_stats([o['global_ms'] for o in legs[1:]])}; guarded device step "
+              f"{tick_stats([o['step_ms'] for o in legs[1:]])}; host share "
+              f"{tick_stats([1 - o['step_ms'] / o['tick_ms'] for o in legs[1:]]).replace(' ms', '')}")
     print(f"fan-out decision (tick_data of a channel with subscribers, perf_counter): cuda "
-          f"{stats(fanout_ms)} over {len(fanout_ms)} passes; cpu {stats(cpu_fanout)}")
+          f"{tick_stats(fanout_ms)} over {len(fanout_ms)} passes; cpu {tick_stats(cpu_fanout)}")
     print(f"gateway reads per steady tick {reads} (the consume and changed-rows blobs), census "
           f"tick +{extra[0]}; host waits per steady tick "
           f"{sorted({card[t]['syncs'] for t in steady})}, census tick "
@@ -2102,17 +2185,14 @@ def phase_mesh_steps(K, ops) -> tuple[dict, dict]:
             kernels = mesh_kernel_entries(K, ops, grid, ins[0], ins[1], ins[2], shards)
         prof = profile_ticks(StepTicker(card, ins), ticks)
 
-        def stats(xs):
-            return f"median {statistics.median(xs):.3f} ms p99 {float(np.percentile(xs, 99)):.3f} ms"
-
         print(f"7a {label} ({kind} plane, mesh {card.mesh.shape}): {ticks} ticks of "
               f"{MESH_SIZE['entities']} moving entities on cuda equal the same mesh on the CPU "
               f"on every output; equal to the single-device step on every output of the "
               f"{compared} ticks without overflow, and on all but the rows, baseline and (bucket "
               f"full) counts of the overflow ticks {overflow_ticks}; launches per tick K1 "
               f"{MESH_SHARDS}, K2 {MESH_SHARDS if kind == 'cells' else 1}; step host "
-              f"{stats(host_ms[1:])}, events {stats(event_ms[1:])}; single-device step host "
-              f"{stats(single_ms[1:])}")
+              f"{tick_stats(host_ms[1:])}, events {tick_stats(event_ms[1:])}; single-device step host "
+              f"{tick_stats(single_ms[1:])}")
         if prof["busy_ms"] is None:
             print(f"7a {label} profile: the trace recorded no device time (not measured)")
         else:
@@ -2419,9 +2499,6 @@ def phase_mesh_engine(K, engine_mod, ops) -> dict:
               and np.array_equal(a["counts"], b["counts"]),
               f"7b {sharding}: cuda and cpu differ on the tick after apply_grid")
 
-        def stats(xs):
-            return f"median {statistics.median(xs):.3f} ms p99 {float(np.percentile(xs, 99)):.3f} ms"
-
         print(f"7b engine {sharding} on {MESH_SHARDS} shards (cell_bucket {bucket or 'exact'}): {ticks} "
               f"ticks at 1<<17 slots, {len(load.ids)} entities (a fifth moving), 4,096 queries, "
               f"16,384 subscriptions, the standing-query plane on: cuda equal to the CPU mesh on "
@@ -2430,8 +2507,8 @@ def phase_mesh_engine(K, engine_mod, ops) -> dict:
               f"launches per tick {want}; reads per steady tick {sorted({reads[t] for t in steady})} "
               f"(unmeshed {sorted({single_reads[t] for t in steady})}), host waits "
               f"{sorted({syncs[t] for t in steady})} (unmeshed "
-              f"{sorted({single_syncs[t] for t in steady})}); tick+reads host {stats(card_ms[1:])} "
-              f"(unmeshed {stats(single_ms[1:])}); rebuild + verify "
+              f"{sorted({single_syncs[t] for t in steady})}); tick+reads host {tick_stats(card_ms[1:])} "
+              f"(unmeshed {tick_stats(single_ms[1:])}); rebuild + verify "
               f"{recover['rebuild']:.2f} ms, corrupt + rebuild + verify "
               f"{recover['corrupt_rebuild']:.2f} ms, apply_grid + verify "
               f"{recover['apply_grid']:.2f} ms, each clean, and the next tick equal on both")
@@ -2503,20 +2580,516 @@ def phase_mesh_gateway(K, size: dict = MESH_GATEWAY) -> dict:
     handovers = sum(len(o["handovers"]) for o in card)
     check(handovers > 0, "7c: no handover in the run")
 
-    def stats(xs):
-        return f"median {statistics.median(xs):.3f} ms p99 {float(np.percentile(xs, 99)):.3f} ms"
-
     print(f"7c gateway on a mesh of {n_dev} (Sharding cells, CellBucket {bucket}): {ticks} "
           f"GLOBAL ticks of {size['entities']} moving entity channels on {GATEWAY_CONFIG} "
           f"(storms at {gsize['storms']}; no sim plane on a mesh) on cuda equal the CPU leg "
           f"tick for tick: handovers ({handovers}), entity tables, every outbound stream, "
           f"changed query rows, undelivered slots and the tpu_cell_overflow_total delta "
           f"(per tick {overflow}); launches {launches}; reads per steady tick {reads}, host "
-          f"waits {sorted({o['syncs'] for o in card[1:]})}; tick {stats([o['tick_ms'] for o in card[1:]])}, "
-          f"GLOBAL tick {stats([o['global_ms'] for o in card[1:]])}, guarded device step "
-          f"{stats([o['step_ms'] for o in card[1:]])}; phase {time.perf_counter() - t_phase:.1f} s; "
+          f"waits {sorted({o['syncs'] for o in card[1:]})}; tick {tick_stats([o['tick_ms'] for o in card[1:]])}, "
+          f"GLOBAL tick {tick_stats([o['global_ms'] for o in card[1:]])}, guarded device step "
+          f"{tick_stats([o['step_ms'] for o in card[1:]])}; phase {time.perf_counter() - t_phase:.1f} s; "
           f"{mesh_note() if n_dev > 1 else '1 card: a mesh of one (the mesh path, bucket and shed)'}")
     return launches
+
+# ---- phase 8: the engines' paths through the gateway ------------------------
+
+# 8a: an engine's dedicated servers on config4's world, cut by the
+# phase's time as 6a is (~0.08-0.16 ms per moving entity channel and
+# tick on the card's host): 10,000 objects x 12 ticks. 8b: the Unreal
+# types, 1,000 objects x 6 ticks. ``--engine-adapter OBJECTS TICKS``
+# runs 8a alone at another size.
+ENGINE_OBJECTS, ENGINE_TICKS = 10_000, 12
+UNREAL_OBJECTS, UNREAL_TICKS = 1_000, 6
+
+
+def engine_size(objects: int = ENGINE_OBJECTS, ticks: int = ENGINE_TICKS) -> dict:
+    storm = ticks // 4
+    destroy_at = ticks // 2 if ticks // 2 not in (storm, storm + 2) else ticks // 2 + 1
+    return dict(entities=objects, followers=256, sensors=0, subscribers=256, ticks=ticks,
+                census_every=max(1, ticks // 3), storms=(storm,), sim=False,
+                destroy_at=destroy_at)
+
+
+class EngineAdapterWorld(GatewayWorld):
+    """6a's world with the objects coming and going through the port's
+    engine adapter (models/engine_adapter.py), as an engine's dedicated
+    servers drive it: the master creates each object's entity channel in
+    GLOBAL (ownership passes to the cell's server, which the adapter
+    enters in the cell's entity table) and spawns it by SPAWN (103) with
+    its location, which the adapter routes to the cell's spatial
+    channel. Every 16th object is non-spatial (a game-mode actor),
+    spawned on GLOBAL without a location: the adapter's recovery table
+    holds it. Objects move +-60 m per tick by entity channel updates; a
+    storm gathers an eighth into one cell and scatters them two ticks
+    later; at ``destroy_at`` a tenth are destroyed by DESTROY (104) on
+    their spatial channels (and one game-mode actor on GLOBAL), and
+    spawned again the tick after. No sim plane, no sensors."""
+
+    ADAPTER = "models.engine_adapter"
+
+    def _register_types(self) -> None:
+        import importlib
+
+        super()._register_types()
+        self.adapter = importlib.import_module(f"channeld_tpu_torch.{self.ADAPTER}")
+
+    def _install_adapter(self) -> None:
+        self.adapter.init_message_handlers()
+
+    def _global_data(self):
+        return None  # the registered GLOBAL type (models/sim.py's)
+
+    def _entities(self, rng) -> None:
+        import importlib
+
+        P, ctl = self.P, self.ctl
+        self.mods = NS(**{k: importlib.import_module(f"channeld_tpu_torch.{v}") for k, v in dict(
+            messages="spatial.messages", anyutil="utils.anyutil", spatial_pb2="protocol.spatial_pb2",
+            wire_pb2="protocol.wire_pb2").items()})
+        self._install_adapter()
+        self.gch = P.channel.get_global_channel()
+        self.gch.init_data(self._global_data(), None)  # with the adapter's recovery extension
+        self.master = self.conns[0]
+        x0, z0 = ctl.world_offset_x + 1.0, ctl.world_offset_z + 1.0
+        x1 = ctl.world_offset_x + ctl.grid_width * ctl.grid_cols - 1.0
+        z1 = ctl.world_offset_z + ctl.grid_height * ctl.grid_rows - 1.0
+        self.bounds = (x0, z0, x1, z1)
+        estart = P.settings.global_settings.entity_channel_id_start
+        self.positions: dict[int, tuple[float, float]] = {}
+        self.props: list[int] = []
+        for i in range(self.size["entities"]):
+            eid = estart + 1 + i
+            if i % 16 == 15:
+                self.spawn_prop(eid)
+            else:
+                self.spawn(eid, rng.uniform(x0, x1), rng.uniform(z0, z1), queued=False)
+        self.entity_ids = list(self.positions)
+        self._refresh_channels()
+        self.crowd: list[int] = []
+        self.gone: list[int] = []
+
+    def _refresh_channels(self) -> None:
+        chans = self.P.channel.all_channels()
+        self.entity_channels = [chans[e] for e in self.entity_ids if e in chans]
+
+    def _dispatch(self, msg_type: int, channel, msg, handler, queued: bool,
+                  connection=None) -> None:
+        """One message from a server, as the gateway dispatches it: queued
+        on its channel (handled in that channel's next tick), or handled
+        at once during setup."""
+        ctx = self.P.message.MessageContext(
+            msg_type=msg_type, msg=msg, channel=channel, channel_id=channel.id,
+            connection=connection or (self.master if channel is self.gch else channel.get_owner()))
+        if queued:
+            channel.put_message_context(ctx, handler)
+        else:
+            handler(ctx)
+
+    def _forward(self, msg_type: int, channel, payload: bytes, queued: bool = True) -> None:
+        msg = self.mods.wire_pb2.ServerForwardMessage(payload=payload)
+        self._dispatch(msg_type, channel, msg, self.P.message.MESSAGE_MAP[msg_type].handler, queued)
+
+    def spawn(self, eid: int, x: float, z: float, queued: bool = True) -> None:
+        P, m = self.P, self.mods
+        d = P.sim_pb2.SimEntityChannelData()
+        d.state.entityId = eid
+        d.state.transform.position.x = x
+        d.state.transform.position.z = z
+        create = m.spatial_pb2.CreateEntityChannelMessage(entityId=eid, data=m.anyutil.pack_any(d))
+        self._dispatch(P.types.MessageType.CREATE_ENTITY_CHANNEL, self.gch, create,
+                       m.messages.handle_create_entity_channel, queued)
+        spawn = P.sim_pb2.SpawnObjectMessage(channelId=0)
+        spawn.obj.netId = eid
+        spawn.location.x, spawn.location.z = x, z
+        self._forward(self.adapter.MSG_SPAWN, self.gch, spawn.SerializeToString(), queued)
+        self.positions[eid] = (x, z)
+
+    def spawn_prop(self, eid: int) -> None:
+        spawn = self.P.sim_pb2.SpawnObjectMessage(channelId=0)
+        spawn.obj.netId = eid
+        spawn.obj.owningConnId = self.master.id
+        self._forward(self.adapter.MSG_SPAWN, self.gch, spawn.SerializeToString(), queued=False)
+        self.props.append(eid)
+
+    def destroy(self, eid: int, channel) -> None:
+        msg = self.P.sim_pb2.DestroyObjectMessage(netId=eid)
+        self._forward(self.adapter.MSG_DESTROY, channel, msg.SerializeToString())
+
+    def spatial_channel_of(self, eid: int):
+        """The spatial channel whose entity table holds ``eid`` (None while
+        a handover has it in neither)."""
+        chans = self.P.channel.all_channels()
+        for cid in self.spatial:
+            if eid in chans[cid].get_data_message().entities:
+                return chans[cid]
+        return None
+
+    def drive(self, t: int) -> None:
+        """Every object moves each tick; a storm tick gathers an eighth in
+        one cell, scattered two ticks later; ``destroy_at`` queues the
+        destroys, and the tick after spawns those objects again."""
+        x0, z0, x1, z1 = self.bounds
+        rng, ctl = self.rng, self.ctl
+        crowd: set = set()
+        if t in self.size["storms"]:
+            col, row = rng.randrange(ctl.grid_cols), rng.randrange(ctl.grid_rows)
+            cx = ctl.world_offset_x + (col + 0.5) * ctl.grid_width
+            cz = ctl.world_offset_z + (row + 0.5) * ctl.grid_height
+            self.crowd = rng.sample(self.entity_ids, len(self.entity_ids) // 8)
+            crowd = set(self.crowd)
+            for eid in self.crowd:
+                self.move(eid, cx + rng.uniform(-0.4, 0.4) * ctl.grid_width,
+                          cz + rng.uniform(-0.4, 0.4) * ctl.grid_height)
+        elif any(t - 2 == s for s in self.size["storms"]):
+            crowd = set(self.crowd) & set(self.entity_ids)
+            for eid in sorted(crowd, key=self.crowd.index):
+                self.move(eid, rng.uniform(x0, x1), rng.uniform(z0, z1))
+        if t == self.size["destroy_at"]:
+            self.gone = []
+            for eid in rng.sample(self.entity_ids, len(self.entity_ids) // 10):
+                channel = self.spatial_channel_of(eid)
+                if channel is not None:
+                    self.destroy(eid, channel)
+                    del self.positions[eid]
+                    self.gone.append(eid)
+            self.destroy(self.props[0], self.gch)
+            gone = set(self.gone)
+            self.entity_ids = [e for e in self.entity_ids if e not in gone]
+            crowd |= gone
+        elif t == self.size["destroy_at"] + 1:
+            for eid in self.gone:
+                self.spawn(eid, rng.uniform(x0, x1), rng.uniform(z0, z1))
+            crowd |= set(self.gone)
+        for eid in self.entity_ids:
+            if eid in crowd:
+                continue
+            x, z = self.positions[eid]
+            self.move(eid, min(max(x + rng.uniform(-60, 60), x0), x1),
+                      min(max(z + rng.uniform(-60, 60), z0), z1))
+
+    def tick(self, t: int) -> dict:
+        obs = super().tick(t)
+        if t == self.size["destroy_at"] + 1:
+            self.entity_ids += self.gone  # their channels exist after this tick's GLOBAL
+        self._refresh_channels()
+        obs["recovery"] = self.recovery_digest()
+        return obs
+
+    def recovery_digest(self) -> tuple:
+        spawned = self.gch.data.extension.spawned_objs
+        h = hashlib.sha256()
+        for net_id in sorted(spawned):
+            h.update(spawned[net_id].SerializeToString(deterministic=True))
+        return len(spawned), h.hexdigest()
+
+
+class UnrealWorld(EngineAdapterWorld):
+    """8a's traffic in the Unreal SDK's types through the port's
+    compat/unreal.py: SPATIAL channels hold unrealpb.SpatialChannelData,
+    each object's entity channel an unrealpb.SpatialEntityState (its
+    objRef), spawns carry unrealpb.FVector locations (UE Z-up: the
+    ground plane is x, y), which to_spatial_info swaps to the gateway's
+    Y-up. A server creates the entity channel in its first cell and
+    spawns it there; the SPAWN handler routes it to its location's cell.
+    A move is the engine's replicated location run through the engine
+    adapter's check_entity_handover (Z-up swap) into the controller's
+    notify, on the entity channel's tick; the game-mode actors sit in
+    the UnrealRecoverableExtension of GLOBAL."""
+
+    ADAPTER = "compat.unreal"
+
+    def _register_types(self) -> None:
+        import importlib
+
+        self.adapter = importlib.import_module("channeld_tpu_torch.compat.unreal")
+        self.handover = importlib.import_module(
+            "channeld_tpu_torch.models.engine_adapter").check_entity_handover
+        self.adapter.register_unreal_types()  # as -imports runs its hook
+
+    def _global_data(self):
+        return self.adapter.unrealpb.SpatialChannelData()  # any data message
+
+    def _install_adapter(self) -> None:
+        self.home = {}
+        for cid in self.spatial:
+            owner = self.P.channel.get_channel(cid).get_owner()
+            self.home.setdefault(owner.id, cid)
+        self.locations: dict = {}
+
+    def spawn(self, eid: int, x: float, z: float, queued: bool = True) -> None:
+        P, m, pb = self.P, self.mods, self.adapter.unrealpb
+        ue = pb.FVector(x=x, y=z, z=90.0)  # UE: y is the ground plane's second axis
+        info = self.adapter.to_spatial_info(ue)
+        owner = P.channel.get_channel(self.ctl.get_channel_id(info)).get_owner()
+        home = P.channel.get_channel(self.home[owner.id])
+        state = pb.SpatialEntityState()
+        state.objRef.netGUID = eid
+        create = m.spatial_pb2.CreateEntityChannelMessage(entityId=eid,
+                                                          data=m.anyutil.pack_any(state))
+        self._dispatch(P.types.MessageType.CREATE_ENTITY_CHANNEL, home, create,
+                       m.messages.handle_create_entity_channel, queued, connection=owner)
+        spawn = pb.SpawnObjectMessage(channelId=home.id)
+        spawn.obj.netGUID = eid
+        spawn.location.CopyFrom(ue)
+        self._forward(self.adapter.MSG_SPAWN, home, spawn.SerializeToString(), queued)
+        # The engine's first replicated location: the controller learns it.
+        observe = lambda: self.ctl.observe_entity(eid, info, lambda s, d, e=eid: e)  # noqa: E731
+        if queued:
+            home.execute(lambda _c: observe())
+        else:
+            observe()
+        self.locations[eid] = ue
+        self.positions[eid] = (x, z)
+
+    def spawn_prop(self, eid: int) -> None:
+        spawn = self.adapter.unrealpb.SpawnObjectMessage(channelId=0)
+        spawn.obj.netGUID = eid
+        self._forward(self.adapter.MSG_SPAWN, self.gch, spawn.SerializeToString(), queued=False)
+        self.props.append(eid)
+
+    def destroy(self, eid: int, channel) -> None:
+        msg = self.adapter.unrealpb.DestroyObjectMessage(netId=eid, reason=0)
+        self._forward(self.adapter.MSG_DESTROY, channel, msg.SerializeToString())
+
+    def move(self, eid: int, x: float, z: float) -> None:
+        old = self.locations[eid]
+        new = self.adapter.unrealpb.FVector(x=x, y=z, z=old.z)
+        ctl = self.ctl
+
+        def replicate(_c):
+            moved, old_info, new_info = self.handover(eid, new, old, swap_yz=True)
+            if moved:
+                ctl.notify(old_info, new_info, lambda s, d: eid)
+
+        self.P.channel.get_channel(eid).execute(replicate)
+        self.locations[eid] = new
+        self.positions[eid] = (x, z)
+
+    def recovery_digest(self) -> tuple:
+        refs = self.gch.data.extension.obj_refs
+        h = hashlib.sha256()
+        for net_id in sorted(refs):
+            h.update(refs[net_id].SerializeToString(deterministic=True))
+        return len(refs), h.hexdigest()
+
+
+def run_engine_world(world_cls, K, size: dict, label: str, profile: bool,
+                     dev=torch.device("cuda", 0)) -> dict:
+    """A phase-8 world on the card (``dev``), then on the CPU, tick for
+    tick; K1 and K2 launched on every card tick. Returns the card leg's
+    observations, its launches per tick, profile and wall times."""
+    ticks = size["ticks"]
+    t_phase = time.perf_counter()
+    with FixedClock() as clock:
+        world = world_cls(dev, clock, size)
+        setup_s = world.load_s
+        K.reset_launch_counts()
+        card, per_tick = [], []
+        for t in range(ticks):
+            before = K.launch_counts()
+            card.append(world.tick(t))
+            per_tick.append({k: v - before[k] for k, v in K.launch_counts().items()})
+        launches = K.launch_counts()
+        bad = [(t, n) for t, n in enumerate(per_tick) if min(n.values()) < 1]
+        check(not bad, f"{label}: ticks without a K1 or K2 launch: {bad}")
+        gateway_live_kernels(K, world.eng)
+        prof = profile_gateway(world, ticks) if profile else None
+        world.close()
+        del world
+    t_card = time.perf_counter()
+    with FixedClock() as clock:
+        world = world_cls(torch.device("cpu"), clock, size)
+        for t in range(ticks):
+            where = first_gateway_diff(card[t], world.tick(t))
+            if where is not None:
+                print(f"MISMATCH {label} tick {t}: {where}")
+            check(where is None, f"{label} tick {t}: cuda and cpu differ: {where}")
+        world.close()
+        del world
+    return dict(card=card, launches=launches, per_tick=per_tick, prof=prof,
+                secs=(time.perf_counter() - t_phase, t_card - t_phase), setup_s=setup_s)
+
+
+def phase_engine_adapter(K, size: dict, dev=torch.device("cuda", 0)) -> dict:
+    """8a: the engine-adapter world on GATEWAY_CONFIG, card leg against
+    CPU leg. Returns K1/K2 launches on this path."""
+    run = run_engine_world(EngineAdapterWorld, K, size, "8a engine adapter", True, dev)
+    card, ticks = run["card"], size["ticks"]
+    handovers = sum(len(o["handovers"]) for o in card)
+    check(handovers > 0, "8a: no handover in the run")
+    reads = sorted({o["reads"] for o in card[1:]})
+    check(reads == [2], f"8a: device reads per steady tick {reads}, not 2")
+    recovery = [o["recovery"][0] for o in card]
+    props = size["entities"] // 16
+    check(recovery[0] == props and recovery[-1] == props - 1,
+          f"8a: recovery table sizes {recovery}, not {props} then {props - 1}")
+    print(f"8a engine adapter: {ticks} GLOBAL ticks of {size['entities']} objects "
+          f"({props} of them non-spatial) spawned by SPAWN (103) through "
+          f"channeld_tpu_torch.models.engine_adapter on {GATEWAY_CONFIG} (storm of an eighth "
+          f"at {size['storms']}, DESTROY (104) of a tenth at tick {size['destroy_at']} and "
+          f"their respawn, {size['followers']} followers, {size['subscribers']} subscribers) "
+          f"on cuda equal the CPU leg tick for tick: handovers ({handovers}), spatial entity "
+          f"tables, the adapter's recovery table ({recovery[0]} -> {recovery[-1]}), every "
+          f"outbound stream, changed query rows; launches {run['launches']} (per tick "
+          f"{sorted({tuple(n.values()) for n in run['per_tick']})}); phase "
+          f"{run['secs'][0]:.1f} s (card leg {run['secs'][1]:.1f} s, load_config "
+          f"{run['setup_s']:.2f} s)")
+    print(f"8a per tick on cuda (ticks 1-{ticks - 1}): tick "
+          f"{tick_stats([o['tick_ms'] for o in card[1:]])}; GLOBAL tick "
+          f"{tick_stats([o['global_ms'] for o in card[1:]])}; guarded device step "
+          f"{tick_stats([o['step_ms'] for o in card[1:]])}; reads per steady tick {reads}, "
+          f"host waits {sorted({o['syncs'] for o in card[1:]})}")
+    prof = run["prof"]
+    if prof["busy_ms"] is None:
+        print("8a profile: the trace recorded no device time (idle share not measured)")
+    else:
+        check(prof["k1"] == 1 and prof["k2"] == 1,
+              f"8a profiled ticks ran K1 {prof['k1']} and K2 {prof['k2']} times per tick")
+        print(f"8a profile (5 ticks): tick wall {prof['wall_ms']:.2f} ms, device busy "
+              f"{prof['busy_ms']:.3f} ms, idle share {prof['idle']:.4f}; top: " + "; ".join(
+                  f"{k[:48]} {ms:.3f} ms x{c:g}" for k, ms, c in prof["top"]))
+    return run["launches"]
+
+
+def phase_unreal(K, objects: int = UNREAL_OBJECTS, ticks: int = UNREAL_TICKS,
+                 dev=torch.device("cuda", 0)) -> dict:
+    """8b: 8a's traffic in the Unreal types (compat/unreal.py), card leg
+    against CPU leg. Returns K1/K2 launches on this path."""
+    size = engine_size(objects, ticks)
+    run = run_engine_world(UnrealWorld, K, size, "8b unreal", False, dev)
+    card = run["card"]
+    handovers = sum(len(o["handovers"]) for o in card)
+    check(handovers > 0, "8b: no handover in the run")
+    recovery = [o["recovery"][0] for o in card]
+    print(f"8b unreal: {ticks} GLOBAL ticks of {objects} UE objects spawned with "
+          f"unrealpb.FVector locations through channeld_tpu_torch.compat.unreal (SPATIAL "
+          f"data unrealpb.SpatialChannelData, moves through check_entity_handover's Z-up "
+          f"swap) on cuda equal the CPU leg tick for tick: handovers ({handovers}), spatial "
+          f"entity tables, the recovery objRefs ({recovery[0]} -> {recovery[-1]}), every "
+          f"outbound stream; launches {run['launches']}; tick "
+          f"{tick_stats([o['tick_ms'] for o in card[1:]])}, guarded device step "
+          f"{tick_stats([o['step_ms'] for o in card[1:]])}; phase {run['secs'][0]:.1f} s")
+    return run["launches"]
+
+
+def phase_replay_live(dev_args=(), deadline_s: float = 180.0, connections: int = 8) -> None:
+    """8c: ``python -m channeld_tpu_torch -imports channeld_tpu_torch.compat``
+    as a child on the card; the master claims GLOBAL; ``python -m
+    channeld_tpu_torch.replay run`` replays examples/sessions/chat_demo.cpr
+    with ``connections`` connections against its CLIENT listener. The
+    CLI exits 0 with every connection authenticated and every packet
+    sent, the gateway's /metrics shows device_state 0, SIGTERM exits 0."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    import urllib.request
+
+    from channeld_tpu_torch.client import Client
+    from channeld_tpu_torch.core.types import ChannelType, MessageType
+    from channeld_tpu_torch.protocol import control_pb2
+
+    sport, cport, mport = free_port(), free_port(), free_port()
+    scratch = tempfile.mkdtemp(prefix="replay-")
+    log_path = os.path.join(scratch, "gateway.log")
+    log_fd = os.open(log_path, os.O_WRONLY | os.O_CREAT, 0o600)
+    cmd = [sys.executable, "-m", "channeld_tpu_torch", "-dev", "-loglevel", "0",
+           "-profilepath", scratch,
+           "-sn", "tcp", "-sa", f"127.0.0.1:{sport}", "-cn", "tcp", "-ca", f"127.0.0.1:{cport}",
+           "-mport", str(mport), "-cfsm", "config/client_authoritative_fsm.json",
+           "-scc", GATEWAY_CONFIG, "-imports", "channeld_tpu_torch.compat", *dev_args]
+    child = subprocess.Popen(cmd, stdout=log_fd, stderr=subprocess.STDOUT)
+    os.close(log_fd)
+    master = None
+
+    def log() -> str:
+        with open(log_path) as f:
+            return f.read()
+
+    def until(cond, what: str, timeout: float):
+        end = time.perf_counter() + timeout
+        while time.perf_counter() < end:
+            if master is not None:
+                master.tick(timeout=0.01)
+            if cond():
+                return
+            check(child.poll() is None, f"8c: gateway child exited ({child.returncode}) "
+                                        f"while waiting for {what}: {log()[-2000:]}")
+            time.sleep(0.02)
+        raise PhaseFailed(f"8c: no {what} within {timeout} s; log: {log()[-2000:]}")
+
+    try:
+        until(lambda: "listening for SERVER" in log(), "server listener", deadline_s)
+        master = Client(f"127.0.0.1:{sport}")
+        master.auth(login_token="master", pit="master")
+        master.flush()
+        until(lambda: master.id != 0, "the master's auth", 20)
+        created: list = []
+        master.add_message_handler(MessageType.CREATE_CHANNEL,
+                                   lambda _c, ch, m: created.append(ch))
+        master.send(0, 0, MessageType.CREATE_CHANNEL,
+                    control_pb2.CreateChannelMessage(channelType=ChannelType.GLOBAL))
+        until(lambda: created, "GLOBAL's creation", 20)
+        until(lambda: "listening for CLIENT" in log(), "client listener", 20)
+        case = os.path.join(scratch, "case.json")
+        with open(case, "w") as f:
+            json.dump({"channeldAddr": f"127.0.0.1:{cport}", "connectionGroups": [{
+                "cprFilePath": os.path.abspath("examples/sessions/chat_demo.cpr"),
+                "connectionNumber": connections, "connectInterval": "20ms",
+                "runningTime": "2s", "waitAuthSuccess": True, "authOnlyOnce": True}]}, f)
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "channeld_tpu_torch.replay", "run", case],
+                             capture_output=True, text=True, timeout=120)
+        replay_s = time.perf_counter() - t0
+        check(out.returncode == 0, f"8c: the replay CLI exited {out.returncode}: "
+                                   f"{out.stderr[-2000:]}")
+        result = json.loads(out.stdout.strip().splitlines()[-1])
+        per_pass = 7  # chat_demo.cpr: AUTH, SUB_TO_CHANNEL and 5 CHANNEL_DATA_UPDATEs
+        check(result["connections"] == connections and result["authenticated"] == connections,
+              f"8c: {result['authenticated']} of {result['connections']} connections "
+              f"authenticated, not all {connections}")
+        check(result["packets_sent"] >= connections * per_pass,
+              f"8c: {result['packets_sent']} packets sent, fewer than the session's "
+              f"{per_pass} per connection")
+        with urllib.request.urlopen(f"http://127.0.0.1:{mport}/metrics", timeout=10) as r:
+            metrics = r.read().decode()
+        state = [ln for ln in metrics.splitlines() if ln.startswith("device_state")]
+        check(state and float(state[0].split()[-1]) == 0.0,
+              f"8c: /metrics device_state is {state}, not 0")
+        child.send_signal(signal.SIGTERM)
+        try:
+            code = child.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            raise PhaseFailed(f"8c: the gateway child did not exit within 20 s of SIGTERM: "
+                              f"{log()[-2000:]}")
+        check(code == 0, f"8c: the gateway child exited {code} on SIGTERM: {log()[-2000:]}")
+        text = log()
+        check("spatial engine on cuda" in text or dev_args, "8c: the child's engine is not on cuda")
+        print(f"8c replay: python -m channeld_tpu_torch.replay run replayed chat_demo.cpr "
+              f"with {connections} connections against python -m channeld_tpu_torch "
+              f"-imports channeld_tpu_torch.compat on {'cuda' if not dev_args else ' '.join(dev_args)}"
+              f" in {replay_s:.1f} s: exit 0, {result}; /metrics {state[0]}; SIGTERM exit 0")
+    finally:
+        if master is not None:
+            master.disconnect()
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=10)
+        shutil.rmtree(scratch, ignore_errors=True)
+
+
+def phase_native_codec() -> None:
+    """Whether the port's native codec was built from its codec.cc and
+    the port's framing takes it (else the pure-Python path, as the JAX
+    package without its codec)."""
+    from channeld_tpu_torch import native
+    from channeld_tpu_torch.protocol import framing
+
+    used = native.codec is not None and framing._native is native.codec
+    print(f"native codec: {'built from channeld_tpu_torch/native/codec.cc and used by framing' if used else 'not built; framing takes the pure-Python path'}"
+          + (f" ({native.codec.__file__})" if native.codec is not None else ""))
+
 
 
 def main_gateway(entities: int, ticks: int) -> int:
@@ -2561,6 +3134,24 @@ def main_mesh() -> int:
     return 0
 
 
+def main_engine_adapter(objects: int, ticks: int) -> int:
+    """Phase 8a alone at another size (after the device and build
+    phases): ``python3 chip_smoke.py --engine-adapter 10000 12``."""
+    from channeld_tpu_torch.ops import cuda_kernels as K
+
+    torch.cuda.set_device(torch.device("cuda", 0))
+    try:
+        name, _ = phase_device()
+        phase_build(K)
+        phase_engine_adapter(K, engine_size(objects, ticks))
+    except PhaseFailed as e:
+        print(f"FAILED: {e}")
+        return 1
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2569,6 +3160,8 @@ def main() -> int:
         return main_gateway(int(sys.argv[2]), int(sys.argv[3]))
     if sys.argv[1:2] == ["--mesh"]:
         return main_mesh()
+    if sys.argv[1:2] == ["--engine-adapter"]:
+        return main_engine_adapter(int(sys.argv[2]), int(sys.argv[3]))
     from channeld_tpu_torch.ops import cuda_kernels as K
     from channeld_tpu_torch.ops import engine as engine_mod
     from channeld_tpu_torch.ops import service
@@ -2588,6 +3181,10 @@ def main() -> int:
         mesh_launches, mesh_entries = phase_mesh_steps(K, ops)
         mesh_engine_launches = phase_mesh_engine(K, engine_mod, ops)
         mesh_gateway_launches = phase_mesh_gateway(K)
+        engine_launches = phase_engine_adapter(K, engine_size())
+        unreal_launches = phase_unreal(K)
+        phase_replay_live()
+        phase_native_codec()
         phase_sidecar(service, dev)
     except PhaseFailed as e:
         print(f"FAILED: {e}")
@@ -2603,7 +3200,9 @@ def main() -> int:
                               "gateway": gateway_launches[spec.name],
                               "mesh_steps": mesh_launches[spec.name],
                               "mesh_engine": mesh_engine_launches[spec.name],
-                              "mesh_gateway": mesh_gateway_launches[spec.name]},
+                              "mesh_gateway": mesh_gateway_launches[spec.name],
+                              "engine_adapter": engine_launches[spec.name],
+                              "unreal": unreal_launches[spec.name]},
             library_ms=None, **entries[spec.name],
             sim_path=dict(sim_entries[spec.name], library_ms=None),
             mesh_path=dict(mesh_entries[spec.name], launches_per_mesh_tick={

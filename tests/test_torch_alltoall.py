@@ -11,11 +11,11 @@ single-device step, the port's plane against the port's own
 
 F6: with the cell ids a runtime value (they come from ``axis_index``),
 XLA:CPU contracts the cell centre's ``(col + 0.5) * w + offset`` into
-one FMA. On grids whose centres are exact in float32 that changes
-nothing; on 11x5 cells of 37.3 x 61.1 m it moves pairs, and
-``test_cells_plane_differs_from_jax_only_by_the_fused_cell_centre``
-counts them and shows that recomputing the centres fused gives JAX's
-planes exactly.
+one FMA, and the port's cells serving plane rounds it once too
+(``fused_centre``). On grids whose centres are exact in float32 that
+changes nothing; on 11x5 cells of 37.3 x 61.1 m it moves pairs, and
+``test_cells_plane_equals_jax_on_a_grid_with_inexact_centres`` holds the
+plane equal to JAX's there.
 """
 
 import jax
@@ -242,25 +242,17 @@ def test_query_diff_rows_match_dense_from_sharded_interest():
         n_shard, sorted(map(tuple, shard_rows)))
 
 
-def fused_cell_centres(grid, cell_ids):
-    """The cell centre as XLA:CPU computes it with runtime ids: ``(col +
-    0.5) * w + offset`` rounded once (the float32 product is exact in
-    float64; the float64 sum is then rounded to float32)."""
-    cols = int(grid.cols)
-    col = (cell_ids % cols).to(torch.float64)
-    row = torch.div(cell_ids, cols, rounding_mode="floor").to(torch.float64)
-    f32 = lambda v: float(np.float32(v))  # noqa: E731
-    return (((col + 0.5) * f32(grid.cell_w) + f32(grid.offset_x)).to(torch.float32),
-            ((row + 0.5) * f32(grid.cell_h) + f32(grid.offset_z)).to(torch.float32))
-
-
-def test_cells_plane_differs_from_jax_only_by_the_fused_cell_centre(monkeypatch):
+def test_cells_plane_equals_jax_on_a_grid_with_inexact_centres():
     """F6 on the cells plane. 11x5 cells of 37.3 x 61.1 m, 256 queries of
-    every geometric kind, a quarter on cell corners: the port's plane
-    equals its own dense step exactly, and JAX's plane on every output
-    but the AOI pairs whose cell centre XLA:CPU contracts into an FMA —
-    here 8 interest bits and 13 dists of 14,080 pairs. Recomputing the
-    centres fused (and nothing else) gives JAX's planes exactly."""
+    every geometric kind, a quarter on cell corners. JAX's plane takes
+    its block ids from ``axis_index``, so XLA:CPU rounds each cell centre
+    once (an FMA); the port's plane does too (``fused_centre``) and
+    equals JAX's on every output, all 14,080 AOI pairs included. The
+    port's dense step keeps the unfused centre of the single-device
+    paths: it equals the plane on every other output and differs in the
+    8 interest bits and 13 dists the fused centre moves here. On the
+    100 m grid, whose centres are exact in float32, the plane equals the
+    dense step everywhere."""
     from test_torch_spatial_ops import queries
 
     grid = GRID_ODD
@@ -276,23 +268,23 @@ def test_cells_plane_differs_from_jax_only_by_the_fused_cell_centre(monkeypatch)
         JA.build_cell_serving_step(grid, jm, 8, 8), *map(jnp.asarray, (pos, prev, valid)), jq,
         tuple(map(jnp.asarray, subs)), 120)
 
-    def port_plane():
+    def port_plane(g):
         return TA.cell_serving_spatial_step(
-            TA.build_cell_serving_step(grid, pm, 8, 8), *map(torch.tensor, (pos, prev, valid)),
+            TA.build_cell_serving_step(g, pm, 8, 8), *map(torch.tensor, (pos, prev, valid)),
             pq, tuple(map(torch.tensor, subs)), 120)
 
-    out = port_plane()
-    assert_equals_dense(out, dense_step(grid, pos, prev, valid, pq, subs))
-    ji, jd = np.asarray(jax_out["interest"]), np.asarray(jax_out["dist"])
-    hit_diff = int((ji != out["interest"].numpy()).sum())
-    dist_diff = int((jd != out["dist"].numpy()).sum())
-    assert (hit_diff, dist_diff, ji.size) == (8, 13, 14080)
-    assert_outputs_equal({k: v for k, v in jax_out.items() if k not in ("interest", "dist")},
-                         {k: v for k, v in out.items() if k not in ("interest", "dist")})
-    monkeypatch.setattr(T, "cell_centres", fused_cell_centres)
-    fused = port_plane()
-    np.testing.assert_array_equal(ji, fused["interest"].numpy())
-    np.testing.assert_array_equal(jd, fused["dist"].numpy())
+    out = port_plane(grid)
+    assert_outputs_equal(jax_out, out)
+    assert jax_out["interest"].size == 14080
+    dense = dense_step(grid, pos, prev, valid, pq, subs)
+    hit_diff = int((host(out["interest"]) != dense["interest"].numpy()).sum())
+    dist_diff = int((host(out["dist"]) != dense["dist"].numpy()).sum())
+    assert (hit_diff, dist_diff) == (8, 13)
+    unfused = {k: v for k, v in dense.items() if k not in ("interest", "dist")}
+    assert_equals_dense({**out, "interest": dense["interest"], "dist": dense["dist"]},
+                        {**unfused, "interest": dense["interest"], "dist": dense["dist"]})
+    exact = port_plane(GRID)
+    assert_equals_dense(exact, dense_step(GRID, pos, prev, valid, pq, subs))
 
 
 @pytest.mark.parametrize("base,count", [(203, 29), (0, 29), (224, 8)])

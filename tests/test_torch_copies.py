@@ -38,6 +38,24 @@ EDITED = {
     "ops/spatial_ops.py": "the device step as torch ops (ported)",
     "parallel/mesh.py": "the entity-sharded step over a list of torch devices (ported)",
     "parallel/spatial_alltoall.py": "the cell-sharded planes over a list of torch devices (ported)",
+    "replay/harness.py": "its result also counts the connections dialed and authenticated",
+    "native/__init__.py": "builds _codec from the port's codec.cc at first import, logs why not",
+    "analysis/__init__.py": "the port's tpulint: its driver, gate and baseline",
+    "analysis/engine.py": "scans channeld_tpu_torch and chip_smoke.py; the port's baseline file",
+    "analysis/threadmodel.py": "the port's module paths and GPUSpatialController",
+    "analysis/rules/accounting.py": "the port's metrics module path",
+    "analysis/rules/affinity.py": "the port's engine and thread-model paths",
+    "analysis/rules/async_blocking.py": "torch's synchronize() in place of block_until_ready",
+    "analysis/rules/excepts.py": "the port's hot-path module paths",
+    "analysis/rules/proto_drift.py": "the port's schemas, compiled under their shared names",
+    "analysis/rules/readback.py": "the port's hot paths; torch's implicit syncs",
+    "analysis/rules/units.py": "the port's metrics module path",
+}
+# The JAX modules the port replaces, each with its replacement.
+REPLACED = {
+    "ops/pallas_kernels.py": "ops/cuda_kernels.py",
+    "parallel/_jax_compat.py": "parallel/spmd.py",
+    "spatial/tpu_controller.py": "spatial/gpu_controller.py",
 }
 
 _ABSOLUTE = re.compile(rb"^(\s*)(from|import) channeld_tpu\.", re.M)
@@ -97,11 +115,10 @@ def test_the_gateway_closure_is_copied():
     (the TPU controller, the Pallas kernels, the multi-device planes)."""
     import ast
 
-    replaced = {"spatial/tpu_controller.py", "ops/pallas_kernels.py"}
     seen, todo = set(), ["__main__.py", "__init__.py"]
     while todo:
         rel = todo.pop()
-        if rel in seen or rel.startswith("parallel/") or rel in replaced:
+        if rel in seen or rel.startswith("parallel/") or rel in REPLACED:
             continue
         seen.add(rel)
         pkg_dir = os.path.dirname(rel)
@@ -126,3 +143,29 @@ def test_the_gateway_closure_is_copied():
                         todo.append(init)
     missing = sorted(rel for rel in seen if not os.path.exists(os.path.join(REPO, PORT, rel)))
     assert len(seen) > 70 and not missing, missing
+
+
+def sources(pkg: str, suffixes=(".py", ".cc", ".proto")) -> set[str]:
+    root = os.path.join(REPO, pkg)
+    return {os.path.relpath(os.path.join(d, n), root) for d, _, files in os.walk(root)
+            for n in files if n.endswith(suffixes)}
+
+
+def test_every_jax_module_has_its_counterpart():
+    """Every ``*.py``/``*.cc``/``*.proto`` of the JAX package has a
+    counterpart at the same path in the port, but the three device
+    modules the port replaces, each by its named replacement. A module
+    added to the JAX package fails here until it is ported."""
+    jax, port = sources(JAX), sources(PORT)
+    missing = sorted(rel for rel in jax - port if rel not in REPLACED)
+    assert not missing, missing
+    for rel, replacement in REPLACED.items():
+        assert rel in jax and rel not in port and replacement in port, rel
+
+
+@pytest.mark.parametrize("rel", sorted(sources(JAX, (".cc", ".proto")) & sources(PORT)))
+def test_schema_and_native_source_is_byte_identical(rel):
+    """The ``.proto`` sources keep the JAX package's import paths: the
+    descriptors name ``channeld_tpu/...`` files, shared by both packages'
+    pb2s. The C++ sources are the JAX package's."""
+    assert read(PORT, rel) == read(JAX, rel), rel

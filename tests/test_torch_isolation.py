@@ -28,6 +28,10 @@ leaked = sorted(m for m in sys.modules
 assert not leaked, leaked
 assert "channeld_tpu_torch.ops.cuda_kernels" in names, names
 assert "channeld_tpu_torch.ops.service" in names, names
+for name in ("compat", "compat.unreal", "compat.unrealpb_pb2", "models.engine_adapter",
+             "replay.harness", "replay.__main__", "native", "analysis", "analysis.__main__",
+             "analysis.threadmodel", "analysis.rules.readback", "analysis.rules.proto_drift"):
+    assert f"channeld_tpu_torch.{name}" in names, name
 
 import torch
 from channeld_tpu_torch.ops import cuda_kernels

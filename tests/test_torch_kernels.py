@@ -394,6 +394,34 @@ def test_cuda_kernels_match_plain_versions_on_the_card():
 
 
 @pytest.mark.cuda
+def test_fused_centre_block_matches_plain_on_the_card():
+    """K2 with ``fused_centre`` (each cell centre rounded once,
+    ``__fmaf_rn``, as the cells serving plane asks for it) against its
+    plain twin (``spatial_ops.fma_f32``) on 11x5 cells of 37.3 x 61.1 m,
+    exact: every block of 7 cells, as the plane's 8 shards take them
+    (the last past the grid), and the whole grid."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    dev = torch.device("cuda", 0)
+    grid = T.GridSpec(-317.5, -123.25, 37.3, 61.1, 11, 5)
+    rng = np.random.default_rng(102)
+    K.reset_launch_counts()
+    for make in (query_inputs, edge_query_inputs):
+        kind, center, extent, direction, angle = (
+            torch.from_numpy(a).to(dev) for a in make(grid, 256, rng)[:5])
+        cos_a = torch.cos(angle)
+        for base, count in [(s * 7, 7) for s in range(8)] + [(0, None)]:
+            got = K.aoi_tile(grid, kind, center, extent, direction, cos_a, base, count,
+                             fused_centre=True)
+            want = K.aoi_tile_plain(grid, kind, center, extent, direction, cos_a, base, count,
+                                    fused_centre=True)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (base, count)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["aoi"] == 18
+
+
+@pytest.mark.cuda
 def test_mesh_steps_run_both_kernels_per_shard_on_the_card():
     """The sharded steps on 8 shards of one card (a mesh of repeated
     devices) against the same steps on 8 CPU shards, every output equal:

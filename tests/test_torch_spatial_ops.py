@@ -187,6 +187,38 @@ def test_sum_of_squares_rounds_each_product():
     assert np.ceil(separate) == 27
 
 
+def test_fma_f32_rounds_once():
+    """``fma_f32`` is fmaf: ``a * b + c`` rounded once to float32, equal
+    to the exactly rounded rational on seeded operands, including
+    (29.5, 8.677966, 2^32), where a float64 sum rounded again to
+    float32 lands 512 low. On 11x5 cells of 37.3 x 61.1 m the fused
+    centres differ from the unfused ones (the cells plane's F6)."""
+    from fractions import Fraction
+
+    def rounded(a, b, c):
+        exact = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+        f = np.float32(float(exact))
+        near = [np.nextafter(f, np.float32(-np.inf)), f, np.nextafter(f, np.float32(np.inf))]
+        return min(near, key=lambda x: (abs(Fraction(float(x)) - exact),
+                                        int(np.array(x, np.float32).view(np.int32)) & 1))
+
+    rng = np.random.default_rng(6)
+    a = (rng.integers(0, 1 << 16, 400) + 0.5).astype(np.float32)
+    b = (rng.uniform(1e-3, 1e3, 400) * 10.0 ** rng.integers(-3, 3, 400)).astype(np.float32)
+    c = (rng.uniform(-1e7, 1e7, 400) * 10.0 ** rng.integers(-6, 3, 400)).astype(np.float32)
+    a[0], b[0], c[0] = 29.5, np.float32(8.677966117858887), 2.0 ** 32
+    got = np.array([T.fma_f32(torch.tensor([x]), float(y), float(z)).item()
+                    for x, y, z in zip(a, b, c)], np.float32)
+    want = np.array([rounded(x, y, z) for x, y, z in zip(a, b, c)], np.float32)
+    np.testing.assert_array_equal(got, want)
+    assert got[0] == 2.0 ** 32 + 512
+    assert np.float32(np.float64(a[0]) * np.float64(b[0]) + np.float64(c[0])) == 2.0 ** 32
+    grid = T.GridSpec(-317.5, -123.25, 37.3, 61.1, 11, 5)
+    ids = torch.arange(55, dtype=torch.int32)
+    fused, unfused = T.cell_centres(grid, ids, fused=True), T.cell_centres(grid, ids)
+    assert any(not torch.equal(f, u) for f, u in zip(fused, unfused))
+
+
 def test_apply_spots_overlay():
     grid = GRIDS["8x8"]
     rng = np.random.default_rng(5)
