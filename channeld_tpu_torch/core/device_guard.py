@@ -494,12 +494,16 @@ class DeviceGuard:
                 if _chaos.armed and _chaos.fire("device.rebuild_fail"):
                     raise RuntimeError("chaos: injected rebuild failure")
                 seeds = controller.rebuild_seed_cells()
+                # The tables the rebuild uploads, copied here on the loop
+                # thread: a rebuild polled across ticks runs on while
+                # this thread goes on writing them.
+                shadow = engine.host_shadow()
             except Exception as exc:
                 self._rebuild_failed(exc)
                 return
             self._rebuild_t0 = time.monotonic()
             self._rebuild_fut = self._executor().submit(
-                self._rebuild_body, engine, seeds, engine.generation
+                self._rebuild_body, engine, seeds, engine.generation, shadow
             )
         fut = self._rebuild_fut
         try:
@@ -566,9 +570,10 @@ class DeviceGuard:
         self._set_state(DeviceState.FAILED)
 
     @staticmethod
-    def _rebuild_body(engine, seeds: dict, gen: int):
-        """Worker-thread rebuild: re-seed from the host shadow, then the
-        bit-identical verification readbacks. Two fences keep an
+    def _rebuild_body(engine, seeds: dict, gen: int, shadow: Optional[dict] = None):
+        """Worker-thread rebuild: re-seed from the host shadow (``shadow``,
+        copied on the loop thread), then the bit-identical verification
+        readbacks. Two fences keep an
         abandoned (timed-out) rebuild from ever clobbering a later
         successful one when the device unwedges: the engine's rebuild
         lock serializes concurrent rebuild bodies outright, and
@@ -588,7 +593,7 @@ class DeviceGuard:
             if gen != engine.generation:
                 raise RuntimeError("stale rebuild abandoned by watchdog")
             with _on_device(engine.device):
-                engine.rebuild_device_state(seeds, expect_generation=gen)
+                engine.rebuild_device_state(seeds, expect_generation=gen, shadow=shadow)
                 return engine.verify_device_state(seeds)
         finally:
             engine._rebuild_lock.release()

@@ -172,7 +172,7 @@ class SpatialEngine:
         # is authoritative after each tick (fanout_due advances it); the
         # host mirror only carries *explicit* writes (add/reset/interval),
         # applied as row scatters.
-        self._sub_last = np.zeros(sub_capacity, np.int32)
+        self._sub_last = np.zeros(sub_capacity, np.int32)  # tpulint: shared=fence
         self._sub_interval = np.zeros(sub_capacity, np.int32)
         self._sub_active = np.zeros(sub_capacity, bool)
         self._sub_free = list(range(sub_capacity - 1, -1, -1))
@@ -234,6 +234,9 @@ class SpatialEngine:
         # Serializes rebuild bodies (core/device_guard.py): an abandoned
         # rebuild that unwedges late never overlaps a newer one.
         self._rebuild_lock = threading.Lock()
+        # The host tables the last rebuild uploaded (``host_shadow``), which
+        # its verify holds the device to.
+        self._rebuilt_from: Optional[dict] = None
 
     # ---- entity slots ----------------------------------------------------
 
@@ -985,9 +988,47 @@ class SpatialEngine:
                 slot_cells.values(), np.int32, len(slot_cells))
         return cells
 
+    def host_shadow(self, now_ms: Optional[int] = None) -> dict:
+        """Copies of every host table a rebuild uploads, taken after every
+        dirty mark is cleared, with the sub table's last-fan-out column
+        snapped to ``now`` (every sub's window restarts one full interval
+        from the rebuild). A host write that lands after this call stays
+        dirty and reaches the device on the next flush.
+
+        The device guard takes it on the loop thread before it hands the
+        rebuild to its worker: a rebuild that outlasts the guard's
+        per-tick wait (its uploads queued behind a wedged stream) runs on
+        while the loop thread goes on writing the host tables, and a
+        rebuild that read them itself would lose those writes and fail
+        its verify."""
+        if now_ms is None:
+            now_ms = self.now_ms()
+        self._dirty_slots.clear()
+        self._seed_cells.clear()
+        self._sim_dirty.clear()
+        self._spot_dirty_rows.clear()
+        self._queries_dirty = False
+        self._flee_dirty = False
+        self._sub_dirty_slots.clear()
+        self._sub_last_dirty.clear()
+        self._sub_last[self._sub_active] = now_ms
+        shadow = dict(
+            positions=self._positions.copy(), valid=self._valid.copy(),
+            queries=[a.copy() for a in (self._q_kind, self._q_center, self._q_extent,
+                                        self._q_dir, self._q_angle)],
+            spot_dist=None if self._q_spot_dist is None else self._q_spot_dist.copy(),
+            subs=[a.copy() for a in (self._sub_last, self._sub_interval, self._sub_active)],
+        )
+        if self.sim_enabled:
+            shadow["sim"] = [a.copy() for a in (self._vel, self._sim_state, self._sim_target,
+                                                self._agent_mask)]
+            shadow["flee"] = None if self._flee_cells is None else self._flee_cells.copy()
+        return shadow
+
     def rebuild_device_state(self, slot_cells: dict[int, int],
                              now_ms: Optional[int] = None,
-                             expect_generation: Optional[int] = None) -> None:
+                             expect_generation: Optional[int] = None,
+                             shadow: Optional[dict] = None) -> None:
         """Rebuild every device table from the host shadow. The host
         mirrors are authoritative for everything except two
         device-advanced columns:
@@ -1001,49 +1042,39 @@ class SpatialEngine:
 
         Nothing the old device tensors held survives. The standing-query
         baseline is dropped and ``query_epoch`` moves, so the host plane
-        full-resyncs. ``expect_generation``: the fresh tensors are built
-        first, and nothing engine-visible changes unless the generation
-        still matches (a rebuild abandoned by a watchdog raises)."""
-        if now_ms is None:
-            now_ms = self.now_ms()
+        full-resyncs. ``shadow``: the tables to upload, from
+        ``host_shadow`` (taken here from ``now_ms`` when None).
+        ``expect_generation``: every fresh tensor is built first, and
+        nothing engine-visible changes unless the generation still
+        matches (a rebuild abandoned by a watchdog raises)."""
         if expect_generation is None:
             expect_generation = self.generation
-        d_positions = self._entity_upload(self._positions)
-        d_valid = self._entity_upload(self._valid)
-        d_cell = self._entity_upload(self._cell_baselines(slot_cells))
+        if shadow is None:
+            shadow = self.host_shadow(now_ms)
+        cells = self._cell_baselines(slot_cells)
+        d_positions = self._entity_upload(shadow["positions"])
+        d_valid = self._entity_upload(shadow["valid"])
+        d_cell = self._entity_upload(cells)
+        d_spot = None if shadow["spot_dist"] is None else self._upload(shadow["spot_dist"])
+        d_queries = QuerySet(*(self._upload(a) for a in shadow["queries"]), d_spot)
+        d_subs = tuple(self._upload(a) for a in shadow["subs"])
+        d_sim = [self._upload(a) for a in shadow["sim"]] if "sim" in shadow else [None] * 4
+        d_flee = None if shadow.get("flee") is None else self._upload(shadow["flee"])
         if expect_generation != self.generation:
             raise RuntimeError("stale rebuild abandoned by watchdog")
         self.generation += 1
         self._d_positions = d_positions
         self._d_valid = d_valid
         self._d_cell = d_cell
-        self._dirty_slots.clear()
-        self._seed_cells.clear()
-        # Query tables: host staging is authoritative; re-upload whole.
-        self._d_queries = None
-        self._d_spot_dist = None
-        self._spot_dirty_rows.clear()
-        self._queries_dirty = True
-        # Sim columns: the host shadow (last census + explicit stages) is
-        # authoritative; dropping the device copies forces the
-        # whole-column upload on the flush below.
-        self._d_vel = None
-        self._d_sim_state = None
-        self._d_sim_target = None
-        self._d_agent = None
-        self._d_flee = None
-        self._flee_dirty = self._flee_cells is not None
-        self._sim_dirty.clear()
+        self._d_spot_dist = d_spot
+        self._d_queries = d_queries
+        self._d_sub_state = d_subs
+        self._d_vel, self._d_sim_state, self._d_sim_target, self._d_agent = d_sim
+        self._d_flee = d_flee
         self._d_q_prev = None
         self._q_prev_reset_rows.clear()
         self.query_epoch += 1
-        # Sub table: intervals/active from the host mirror; the
-        # device-authoritative last-fan-out column restarts at now.
-        self._sub_last[self._sub_active] = now_ms
-        self._d_sub_state = None
-        self._sub_dirty_slots.clear()
-        self._sub_last_dirty.clear()
-        self._flush_host_state()
+        self._rebuilt_from = shadow
         self.last_result = None
 
     def apply_grid(self, grid, slot_cells: dict[int, int],
@@ -1069,53 +1100,60 @@ class SpatialEngine:
 
     def verify_device_state(self, slot_cells: dict[int, int]) -> list[str]:
         """Bit-identical rebuild verification: fetch the device tables
-        and compare them against the host shadow (and the seeded cell
-        baselines). Returns mismatch descriptions (empty == verified).
-        Recovery path only, never called from the tick: these transfers
-        are the designed one-off cost. Floats compare with NaN equal to
-        NaN (a NaN position round-trips the device bit for bit)."""
+        and compare them against the host shadow the last rebuild
+        uploaded (the live host tables before any rebuild) and the seeded
+        cell baselines. Returns mismatch descriptions (empty ==
+        verified). Recovery path only, never called from the tick: these
+        transfers are the designed one-off cost. Floats compare with NaN
+        equal to NaN (a NaN position round-trips the device bit for
+        bit)."""
+        host = dict(positions=self._positions, valid=self._valid,
+                    queries=[self._q_kind, self._q_center, self._q_extent],
+                    subs=[self._sub_last, self._sub_interval, self._sub_active],
+                    sim=[self._vel, self._sim_state, self._sim_target, self._agent_mask],
+                    flee=self._flee_cells) | (self._rebuilt_from or {})
 
-        def same(dev: torch.Tensor, host: np.ndarray, equal_nan: bool = False) -> bool:
-            return np.array_equal(dev.cpu().numpy(), host, equal_nan=equal_nan)
+        def same(dev: torch.Tensor, host_arr: np.ndarray, equal_nan: bool = False) -> bool:
+            return np.array_equal(dev.cpu().numpy(), host_arr, equal_nan=equal_nan)
 
-        def same_entity(column, host: np.ndarray, equal_nan: bool = False) -> bool:
-            return np.array_equal(self._entity_host(column), host, equal_nan=equal_nan)
+        def same_entity(column, host_arr: np.ndarray, equal_nan: bool = False) -> bool:
+            return np.array_equal(self._entity_host(column), host_arr, equal_nan=equal_nan)
 
         errors: list[str] = []
-        if not same_entity(self._d_positions, self._positions, True):
+        if not same_entity(self._d_positions, host["positions"], True):
             errors.append("positions differ from host shadow")
-        if not same_entity(self._d_valid, self._valid):
+        if not same_entity(self._d_valid, host["valid"]):
             errors.append("valid mask differs from host shadow")
         if not same_entity(self._d_cell, self._cell_baselines(slot_cells)):
             errors.append("cell baselines differ from placement seeds")
         if self._d_queries is not None:
-            for name, dev, host, has_nan in (
-                ("query kinds", self._d_queries.kind, self._q_kind, False),
-                ("query centers", self._d_queries.center, self._q_center, True),
-                ("query extents", self._d_queries.extent, self._q_extent, True),
+            for name, dev, host_arr, has_nan in (
+                ("query kinds", self._d_queries.kind, host["queries"][0], False),
+                ("query centers", self._d_queries.center, host["queries"][1], True),
+                ("query extents", self._d_queries.extent, host["queries"][2], True),
             ):
-                if not same(dev, host, has_nan):
+                if not same(dev, host_arr, has_nan):
                     errors.append(f"{name} differ from host shadow")
         if self._d_sub_state is not None:
             last, interval, active = self._d_sub_state
-            if not same(interval, self._sub_interval):
+            if not same(interval, host["subs"][1]):
                 errors.append("sub intervals differ from host shadow")
-            if not same(active, self._sub_active):
+            if not same(active, host["subs"][2]):
                 errors.append("sub active mask differs from host shadow")
-            if not same(last, self._sub_last):
+            if not same(last, host["subs"][0]):
                 errors.append("sub clock differs from rebuild seed")
         if self.sim_enabled and self._d_vel is not None:
             sim_errors: list[str] = []
-            for name, dev, host, has_nan in (
-                ("agent velocities", self._d_vel, self._vel, True),
-                ("agent FSM states", self._d_sim_state, self._sim_state, False),
-                ("agent waypoints", self._d_sim_target, self._sim_target, True),
-                ("agent mask", self._d_agent, self._agent_mask, False),
+            for name, dev, host_arr, has_nan in (
+                ("agent velocities", self._d_vel, host["sim"][0], True),
+                ("agent FSM states", self._d_sim_state, host["sim"][1], False),
+                ("agent waypoints", self._d_sim_target, host["sim"][2], True),
+                ("agent mask", self._d_agent, host["sim"][3], False),
             ):
-                if not same(dev, host, has_nan):
+                if not same(dev, host_arr, has_nan):
                     sim_errors.append(f"{name} differ from host shadow")
-            if self._flee_cells is not None and self._d_flee is not None:
-                if not same(self._d_flee, self._flee_cells):
+            if host.get("flee") is not None and self._d_flee is not None:
+                if not same(self._d_flee, host["flee"]):
                     sim_errors.append("flee mask differs from host shadow")
             errors.extend(sim_errors)
             self._count_sim_rebuild("verified" if not sim_errors else "mismatch")

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --gateway 50000 30   # phase 6a alone, at another size
     python3 chip_smoke.py --mesh               # phase 7 alone
     python3 chip_smoke.py --engine-adapter 10000 12   # phase 8a alone, at another size
+    python3 chip_smoke.py --recovery 10000 30  # phase 10a alone, at another size
 
 Needs one CUDA card, nvcc, and the ``channeld_tpu_torch`` package beside
 this file; imports nothing of JAX or of ``channeld_tpu``. Phases (each
@@ -133,7 +134,38 @@ prints one line; any failure exits non-zero before the final line):
    and one line saying whether the port's native codec was built from
    its ``codec.cc`` and taken by the framing;
 9. if grpc and protobuf are installed, one real sidecar round trip on
-   ``cuda`` (otherwise says it was not run).
+   ``cuda`` (otherwise says it was not run);
+10. the recovery path (``core/device_guard.py`` on the card):
+   a. lockstep: phase 6a's world cut to 10,000 entities x 30 ticks, the
+      device guard's deadline at the gateway's default 2 s, armed on a
+      fixed clock with scripts/device_soak.py's schedule (two transient
+      step errors, a 3,500 ms hang whose first rebuild fails, a silent
+      corruption; each on a storm tick), on ``cuda`` and then on the
+      CPU: every tick equal (handovers, tables, outbound streams,
+      changed rows, sim columns, the guard's state and ledgers, the
+      ladder, whether the tick was served); on both legs recoveries
+      transient, hang and corruption once each, equal to the metrics,
+      every rebuild verified clean, zero entities lost or duplicated,
+      the ladder pinned at L2 through each outage and released, a
+      snapshot on each fatal and each recovery that reads back; K1 and
+      K2 exact on the first tick after each rebuild. Prints each
+      outage's unserved ticks, each rebuild's host time and the guarded
+      step before and after;
+   b. real faults on the card: a ``torch.cuda._sleep`` of ~3.5 s queued
+      on the engine's stream inside the guarded window, after the tick's
+      kernels (the readback overruns the 2 s deadline) and before them
+      (the tick's upload waits): a hang each, healed by a rebuild that
+      ran behind the wedge, the zombie fenced off, K1 exact after; and a
+      child (``--sticky-child``) whose engine step hits a real
+      device-side assert: the guard FAILED for good, readiness down,
+      nothing escaping the loop thread, the error's text printed;
+   c. live: ``python -m channeld_tpu_torch`` as a child on ``cuda`` with
+      ``-chaos`` (the same schedule on its own clock), ``-snapshot``,
+      ``-wal`` and ``-device-deadline 2``: a crossing to both servers
+      and the follower after each recovery, the recovery counters,
+      ``device_state`` 0 and /readyz 200; SIGKILL, a restart from the
+      snapshot and WAL with the census of /introspect unchanged, a
+      crossing after it, SIGTERM exit 0.
 
 The line before the last is a JSON object with one entry per kernel
 (times measured in this run at the sidecar path's shapes; bound from
@@ -1245,7 +1277,9 @@ def gateway_modules() -> NS:
                  sim_models="models.sim", controller="spatial.controller",
                  balancer="spatial.balancer", partition="spatial.partition",
                  metrics="core.metrics",
-                 sim_plane="sim.plane", ops="ops.spatial_ops", logger="utils.logger")
+                 sim_plane="sim.plane", ops="ops.spatial_ops", logger="utils.logger",
+                 snapshot="core.snapshot", chaos="chaos", invariants="chaos.invariants",
+                 opshttp="core.opshttp")
     return NS(**{k: importlib.import_module(f"channeld_tpu_torch.{v}") for k, v in names.items()})
 
 
@@ -1275,7 +1309,10 @@ class GatewayWorld:
     scripts/chaos_soak.py's EntitySim creates them), stub connections
     for the master, the 9 servers and the clients, driven in a fixed
     order each GLOBAL tick: moves, entity channels, GLOBAL (the
-    controller's guarded device step), spatial channels."""
+    controller's guarded device step), spatial channels. A tick the
+    device guard holds (no step served) fails the run unless ``HOLDS``."""
+
+    HOLDS = False
 
     def __init__(self, dev: torch.device, clock: FixedClock, size: dict):
         from random import Random
@@ -1288,7 +1325,7 @@ class GatewayWorld:
         s.spatial_device = dev.type
         s.sim_enabled = size.get("sim", True)
         s.sim_census_every_ticks = size["census_every"]
-        s.device_step_deadline_s = GATEWAY_DEADLINE_S
+        s.device_step_deadline_s = size.get("deadline", GATEWAY_DEADLINE_S)
         P.message.init_message_map()
         P.channel.init_channels()
         self._register_types()
@@ -1477,6 +1514,7 @@ class GatewayWorld:
         steps, crossings = len(self.step_ms), len(self.handovers)
         if self.dev.type == "cuda":
             torch.cuda.synchronize()
+        eng.last_result = None  # set again only by a step the guard serves
         with Reads() as reads:
             t0 = time.perf_counter()
             for ch in self.entity_channels:
@@ -1488,26 +1526,49 @@ class GatewayWorld:
                 chans[cid].tick_once(now)
             t3 = time.perf_counter()
         result = eng.last_result
-        check(result is not None, f"tick {t}: the engine did not step")
-        count, rows = eng.query_changed_rows(result)
-        census = "sim_census" in result
+        check(result is not None or self.HOLDS, f"tick {t}: the engine did not step")
+        q = undelivered = None
+        census = False
+        if result is not None:
+            count, rows = eng.query_changed_rows(result)
+            q = (count, digest([rows[: min(count, len(rows))]])[0])
+            census = "sim_census" in result
+            undelivered = eng.undelivered_slots(result)
         tables = hashlib.sha256()
         for cid in self.spatial:
             tables.update(chans[cid].get_data_message().SerializeToString(deterministic=True))
-        guard = P.guard.guard
+        guard, governor = P.guard.guard, P.overload.governor
         overflow = P.metrics.tpu_cell_overflow_total._value.get()
         delta = int(overflow - getattr(self, "overflow_total", overflow))
         self.overflow_total = overflow
         return dict(
-            handovers=[r for rows in self.handovers[crossings:] for r in rows], q=(count, digest([rows[: min(count, len(rows))]])[0]),
+            handovers=[r for rows in self.handovers[crossings:] for r in rows], q=q,
             tables=tables.hexdigest(),
             sent={c.id: (c.count, c.digest.hexdigest()) for c in self.conns},
-            guard=(guard.state.name, dict(guard.failure_counts), guard.held_ticks),
+            guard=(guard.state.name, dict(guard.recovery_counts), dict(guard.failure_counts),
+                   guard.held_ticks),
+            served=result is not None, ladder=(int(governor.level), governor._level_floor),
             sim=digest(sim_columns(eng)) if eng._d_vel is not None else None, census=census,
-            overflow=delta, undelivered=eng.undelivered_slots(result),
+            overflow=delta, undelivered=undelivered,
             tick_ms=(t3 - t0) * 1e3, global_ms=(t2 - t1) * 1e3,
             step_ms=self.step_ms[steps] if len(self.step_ms) > steps else None,
             reads=reads.count, syncs=reads.syncs)
+
+    def census(self) -> dict:
+        """The device soak's zero-loss invariants: every entity in exactly
+        one spatial channel's table, tracked by the engine, and the
+        placement ledger naming that channel (each list empty)."""
+        chans = self.P.channel.all_channels()
+        placed: dict[int, list] = {}
+        for cid in self.spatial:
+            for eid in chans[cid].get_data_message().entities:
+                placed.setdefault(eid, []).append(cid)
+        return dict(
+            misplaced=[e for e in self.entity_ids if len(placed.get(e, ())) != 1],
+            duplicated=[e for e, cids in placed.items() if len(cids) > 1],
+            untracked=[e for e in self.entity_ids if self.eng.slot_of_entity(e) is None],
+            ledger_off=[e for e in self.entity_ids
+                        if self.ctl._data_cell.get(e) != placed.get(e, [None])[0]])
 
     def close(self) -> None:
         self._unwrap()
@@ -1517,8 +1578,8 @@ class GatewayWorld:
 def first_gateway_diff(a: dict, b: dict) -> Optional[str]:
     """The first observation of one tick that differs between the legs,
     with its detail (None when the tick is equal)."""
-    for key in ("handovers", "tables", "q", "sim", "census", "guard", "overflow", "undelivered",
-                "recovery"):
+    for key in ("handovers", "tables", "q", "sim", "census", "guard", "served", "ladder",
+                "overflow", "undelivered", "recovery"):
         if a.get(key) != b.get(key):
             if key == "handovers":
                 i = next((i for i, (x, y) in enumerate(zip(a[key], b[key])) if x != y),
@@ -3091,6 +3152,782 @@ def phase_native_codec() -> None:
           + (f" ({native.codec.__file__})" if native.codec is not None else ""))
 
 
+# ---- phase 10: the recovery path ------------------------------------------
+
+
+def device_recovery_scenario(error_at: float, hang_at: float, nan_at: float,
+                             stall_ms: float = 3500.0, seed: int = 20260804) -> dict:
+    """The device-failure schedule of scripts/device_soak.py's
+    ``build_scenario`` (the port's own copy): two transient step errors,
+    retried with backoff and recovered without a rebuild; one step hang
+    of ``stall_ms`` past the watchdog, whose first rebuild fails (FAILED,
+    backoff, rebuild); one silent corruption for the readback sentinel.
+    Times are seconds after arming."""
+    return {"name": "device-recovery", "seed": seed, "faults": [
+        {"point": "device.step_error", "every_n": 1, "start_at_s": error_at, "max_fires": 2},
+        {"point": "device.step_hang", "every_n": 1, "start_at_s": hang_at, "max_fires": 1,
+         "stall_ms": stall_ms},
+        {"point": "device.rebuild_fail", "every_n": 1, "max_fires": 1},
+        {"point": "device.nan", "every_n": 1, "start_at_s": nan_at, "max_fires": 1},
+    ]}
+
+
+def fault_ticks_scenario(error_tick: int, hang_tick: int, nan_tick: int,
+                         stall_ms: float = 3500.0, tick_s: float = GATEWAY_TICK_S) -> dict:
+    """``device_recovery_scenario`` on a fixed clock armed just before
+    tick 0 and advanced ``tick_s`` per tick: each fault opens half a tick
+    before its tick's time, so it fires on that tick on every leg."""
+    return device_recovery_scenario(*((t + 0.5) * tick_s for t in (error_tick, hang_tick, nan_tick)),
+                                    stall_ms=stall_ms)
+
+
+
+# 10a: phase 6a's world (config4, the gateway's default capacities, the
+# storms, followers, sensors, clients and the sim plane) on the device
+# soak's schedule, card leg against CPU leg under one fixed clock. Cut to
+# 10,000 entities (6a runs 20,000) to fit the phase's time; 30 ticks, as
+# the schedule needs on a 33 ms clock: the transient errors' 100 + 200 ms
+# backoffs hold ticks 4-6 and 8-13, the hang's failed rebuild its 200 ms
+# backoff (17-22) and the rebuild (23), the corruption's rebuild 26.
+# ``--recovery ENTITIES TICKS`` runs 10a alone at another size.
+RECOVERY_ENTITIES, RECOVERY_TICKS = 10_000, 30
+RECOVERY_FAULT_TICKS = (3, 16, 26)  # transient errors, hang, corruption: each on a storm tick
+RECOVERY_DEADLINE_S = 2.0  # device_step_deadline_s on both legs, the gateway's default
+RECOVERIES = {"transient": 1, "hang": 1, "corruption": 1}
+RECOVERY_FAILURES = {"step_error": 2, "hang": 1, "rebuild_fail": 1, "corruption": 1}
+
+
+def recovery_size(entities: int = RECOVERY_ENTITIES, ticks: int = RECOVERY_TICKS) -> dict:
+    check(ticks >= RECOVERY_FAULT_TICKS[-1] + 4,
+          f"the fault schedule needs {RECOVERY_FAULT_TICKS[-1] + 4} ticks, not {ticks}")
+    return dict(gateway_size(entities, ticks), storms=RECOVERY_FAULT_TICKS,
+                deadline=RECOVERY_DEADLINE_S)
+
+
+def uncounted(K, fn):
+    """``fn()`` with the kernels' launch counts left as they were: a
+    comparison of a kernel against its plain version is no launch of the
+    path under test."""
+    saved = K.launch_counts()
+    try:
+        return fn()
+    finally:
+        for name, wrapper in K.WRAPPERS.items():
+            wrapper.launches = saved[name]
+
+
+class RecoveryWorld(GatewayWorld):
+    """10a: 6a's world armed with the device soak's schedule just before
+    tick 0, the gateway's default backoffs and a snapshot path. Records
+    every rebuild's verify and its host time (perf_counter: the run's
+    monotonic clock is fixed), every snapshot the guard writes (read back)
+    and every engine tick the guard ran."""
+
+    HOLDS = True
+
+    def __init__(self, dev: torch.device, clock, size: dict, snapshot_path: str):
+        super().__init__(dev, clock, size)
+        P, eng = self.P, self.eng
+        guard = P.guard.guard
+        P.settings.global_settings.snapshot_path = snapshot_path
+        self.verified, self.rebuild_ms, self.snapshots = [], [], []
+        self.engine_ticks = 0
+        body, real_verify, real_snapshot, real_tick = (
+            P.guard.DeviceGuard._rebuild_body, eng.verify_device_state, guard._snapshot, eng.tick)
+
+        def timed_body(engine, seeds, gen, shadow=None):
+            t0 = time.perf_counter()
+            try:
+                return body(engine, seeds, gen, shadow)
+            finally:
+                self.rebuild_ms.append((time.perf_counter() - t0) * 1e3)
+
+        def recorded_verify(seeds):
+            self.verified.append(real_verify(seeds))
+            return self.verified[-1]
+
+        def recorded_snapshot(reason, sync=False):
+            real_snapshot(reason, sync=sync)
+            self.snapshots.append((reason, len(P.snapshot.load_snapshot(snapshot_path).channels)))
+
+        def counted_tick(*args, **kwargs):
+            self.engine_ticks += 1
+            return real_tick(*args, **kwargs)
+
+        P.guard.DeviceGuard._rebuild_body = staticmethod(timed_body)
+        eng.verify_device_state, guard._snapshot, eng.tick = (
+            recorded_verify, recorded_snapshot, counted_tick)
+        self._restore = lambda: (setattr(P.guard.DeviceGuard, "_rebuild_body", staticmethod(body)),
+                                 delattr(guard, "_snapshot"))
+        self.metrics_at_arm = P.invariants.scrape(P.metrics.registry)
+        P.chaos.arm(fault_ticks_scenario(*size["storms"]))
+
+    def metric_deltas(self) -> dict:
+        """The guard's ledgers as the metrics counted them since arming."""
+        inv, guard = self.P.invariants, self.P.guard.guard
+        d = inv.delta(inv.scrape(self.P.metrics.registry), self.metrics_at_arm)
+        return dict(recoveries={c: inv.sample_total(d, "device_recoveries_total", cause=c)
+                                for c in guard.recovery_counts},
+                    failures={c: inv.sample_total(d, "device_step_failures_total", cause=c)
+                              for c in guard.failure_counts})
+
+    def close(self) -> None:
+        self.P.chaos.disarm()
+        self._restore()
+        super().close()
+
+
+def outages(obs: list) -> list:
+    """[(first, last)] runs of ticks the guard did not serve."""
+    runs, start = [], None
+    for t, o in enumerate(obs + [dict(served=True)]):
+        if not o["served"] and start is None:
+            start = t
+        elif o["served"] and start is not None:
+            runs.append((start, t - 1))
+            start = None
+    return runs
+
+
+def phase_recovery_lockstep(K, dev, size: dict) -> dict:
+    """10a: the device soak's schedule through the port's gateway on the
+    card and on the CPU, tick for tick. Returns K1/K2 launches on this
+    path."""
+    import os
+    import shutil
+    import tempfile
+
+    ticks, scratch = size["ticks"], tempfile.mkdtemp(prefix="recovery-")
+    legs, report = {}, {}
+    t_phase = time.perf_counter()
+    try:
+        for label, leg_dev in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            t_leg = time.perf_counter()
+            with FixedClock() as clock:
+                world = RecoveryWorld(leg_dev, clock, size, os.path.join(scratch, f"{label}.snap"))
+                guard = world.P.guard.guard
+                K.reset_launch_counts()
+                obs, checked = [], []
+                for t in range(ticks):
+                    rebuilds = len(world.verified)
+                    obs.append(world.tick(t))
+                    if leg_dev.type == "cuda" and obs[-1]["served"] and checked and checked[-1] is None:
+                        uncounted(K, lambda: gateway_live_kernels(K, world.eng))
+                        checked[-1] = t
+                    if len(world.verified) > rebuilds:
+                        checked.append(None)
+                launches = K.launch_counts()
+                report[label] = dict(
+                    guard=guard.report(), verified=list(world.verified),
+                    rebuild_ms=list(world.rebuild_ms), snapshots=list(world.snapshots),
+                    census=world.census(), metrics=world.metric_deltas(),
+                    engine_ticks=world.engine_ticks, launches=launches, checked=checked,
+                    secs=time.perf_counter() - t_leg, agents=world.eng.agent_count())
+                world.close()
+                del world
+            legs[label] = obs
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    card, cpu = legs["cuda"], legs["cpu"]
+    for t in range(ticks):
+        where = first_gateway_diff(card[t], cpu[t])
+        check(where is None, f"recovery tick {t}: cuda and cpu differ: {where}")
+    for label, r in report.items():
+        g = r["guard"]
+        check(g["state"] == "ACTIVE", f"10a {label}: the guard ends {g['state']}")
+        check(g["recovery_counts"] == RECOVERIES and g["failure_counts"] == RECOVERY_FAILURES,
+              f"10a {label}: recoveries {g['recovery_counts']}, failures {g['failure_counts']}")
+        check(r["metrics"] == dict(recoveries=g["recovery_counts"], failures=g["failure_counts"]),
+              f"10a {label}: the ledgers {g['recovery_counts']} {g['failure_counts']} are not the "
+              f"metrics' {r['metrics']}")
+        check(len(r["verified"]) == 2 and all(v == [] for v in r["verified"]),
+              f"10a {label}: rebuild verifies {r['verified']}")
+        check(r["census"] == dict(misplaced=[], duplicated=[], untracked=[], ledger_off=[]),
+              f"10a {label}: entities lost or duplicated: "
+              f"{ {k: v[:5] for k, v in r['census'].items()} }")
+        check([reason for reason, _ in r["snapshots"]] == ["device_fatal", "device_recovered"] * 2
+              and all(n > size["entities"] for _, n in r["snapshots"]),
+              f"10a {label}: snapshots {r['snapshots']}")
+    down = [o["ladder"] for o in card if o["guard"][0] != "ACTIVE"]
+    check(down and all(level >= 2 and floor == 2 for level, floor in down),
+          f"10a: the ladder while the engine was down: {sorted(set(down))}")
+    check(card[-1]["ladder"][1] == 0, f"10a: the ladder's floor stays {card[-1]['ladder'][1]}")
+    runs = outages(card)
+    check(len(runs) == 3, f"10a: outages {runs}, not one per cause")
+    r = report["cuda"]
+    check(r["checked"] and None not in r["checked"], f"10a: kernels checked after rebuilds at {r['checked']}")
+    launches = r["launches"]
+    for name, count in launches.items():
+        check(count == r["engine_ticks"] > 0,
+              f"10a: kernel {name} launched {count} times in {r['engine_ticks']} engine ticks")
+    after = [t for t in range(runs[-1][1] + 1, ticks) if not card[t]["census"]]
+    reads = sorted({card[t]["reads"] for t in after})
+    check(reads == [2], f"10a: device reads per steady tick after recovery {reads}, not 2")
+    first = RECOVERY_FAULT_TICKS[0]
+    print(f"recovery lockstep: {ticks} GLOBAL ticks of {size['entities']} moving entity channels "
+          f"(cut from 6a's {GATEWAY_ENTITIES}; storms of {size['entities'] // 8} at ticks "
+          f"{size['storms']}), the sim plane's {r['agents']} agents, device_step_deadline_s "
+          f"{RECOVERY_DEADLINE_S} on both legs, the device soak's schedule (transient errors at tick "
+          f"{first}, a 3500 ms hang at {RECOVERY_FAULT_TICKS[1]} whose first rebuild fails, a "
+          f"corruption at {RECOVERY_FAULT_TICKS[2]}) on cuda equal the CPU leg on every tick: "
+          f"handovers ({sum(len(o['handovers']) for o in card)}), tables, every outbound stream, "
+          f"changed rows, sim columns, the guard's state and ledgers, the ladder; both legs "
+          f"recovered {RECOVERIES} (= device_recoveries_total), failures {RECOVERY_FAILURES} "
+          f"(= device_step_failures_total), every rebuild verified clean, zero entities lost or "
+          f"duplicated, ladder pinned at L2 through each outage and released, a snapshot on each "
+          f"fatal and each recovery read back; K1 and K2 exact on the first tick after each "
+          f"rebuild (ticks {r['checked']}); launches {launches} in {r['engine_ticks']} engine "
+          f"ticks; phase {time.perf_counter() - t_phase:.1f} s (card leg {report['cuda']['secs']:.1f}"
+          f" s, cpu leg {report['cpu']['secs']:.1f} s)")
+    causes = ["transient", "hang", "corruption"]
+    print("recovery outages (unserved ticks; card and cpu alike): " + "; ".join(
+        f"{cause} ticks {a}-{b} ({b - a + 1} held or failed)" for cause, (a, b) in zip(causes, runs)))
+    for label, leg in (("cuda", card), ("cpu", cpu)):
+        rr = report[label]
+        before = [o["step_ms"] for o in leg[1:first]]
+        steady = [leg[t]["step_ms"] for t in range(runs[-1][1] + 1, ticks)]
+        print(f"recovery on {label}: device_rebuild_ms by host clock (hang, corruption) "
+              + ", ".join(f"{ms:.3f}" for ms in rr["rebuild_ms"])
+              + f"; recovery_s by the fixed clock {rr['guard']['recovery_times_s']}; guarded step "
+              f"median before the faults {statistics.median(before):.3f} ms, after "
+              f"{statistics.median(steady):.3f} ms; snapshots {rr['snapshots']}")
+    print(f"recovery reads per steady tick after recovery {reads}")
+    return launches
+
+
+# 10b: real device faults on the card. The wedge: a smaller world of 6a's
+# kind (2,000 entities, 64 followers, 256 sensors, 64 subscribers, the sim
+# plane) on the host's own clock; a kernel that keeps the card busy
+# WEDGE_S inside the guarded window, once after the tick's kernels (the
+# readback overruns the deadline) and once before them (the tick's own
+# upload waits). The sticky error: a child process (``--sticky-child``).
+WEDGE_SIZE = dict(entities=2_000, followers=64, sensors=256, subscribers=64, ticks=0,
+                  census_every=1000, storms=(), deadline=RECOVERY_DEADLINE_S)
+WEDGE_S = 3.5
+STICKY_SIZE = dict(entities=256, followers=0, sensors=0, subscribers=0, ticks=0,
+                   census_every=1000, storms=(), deadline=RECOVERY_DEADLINE_S, sim=False)
+
+
+class WallClock:
+    """A GatewayWorld clock that leaves ``time.monotonic`` alone: the
+    guard's deadlines, backoffs and polls run on the host's time."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def advance(self, seconds: float) -> None:
+        pass
+
+
+class HeldWorld(GatewayWorld):
+    HOLDS = True
+
+
+def sleep_cycles(seconds: float) -> int:
+    """``torch.cuda._sleep`` cycles worth ``seconds`` on this card, from
+    a timed short sleep."""
+    probe = 20_000_000
+    torch.cuda._sleep(probe)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(probe)
+    stop.record()
+    stop.synchronize()
+    return int(probe * seconds * 1e3 / start.elapsed_time(stop))
+
+
+def phase_recovery_wedge(K, dev) -> list:
+    """10b: a real wedge on the card, in the readback and in the tick's
+    upload. Each: cause hang counted; the rebuild, queued behind the
+    wedge on the same stream, completes only once it drained (polled
+    across ticks); the zombie finishes late without touching the rebuilt
+    state (the generation fence: it raises in the upload case); the
+    rebuild verifies clean, again once the zombie is done; K1's counts
+    equal the plain version on the next two ticks; no entity lost."""
+    P = gateway_modules()
+    results = []
+    t_phase = time.perf_counter()
+    with WallClock() as clock:
+        world = HeldWorld(dev, clock, WEDGE_SIZE)
+        eng, guard, dg = world.eng, P.guard.guard, P.guard
+        try:
+            t = 0
+            for _ in range(3):
+                world.tick(t)
+                t += 1
+            cycles = sleep_cycles(WEDGE_S)
+            for n, where in enumerate(("readback", "flush"), start=1):
+                real_tick, real_verify, real_log = eng.tick, eng.verify_device_state, dg._log_zombie
+                drained, zombies, verified = [], [], []
+
+                def wedged(*args, _where=where, _real=real_tick, **kwargs):
+                    eng.tick = _real  # one wedge; the next tick is the rebuilt engine's
+                    drained.append((time.perf_counter(), torch.cuda.Event()))
+                    if _where == "flush":
+                        torch.cuda._sleep(cycles)
+                        drained[-1][1].record()
+                        return _real(*args, **kwargs)
+                    out = _real(*args, **kwargs)
+                    torch.cuda._sleep(cycles)
+                    drained[-1][1].record()
+                    return out
+
+                def recorded_verify(seeds, _real=real_verify):
+                    errors = _real(seeds)
+                    verified.append((errors, drained[0][1].query(), seeds, eng.generation,
+                                     time.perf_counter()))
+                    return errors
+
+                eng.tick, eng.verify_device_state = wedged, recorded_verify
+                dg._log_zombie = lambda fut, _real=real_log: (
+                    zombies.append((repr(fut.exception()), time.perf_counter())), _real(fut))
+                try:
+                    world.tick(t)
+                    t += 1
+                    check(guard.failure_counts.get("hang") == n and guard.state.name != "ACTIVE",
+                          f"10b {where}: the wedge was not taken for a hang: {guard.report()}")
+                    polled = 0
+                    while guard.state.name != "ACTIVE" and polled < 20:
+                        world.tick(t)
+                        t += 1
+                        polled += 1
+                    check(guard.state.name == "ACTIVE", f"10b {where}: not healed: {guard.report()}")
+                    end = time.perf_counter() + 10.0
+                    while not zombies and time.perf_counter() < end:
+                        time.sleep(0.01)
+                    check(zombies, f"10b {where}: the abandoned step never finished")
+                    errors, after_drain, seeds, gen, healed = verified[0]
+                    again = real_verify(seeds)
+                    counts = []
+                    for _ in range(2):
+                        world.tick(t)
+                        t += 1
+                        want = K.assign_and_count_plain(eng.grid, eng._d_positions, eng._d_valid)[1]
+                        counts.append(bool(torch.equal(eng.last_result["cell_counts"], want)))
+                finally:
+                    eng.tick, eng.verify_device_state, dg._log_zombie = (
+                        real_tick, real_verify, real_log)
+                check(len(verified) == 1 and errors == [] and after_drain,
+                      f"10b {where}: rebuild verifies {[v[:2] for v in verified]}")
+                check(again == [] and eng.generation >= gen,
+                      f"10b {where}: after the zombie finished the rebuilt state verifies {again}")
+                check(where == "readback" or "stale device tick" in zombies[0][0],
+                      f"10b {where}: the zombie ended with {zombies[0][0]}, not the fence")
+                check(counts == [True, True], f"10b {where}: K1's counts after recovery {counts}")
+                results.append(dict(where=where, polled=polled,
+                                    healed_s=healed - drained[0][0], zombie=zombies[0][0],
+                                    zombie_s=zombies[0][1] - drained[0][0]))
+            census = world.census()
+            check(census == dict(misplaced=[], duplicated=[], untracked=[], ledger_off=[]),
+                  f"10b: entities lost or duplicated: { {k: v[:5] for k, v in census.items()} }")
+            check(guard.recovery_counts == {"hang": 2} and guard.failure_counts == {"hang": 2},
+                  f"10b: recoveries {guard.recovery_counts}, failures {guard.failure_counts}")
+        finally:
+            world.close()
+    for r in results:
+        print(f"recovery wedge ({r['where']}): torch.cuda._sleep of {cycles} cycles (~{WEDGE_S} s) "
+              f"on the engine's stream inside the guarded window, {WEDGE_SIZE['entities']} entities; "
+              f"hang counted at the {RECOVERY_DEADLINE_S} s deadline, the rebuild queued behind the "
+              f"wedge verified clean after it drained, {r['polled']} polled ticks, healed "
+              f"{r['healed_s']:.3f} s after the wedge began; the zombie finished "
+              f"{r['zombie_s']:.3f} s after it began with {r['zombie']}, the rebuilt state verified "
+              f"clean again; K1's counts exact on the next two ticks; no entity lost")
+    print(f"recovery wedge: phase {time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
+def sticky_child() -> int:
+    """10b's child (``chip_smoke.py --sticky-child``): a small guarded
+    gateway world on ``cuda`` whose engine step hits a real device-side
+    assert (an out-of-range index), which poisons the process's CUDA
+    context. Prints one JSON report and exits 0 when the guard ended
+    FAILED for good with readiness down and nothing escaped the loop
+    thread, else 1."""
+    import os
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    report: dict = {"escaped": [], "messages": {}}
+    try:
+        with WallClock() as clock:
+            world = HeldWorld(dev, clock, STICKY_SIZE)
+        P, eng, ctl = world.P, world.eng, world.ctl
+        guard, dg = P.guard.guard, P.guard
+        real_classify, real_failed, real_tick, real_ctl_tick = (
+            dg.classify_failure, guard._rebuild_failed, eng.tick, ctl.tick)
+
+        def classify(exc):
+            report["messages"].setdefault("step", str(exc))
+            return real_classify(exc)
+
+        def failed(exc):
+            report["messages"].setdefault("rebuild", str(exc))
+            return real_failed(exc)
+
+        def poisoned(*args, **kwargs):
+            eng.tick = real_tick
+            index = torch.tensor([1 << 20], device=dev)
+            torch.arange(4, device=dev)[index]  # out of range: a device-side assert
+            return real_tick(*args, **kwargs)
+
+        def loop_tick():
+            try:
+                real_ctl_tick()
+            except Exception as e:  # noqa: BLE001 -- an escape is what this child reports
+                report["escaped"].append(repr(e))
+
+        dg.classify_failure, guard._rebuild_failed, ctl.tick = classify, failed, loop_tick
+        chans = P.channel.all_channels()
+
+        def tick(t: int) -> None:
+            world.drive(t)
+            now = time.monotonic_ns()
+            for ch in world.entity_channels:
+                ch.tick_once(now)
+            P.channel.get_global_channel().tick_once(now)
+            for cid in world.spatial:
+                chans[cid].tick_once(now)
+
+        for t in range(2):
+            tick(t)
+        report["before"] = guard.state.name
+        eng.tick = poisoned
+        tick(2)
+        held = guard.held_ticks
+        for t in range(3, 8):
+            tick(t)
+        ready, components = P.opshttp.readiness()
+        doc = P.opshttp.introspect()
+        from prometheus_client import generate_latest
+
+        metrics = generate_latest(P.metrics.registry).decode()
+        report.update(state=guard.state.name, failures=dict(guard.failure_counts),
+                      recoveries=dict(guard.recovery_counts), held=guard.held_ticks - held,
+                      ready=ready, device=components["device"], introspect_device=doc["device"],
+                      sticky={k: dg.is_sticky_cuda_error(RuntimeError(v))
+                              for k, v in report["messages"].items()},
+                      metrics_device_state=[ln for ln in metrics.splitlines()
+                                            if ln.startswith("device_state ")])
+        ok = (report["before"] == "ACTIVE" and report["state"] == "FAILED"
+              and report["failures"] == {"step_error": 1, "rebuild_fail": 1}
+              and not report["recoveries"] and report["held"] == 5 and not ready
+              and not report["escaped"] and all(report["sticky"].values())
+              and set(report["sticky"]) == {"step", "rebuild"})
+        guard.shutdown()
+    except Exception as e:  # noqa: BLE001 -- reported to the parent, which fails the phase
+        report["error"] = repr(e)
+        ok = False
+    report["ok"] = ok
+    print(json.dumps(report))
+    sys.stdout.flush()
+    os._exit(0 if ok else 1)  # the poisoned context must not run teardown
+
+
+def phase_recovery_sticky() -> dict:
+    """10b: the sticky CUDA error, in a child so that this process's
+    CUDA context survives; its report and exit code."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, __file__, "--sticky-child"], capture_output=True,
+                          text=True, timeout=300)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    check(lines, f"sticky child printed no report (exit {proc.returncode}): "
+          f"{proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+    report = json.loads(lines[-1])
+    check(proc.returncode == 0 and report.get("ok"),
+          f"sticky child exit {proc.returncode}: {json.dumps(report)[:2000]} {proc.stderr[-800:]}")
+    msg = report["messages"]["step"].splitlines()[0]
+    print(f"recovery sticky error (child, {time.perf_counter() - t0:.1f} s, exit "
+          f"{proc.returncode}): a real device-side assert in the engine step; the H100 said "
+          f"{msg!r} (step) and {report['messages']['rebuild'].splitlines()[0]!r} (rebuild), both "
+          f"matched as sticky; the guard ended {report['state']} for good, failures "
+          f"{report['failures']}, no recovery, {report['held']} later ticks held, readiness "
+          f"{report['ready']} ({report['device']['detail']}), {report['metrics_device_state']}, no "
+          f"exception escaped the loop thread")
+    return report
+
+
+# 10c: the device soak's schedule on the host's clock in a live child
+# gateway: the first fault once the child has booted and the world is
+# claimed, the hang 7 s later as tests/test_device_guard.py's smoke soak
+# spaces it, the corruption 9 s after the hang (the smoke soak's 6 s, plus
+# room for the ladder to step down from L3, where the hang's 2 s tick can
+# lift it and where it refuses the follower's new subscription).
+LIVE_FAULTS_AT = (6.0, 13.0, 22.0)
+
+
+def metric_values(text: str, name: str) -> dict:
+    """{label string: value} of one metric in Prometheus text format."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith((name + "{", name + " ")):
+            key, _, value = line.rpartition(" ")
+            out[key[len(name):]] = float(value)
+    return out
+
+
+class LiveGateway:
+    """``python -m channeld_tpu_torch`` as a child, its log in a file, its
+    ops surface on ``mport``, and the port's clients pumped while waiting."""
+
+    def __init__(self, cmd: list, log_path: str, mport: int):
+        import os
+
+        self.cmd, self.log_path, self.mport = cmd, log_path, mport
+        self.clients: list = []
+        fd = os.open(log_path, os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o600)
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, stdout=fd, stderr=subprocess.STDOUT)
+        os.close(fd)
+
+    def log(self) -> str:
+        with open(self.log_path) as f:
+            return f.read()
+
+    def http(self, path: str) -> tuple:
+        import urllib.error
+        import urllib.request
+
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{self.mport}{path}", timeout=5) as r:
+                return r.status, r.read().decode()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read().decode()
+        except OSError as e:
+            return None, repr(e)
+
+    def metric(self, name: str) -> dict:
+        code, text = self.http("/metrics")
+        return metric_values(text, name) if code == 200 else {}
+
+    def until(self, cond, what: str, timeout: float):
+        end = time.perf_counter() + timeout
+        while time.perf_counter() < end:
+            for c in self.clients:
+                c.tick(timeout=0.01)
+            if cond():
+                return
+            check(self.proc.poll() is None, f"gateway child exited ({self.proc.returncode}) while "
+                  f"waiting for {what}: {self.log()[-2000:]}")
+            time.sleep(0.02)
+        raise PhaseFailed(f"gateway child: no {what} within {timeout} s; log: {self.log()[-2000:]}")
+
+    def connect(self, name: str, port: int, timeout: float = 30.0):
+        """An authenticated client. A gateway whose overload ladder stands
+        at L3 refuses admission (ServerBusy, then close): retried, as a
+        real client retries."""
+        from channeld_tpu_torch.client import Client
+
+        end = time.perf_counter() + timeout
+        while True:
+            c = Client(f"127.0.0.1:{port}")
+            self.clients.append(c)
+            c.auth(login_token=name, pit=name)
+            c.flush()
+            try:
+                self.until(lambda: c.id != 0 or not c.is_connected(), f"{name}'s auth", 5)
+            except PhaseFailed:
+                pass
+            if c.id != 0:
+                return c
+            self.clients.remove(c)
+            c.disconnect()
+            check(time.perf_counter() < end, f"gateway child: {name} not admitted within {timeout} s")
+            time.sleep(0.5)
+
+    def stop(self) -> None:
+        for c in self.clients:
+            c.disconnect()
+        self.clients = []
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=10)
+
+
+def record(c, msg_type: int) -> list:
+    box: list = []
+    c.add_message_handler(msg_type, lambda _c, ch, m: box.append((ch, m)))
+    return box
+
+
+def claim_world(gw: "LiveGateway", sport: int, cport: int, deadline_s: float) -> dict:
+    """A master creates GLOBAL, a client connects, 9 servers claim the
+    world (adopting any restored spatial channels)."""
+    from channeld_tpu_torch.core.types import ChannelDataAccess, ChannelType, MessageType
+    from channeld_tpu_torch.protocol import control_pb2
+
+    gw.until(lambda: "listening for SERVER" in gw.log(), "server listener", deadline_s)
+    ready_s = time.perf_counter() - gw.t0
+    master = gw.connect("master", sport)
+    created = record(master, MessageType.CREATE_CHANNEL)
+    master.send(0, 0, MessageType.CREATE_CHANNEL,
+                control_pb2.CreateChannelMessage(channelType=ChannelType.GLOBAL))
+    gw.until(lambda: created, "GLOBAL's creation", 20)
+    gw.until(lambda: gw.log().count("listening for CLIENT") >= 1, "client listener", 20)
+    client = gw.connect("client", cport)
+    servers, ready, handovers = [], [], []
+    for i in range(9):
+        srv = gw.connect(f"spatial{i}", sport)
+        ready.append(record(srv, MessageType.SPATIAL_CHANNELS_READY))
+        handovers.append(record(srv, MessageType.CHANNEL_DATA_HANDOVER))
+        srv.send(0, 0, MessageType.CREATE_CHANNEL, control_pb2.CreateChannelMessage(
+            channelType=ChannelType.SPATIAL,
+            subOptions=control_pb2.ChannelSubscriptionOptions(
+                dataAccess=ChannelDataAccess.WRITE_ACCESS)))
+        servers.append(srv)
+    gw.until(lambda: all(ready), "SPATIAL_CHANNELS_READY on every server", 30)
+    return dict(master=master, servers=servers, handovers=handovers, client=client,
+                subs=record(client, MessageType.SUB_TO_CHANNEL),
+                unsubs=record(client, MessageType.UNSUB_FROM_CHANNEL), ready_s=ready_s)
+
+
+def cross(gw: "LiveGateway", world: dict, sender, eid: int, x: float, what: str,
+          client_update: bool = True) -> None:
+    """Move entity ``eid`` to (x, -14000) with one update from ``sender``;
+    servers 0 and 1 (columns 0-4, 5-9) each get a handover, and the
+    follower its interest update."""
+    from channeld_tpu_torch.core.types import MessageType
+    from channeld_tpu_torch.models import sim_pb2
+    from channeld_tpu_torch.protocol import control_pb2
+    from channeld_tpu_torch.utils.anyutil import pack_any
+
+    h0, h1 = (len(world["handovers"][i]) for i in (0, 1))
+    n_sub, n_unsub = len(world["subs"]), len(world["unsubs"])
+    upd = sim_pb2.SimEntityChannelData()
+    upd.state.entityId = eid
+    upd.state.transform.position.x, upd.state.transform.position.z = x, -14000.0
+    sender.send(eid, 0, MessageType.CHANNEL_DATA_UPDATE,
+                control_pb2.ChannelDataUpdateMessage(data=pack_any(upd)))
+    gw.until(lambda: len(world["handovers"][0]) > h0 and len(world["handovers"][1]) > h1,
+             f"the handover on servers 0 and 1 {what}", 30)
+    if client_update:
+        gw.until(lambda: len(world["subs"]) > n_sub and len(world["unsubs"]) > n_unsub,
+                 f"the follower's interest update {what}", 30)
+
+
+def phase_recovery_live(dev_args=(), deadline_s: float = 180.0,
+                        faults_at: tuple = LIVE_FAULTS_AT) -> dict:
+    """10c: ``python -m channeld_tpu_torch`` on the card with ``-chaos``
+    (the device soak's schedule), ``-snapshot``, ``-wal`` and
+    ``-device-deadline 2``, driven over loopback TCP: after each
+    recovery a crossing reaches both servers and the follower; the
+    metrics and /readyz at the end; then SIGKILL, a restart without
+    ``-chaos`` from the snapshot and WAL, the restored census equal to
+    the one before the kill, a crossing after the restart, SIGTERM."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    from channeld_tpu_torch.core.types import MessageType
+    from channeld_tpu_torch.models import sim_pb2
+    from channeld_tpu_torch.protocol import spatial_pb2
+    from channeld_tpu_torch.utils.anyutil import pack_any
+
+    t_phase = time.perf_counter()
+    sport, cport, mport = free_port(), free_port(), free_port()
+    scratch = tempfile.mkdtemp(prefix="recovery-live-")
+    chaos_path = os.path.join(scratch, "device_soak.json")
+    with open(chaos_path, "w") as f:
+        json.dump(device_recovery_scenario(*faults_at), f)
+    cmd = [sys.executable, "-m", "channeld_tpu_torch", "-dev", "-loglevel", "0",
+           "-profilepath", scratch, "-sn", "tcp", "-sa", f"127.0.0.1:{sport}", "-cn", "tcp",
+           "-ca", f"127.0.0.1:{cport}", "-mport", str(mport),
+           "-cfsm", "config/client_authoritative_fsm.json", "-scc", GATEWAY_CONFIG,
+           "-imports", "channeld_tpu_torch.models.sim", "-snapshot", os.path.join(scratch, "gw.snap"),
+           "-wal", os.path.join(scratch, "gw.wal"), "-device-deadline", "2", *dev_args]
+    log_path = os.path.join(scratch, "gateway.log")
+    start, eid = 0x10000, 0x80000 + 1
+    gw = LiveGateway(cmd + ["-chaos", chaos_path], log_path, mport)
+    out: dict = {}
+    try:
+        world = claim_world(gw, sport, cport, deadline_s)
+        out["ready_s"] = world["ready_s"]
+        check("CHAOS ARMED" in gw.log(), "the child did not arm the chaos scenario")
+        d = sim_pb2.SimEntityChannelData()
+        d.state.entityId = eid
+        d.state.transform.position.x, d.state.transform.position.z = -5100.0, -14000.0
+        world["servers"][0].send(0, 0, MessageType.CREATE_ENTITY_CHANNEL,
+                                 spatial_pb2.CreateEntityChannelMessage(entityId=eid, data=pack_any(d)))
+        q = spatial_pb2.SpatialInterestQuery()
+        q.sphereAOI.center.x, q.sphereAOI.center.z, q.sphereAOI.radius = -5100.0, -14000.0, 1500.0
+        world["servers"][0].send(start + 4, 0, MessageType.UPDATE_SPATIAL_INTEREST,
+                                 spatial_pb2.UpdateSpatialInterestMessage(
+                                     connId=world["client"].id, query=q, followEntityId=eid))
+        gw.until(lambda: {ch for ch, _ in world["subs"]} >= {start + 4, start + 5},
+                 "the follower's interest (columns 4 and 5)", 20)
+        out["world_s"] = time.perf_counter() - gw.t0
+        # (recovery, the failure of the fault after it, where the crossing goes)
+        steps = (("transient", "hang", -3100.0), ("hang", "corruption", -5100.0),
+                 ("corruption", None, -3100.0))
+        recovered_at = {}
+        for cause, next_failure, x in steps:
+            key = f'{{cause="{cause}"}}'
+            gw.until(lambda: gw.metric("device_recoveries_total").get(key, 0) >= 1,
+                     f"the {cause} recovery", 90)
+            recovered_at[cause] = time.perf_counter() - gw.t0
+            # At L3 the gateway refuses new subscriptions (ServerBusy) by
+            # design: cross once the ladder admits the follower's again.
+            gw.until(lambda: gw.metric("overload_level").get("", 3) < 3,
+                     f"the overload ladder below L3 after the {cause} recovery", 60)
+            cross(gw, world, world["servers"][0] if x > -5000 else world["servers"][1], eid, x,
+                  f"after the {cause} recovery")
+            if next_failure is not None:
+                fired = gw.metric("device_step_failures_total").get(f'{{cause="{next_failure}"}}', 0)
+                check(fired == 0, f"10c: the {next_failure} fault fired before the crossing after "
+                      f"the {cause} recovery was served (faults at {faults_at} s come too early)")
+        recoveries = gw.metric("device_recoveries_total")
+        check(recoveries == {f'{{cause="{c}"}}': 1.0 for c in RECOVERIES},
+              f"10c: device_recoveries_total {recoveries}")
+        failures = gw.metric("device_step_failures_total")
+        state = gw.metric("device_state")
+        code, _ = gw.http("/readyz")
+        check(state == {"": 0.0} and code == 200, f"10c: device_state {state}, /readyz {code}")
+        code, body = gw.http("/introspect")
+        before = json.loads(body)
+        check(before["entities"] >= 1, f"10c: /introspect before the kill: {before}")
+        gw.proc.send_signal(signal.SIGKILL)
+        gw.proc.wait(timeout=20)
+        gw.stop()
+
+        gw = LiveGateway(cmd, os.path.join(scratch, "restarted.log"), mport)
+        gw.until(lambda: gw.metric("tpu_spatial_step_seconds_count").get("", 0) >= 1,
+                 "the restarted gateway's first served tick", deadline_s)
+        served_s = time.perf_counter() - gw.t0
+        code, body = gw.http("/introspect")
+        after = json.loads(body)
+        check((after["channels"], after["entities"]) == (before["channels"], before["entities"]),
+              f"10c: restored census {after['channels']} / {after['entities']} entities, before the "
+              f"kill {before['channels']} / {before['entities']}")
+        world = claim_world(gw, sport, cport, deadline_s)
+        cross(gw, world, world["master"], eid, -5100.0, "after the restart", client_update=False)
+        gw.proc.send_signal(signal.SIGTERM)
+        try:
+            exit_code = gw.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            raise PhaseFailed(f"the restarted child did not exit within 30 s of SIGTERM: {gw.log()[-2000:]}")
+        check(exit_code == 0, f"the restarted child exited {exit_code} on SIGTERM: {gw.log()[-2000:]}")
+        replay = [ln for ln in gw.log().splitlines() if "boot replay" in ln]
+        print(f"recovery live: python -m channeld_tpu_torch on "
+              f"{'cuda' if not dev_args else ' '.join(dev_args)} with -chaos (the device soak's "
+              f"schedule at {faults_at} s), -snapshot, -wal and -device-deadline 2, listening in "
+              f"{out['ready_s']:.1f} s, world claimed at {out['world_s']:.1f} s; recoveries seen at "
+              + ", ".join(f"{c} {t:.1f} s" for c, t in recovered_at.items())
+              + f", each followed by a crossing handed over to servers 0 and 1 and the follower's "
+              f"interest update; device_recoveries_total {recoveries}, device_step_failures_total "
+              f"{failures}, device_state 0, /readyz 200; SIGKILL, restart without -chaos: first "
+              f"served tick {served_s:.1f} s after the restart, /introspect census "
+              f"{after['channels']} / {after['entities']} entities equal to before the kill "
+              f"({replay[-1][-160:] if replay else 'no replay line'}), a crossing handed over after "
+              f"the restart; SIGTERM exit 0; phase {time.perf_counter() - t_phase:.1f} s")
+        out.update(recovered_at=recovered_at, served_s=served_s)
+        return out
+    finally:
+        gw.stop()
+        shutil.rmtree(scratch, ignore_errors=True)
+
 
 def main_gateway(entities: int, ticks: int) -> int:
     """Phase 6a alone at another size (after the device and build
@@ -3152,16 +3989,40 @@ def main_engine_adapter(objects: int, ticks: int) -> int:
     return 0
 
 
+def main_recovery(entities: int, ticks: int) -> int:
+    """Phase 10a alone at another size (after the device and build
+    phases): ``python3 chip_smoke.py --recovery 10000 30``."""
+    from channeld_tpu_torch.ops import cuda_kernels as K
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    try:
+        name, _ = phase_device()
+        phase_build(K)
+        phase_recovery_lockstep(K, dev, recovery_size(entities, ticks))
+    except PhaseFailed as e:
+        print(f"FAILED: {e}")
+        return 1
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--sticky-child"]:
+        return sticky_child()
+    if sys.argv[1:2] == ["--recovery"]:
+        return main_recovery(int(sys.argv[2]), int(sys.argv[3]))
     if sys.argv[1:2] == ["--gateway"]:
         return main_gateway(int(sys.argv[2]), int(sys.argv[3]))
     if sys.argv[1:2] == ["--mesh"]:
         return main_mesh()
     if sys.argv[1:2] == ["--engine-adapter"]:
         return main_engine_adapter(int(sys.argv[2]), int(sys.argv[3]))
+    t_run = time.perf_counter()
     from channeld_tpu_torch.ops import cuda_kernels as K
     from channeld_tpu_torch.ops import engine as engine_mod
     from channeld_tpu_torch.ops import service
@@ -3186,6 +4047,10 @@ def main() -> int:
         phase_replay_live()
         phase_native_codec()
         phase_sidecar(service, dev)
+        recovery_launches = phase_recovery_lockstep(K, dev, recovery_size())
+        phase_recovery_wedge(K, dev)
+        phase_recovery_sticky()
+        phase_recovery_live()
     except PhaseFailed as e:
         print(f"FAILED: {e}")
         return 1
@@ -3202,13 +4067,15 @@ def main() -> int:
                               "mesh_engine": mesh_engine_launches[spec.name],
                               "mesh_gateway": mesh_gateway_launches[spec.name],
                               "engine_adapter": engine_launches[spec.name],
-                              "unreal": unreal_launches[spec.name]},
+                              "unreal": unreal_launches[spec.name],
+                              "recovery": recovery_launches[spec.name]},
             library_ms=None, **entries[spec.name],
             sim_path=dict(sim_entries[spec.name], library_ms=None),
             mesh_path=dict(mesh_entries[spec.name], launches_per_mesh_tick={
                 "entities": MESH_SHARDS if spec.name == "assign_count" else 1,
                 "cells": MESH_SHARDS}),
         ))
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

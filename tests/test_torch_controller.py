@@ -314,11 +314,11 @@ def test_hung_rebuild_waits_for_the_rebuild_lock():
     orig = dg.DeviceGuard._rebuild_body
     entered = threading.Event()
 
-    def wedged(engine, seeds, gen):
+    def wedged(engine, seeds, gen, shadow=None):
         with engine._rebuild_lock:  # the zombie holds the lock while wedged
             entered.set()
             time.sleep(0.6)
-        return orig(engine, seeds, gen)
+        return orig(engine, seeds, gen, shadow)
 
     dg.DeviceGuard._rebuild_body = staticmethod(wedged)
     try:

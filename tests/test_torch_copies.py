@@ -27,7 +27,8 @@ EDITED = {
     "core/settings.py": "-spatial-device (the engine's torch device); -profile gpu in the help",
     "core/profiling.py": "-profile gpu is torch.profiler, not jax.profiler",
     "core/device_guard.py": "reads a tick through the consume blob; torch failure classes; "
-                            "enters the engine's CUDA device on the worker",
+                            "enters the engine's CUDA device on the worker; hands the rebuild "
+                            "the host tables copied on the loop thread",
     "sim/plane.py": "census columns arrive as tensors when the guard is off",
     "spatial/__init__.py": "exports GPUSpatialController (tpu_controller.py is not ported)",
     "utils/__init__.py": "also exports resolve_device",
