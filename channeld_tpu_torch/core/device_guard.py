@@ -184,6 +184,12 @@ class DeviceGuard:
     def enabled(self) -> bool:
         return global_settings.device_guard_enabled
 
+    @property
+    def terminal(self) -> bool:
+        """FAILED for good: a sticky CUDA error poisoned the context, and
+        only a new process serves again (no rebuild is ever retried)."""
+        return self.state == DeviceState.FAILED and math.isinf(self._not_before)
+
     def _publish_state(self) -> None:
         try:  # lazy: metrics must not be a module-load dependency
             from . import metrics

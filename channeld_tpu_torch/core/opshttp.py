@@ -92,6 +92,9 @@ def _device_ready() -> tuple[bool, str]:
 
     if not global_settings.device_guard_enabled:
         return True, "guard disabled"
+    if guard.terminal:
+        return False, ("device engine FAILED terminally (sticky CUDA error): "
+                       "restart the process")
     if guard.state == DeviceState.FAILED:
         return False, "device engine FAILED (rebuild retrying)"
     return True, guard.state.name

@@ -328,8 +328,14 @@ class GPUSpatialController(StaticGrid2DSpatialController):
     def entity_position(self, entity_id: int):
         """Partition-plane hook: the split commit sorts residents into
         child quadrants by last known position (None -> deterministic
-        center-child fallback)."""
-        info = self._last_positions.get(entity_id)
+        center-child fallback). A resident whose crossing out of the
+        frozen cell is parked is sorted by where that crossing leaves
+        from: its replay on unfreeze removes the entity from the child
+        holding that point, so the data must sit there (sorted by its
+        new position, the reference leaves a copy behind in another
+        child: ROADMAP F15)."""
+        parked = _balancer._frozen_crossings.get(entity_id)
+        info = parked[0] if parked is not None else self._last_positions.get(entity_id)
         return (info.x, info.z) if info is not None else None
 
     # ---- device micro grid (adaptive partitioning) -----------------------
@@ -370,10 +376,22 @@ class GPUSpatialController(StaticGrid2DSpatialController):
     def _micro_of_channel(self, ch_id: int, entity_id: int = None) -> int:
         """Device baseline micro cell for an entity whose data lives in
         ``ch_id``: the micro cell of its last position when that still
-        lies inside the leaf, else the leaf's center micro cell."""
+        lies inside the cell, else the cell's center micro cell.
+
+        ``ch_id`` may name a cell the geometry epoch being applied has
+        just retired: a split or a merge applies its geometry before it
+        moves the residents, so the ledger still names the old cells.
+        The data lands in the leaf that holds the resident's position (a
+        split sorts by it; a merge's parent holds every child), so that
+        position's micro cell is its baseline too. Only a base cell maps
+        by its id while no split is live. (The reference seeds every
+        resident of a retired cell at its center, which the next tick
+        reports as a crossing, and maps a retired child's id past the
+        base grid after a merge back to it: ROADMAP F14.)"""
         tree = getattr(self, "tree", None)
-        if tree is None or self._micro_leaf is None:
-            return ch_id - global_settings.spatial_channel_id_start
+        start = global_settings.spatial_channel_id_start
+        if tree is None or (self._micro_leaf is None and tree.depth_of(ch_id) == 0):
+            return ch_id - start
         if entity_id is not None:
             info = self._last_positions.get(entity_id)
             if info is not None:
@@ -381,6 +399,10 @@ class GPUSpatialController(StaticGrid2DSpatialController):
                     m = self._micro_index(info)
                     if self._leaf_of_cell(m) == ch_id:
                         return m
+                    if not tree.is_leaf(ch_id):
+                        x0, z0, x1, z1 = tree.rect(ch_id)
+                        if x0 <= info.x < x1 and z0 <= info.z < z1:
+                            return m
                 except ValueError:
                     pass
         try:

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --mesh               # phase 7 alone
     python3 chip_smoke.py --engine-adapter 10000 12   # phase 8a alone, at another size
     python3 chip_smoke.py --recovery 10000 30  # phase 10a alone, at another size
+    python3 chip_smoke.py --elastic 1500 120   # phases 11a and 11b alone, at another size
 
 Needs one CUDA card, nvcc, and the ``channeld_tpu_torch`` package beside
 this file; imports nothing of JAX or of ``channeld_tpu``. Phases (each
@@ -59,7 +60,7 @@ prints one line; any failure exits non-zero before the final line):
 6. the gateway (``python -m channeld_tpu_torch``'s main path):
    a. lockstep: scripts/fanout_bench.py's config4
       (config/spatial_tpu_benchmark.json: 15x15 cells of 2,000 m, 3x3
-      spatial servers and the master) with 20,000 moving entity channels
+      spatial servers and the master) with 12,000 moving entity channels
       (cut from the bench's 50,000; ``--gateway ENTITIES TICKS`` runs
       this phase alone at any size), a storm of entities // 8 twice,
       the standing-query plane and the sim plane at the gateway
@@ -136,7 +137,7 @@ prints one line; any failure exits non-zero before the final line):
 9. if grpc and protobuf are installed, one real sidecar round trip on
    ``cuda`` (otherwise says it was not run);
 10. the recovery path (``core/device_guard.py`` on the card):
-   a. lockstep: phase 6a's world cut to 10,000 entities x 30 ticks, the
+   a. lockstep: phase 6a's world cut to 6,000 entities x 30 ticks, the
       device guard's deadline at the gateway's default 2 s, armed on a
       fixed clock with scripts/device_soak.py's schedule (two transient
       step errors, a 3,500 ms hang whose first rebuild fails, a silent
@@ -165,7 +166,37 @@ prints one line; any failure exits non-zero before the final line):
       and the follower after each recovery, the recovery counters,
       ``device_state`` 0 and /readyz 200; SIGKILL, a restart from the
       snapshot and WAL with the census of /introspect unchanged, a
-      crossing after it, SIGTERM exit 0.
+      crossing after it, SIGTERM exit 0;
+11. the elastic world (adaptive partitioning, the balancer's migrations
+    and failover on the card), on the port's copy of
+    scripts/density_soak.py's phases (``elastic_scenario``: warmup,
+    pileup into a quarter of one cell, repile into a second cell whose
+    owner is dropped on the tick its split starts draining, disperse),
+    120 ticks of a fixed 33 ms clock, card leg against CPU leg:
+   a. phase 6a's world (config4, the gateway's defaults, the sim plane)
+      with 1,500 entities (cut by the script's time): splits to depth 2
+      (15x15 -> 30x30 -> 60x60 on the device), granule migrations, the
+      kill (the split aborts, failover re-hosts the cell, the re-planned
+      split commits with a ``device.step_hang`` on its commit tick), and
+      merges back to 15x15. Every tick equal (handovers, tables, every
+      outbound stream and the cell-authority messages apart, the
+      geometry epoch and micro grid, the partition, balancer and
+      failover ledgers, the journal); every re-grid's device rebuild
+      verified with no mismatch; at least one committed split and
+      migration, exactly one aborted split, a re-host, the boot geometry
+      at the end; zero entities lost or duplicated, the journal
+      balanced; K1 and K2 once per engine tick and exact on the live
+      tensors after each re-grid (timed at those shapes); 2 reads per
+      steady tick before and after each re-grid;
+   b. config/spatial_tpu_cells_2x2.json's world on the cells plane at
+      MeshDevices = min(cards, 8), 750 entities, a CellBucket the
+      pileup overflows and the density soak's dispatch-stall weather:
+      the same schedule without the hang, the same checks, K1 and K2
+      once per shard per engine tick;
+   c. live: ``python -m channeld_tpu_torch`` on that world with
+      ``-partition true``, ``-chaos`` and ``-overload false``: a
+      committed split, a verified re-grid, a committed migration,
+      ``device_state`` 0, the merge back.
 
 The line before the last is a JSON object with one entry per kernel
 (times measured in this run at the sidecar path's shapes; bound from
@@ -174,8 +205,10 @@ wrapper call; ``launches`` on the sidecar path, ``launches_by_path`` on
 each path (the gateway's shapes are the sidecar's), ``sim_path`` the
 same figures at the sim world's shapes, ``mesh_path`` at one shard's
 shapes of phase 7 with the launches per mesh tick, ``fused_block`` K2's
-fused-centre block of the cells plane beside the unfused launch); the
-last line is ``{"ok": true, "device": {...}}``.
+fused-centre block of the cells plane beside the unfused launch,
+``elastic_path``/``elastic_mesh_path`` each kernel at the shapes after
+each re-grid of 11a and 11b); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -1171,13 +1204,13 @@ def phase_sim_world(K, engine_mod, ops, dev) -> tuple[dict, dict]:
 # moving entity channels with a storm of entities // 8; the
 # standing-query plane and the sim plane at the gateway's defaults
 # (4,096 query rows, 8,192 changed rows, 1,000 agents), 256 followers,
-# 1,024 sensors and subscriptions at 33-200 ms. Cut to fit the phase:
-# 20,000 entities (the full claim is 50,000: BASELINE #4, the bench's
-# --entities 50000) and 12 ticks; the census every ticks // 3 (default
+# 1,024 sensors and subscriptions at 33-200 ms. Cut to fit the script's
+# time: 12,000 entities (the full claim is 50,000: BASELINE #4, the bench's
+# --entities 50000; 20,000 before phase 11 joined) and 12 ticks; the census every ticks // 3 (default
 # 50) so censuses fall inside the run. ``--gateway ENTITIES TICKS`` runs
 # the phase alone at another size.
 GATEWAY_CONFIG = "config/spatial_tpu_benchmark.json"
-GATEWAY_ENTITIES, GATEWAY_TICKS = 20_000, 12
+GATEWAY_ENTITIES, GATEWAY_TICKS = 12_000, 12
 
 
 def gateway_size(entities: int = GATEWAY_ENTITIES, ticks: int = GATEWAY_TICKS) -> dict:
@@ -1279,7 +1312,7 @@ def gateway_modules() -> NS:
                  metrics="core.metrics",
                  sim_plane="sim.plane", ops="ops.spatial_ops", logger="utils.logger",
                  snapshot="core.snapshot", chaos="chaos", invariants="chaos.invariants",
-                 opshttp="core.opshttp")
+                 opshttp="core.opshttp", failover="core.failover")
     return NS(**{k: importlib.import_module(f"channeld_tpu_torch.{v}") for k, v in names.items()})
 
 
@@ -1326,6 +1359,8 @@ class GatewayWorld:
         s.sim_enabled = size.get("sim", True)
         s.sim_census_every_ticks = size["census_every"]
         s.device_step_deadline_s = size.get("deadline", GATEWAY_DEADLINE_S)
+        for name, value in size.get("settings", {}).items():
+            setattr(s, name, value)
         P.message.init_message_map()
         P.channel.init_channels()
         self._register_types()
@@ -1441,18 +1476,19 @@ class GatewayWorld:
         P, ctl, size = self.P, self.ctl, self.size
         x0, z0, x1, z1 = self.bounds
         ops = P.ops
+        m = ctl.grid_width / 2000.0  # extents in cells of the world's grid (config4's: 2,000 m)
         for i in range(size["followers"]):  # spheres and cones following entities
             client = self.conn(1000 + i, "CLIENT")
             eid = self.entity_ids[rng.randrange(len(self.entity_ids))]
             if i % 2:
-                ctl.register_follow_interest(client, eid, ops.AOI_CONE, extent=(4000.0, 0.0),
+                ctl.register_follow_interest(client, eid, ops.AOI_CONE, extent=(4000.0 * m, 0.0),
                                              direction=(1.0, 0.0), angle=0.6)
             else:
-                ctl.register_follow_interest(client, eid, ops.AOI_SPHERE, extent=(3000.0, 0.0))
+                ctl.register_follow_interest(client, eid, ops.AOI_SPHERE, extent=(3000.0 * m, 0.0))
         for i in range(size["sensors"]):  # static server sensors, box and sphere
             ctl.register_sensor(f"sensor{i}", kind=(ops.AOI_BOX, ops.AOI_SPHERE)[i % 2],
                                 center=(rng.uniform(x0, x1), rng.uniform(z0, z1)),
-                                extent=(rng.uniform(1500, 5000), rng.uniform(1500, 5000)))
+                                extent=(rng.uniform(1500, 5000) * m, rng.uniform(1500, 5000) * m))
         for i in range(size["subscribers"]):  # plain subscriptions at 33-200 ms
             client = self.conn(5000 + i, "CLIENT")
             for cid in rng.sample(self.spatial, 4):
@@ -1579,7 +1615,7 @@ def first_gateway_diff(a: dict, b: dict) -> Optional[str]:
     """The first observation of one tick that differs between the legs,
     with its detail (None when the tick is equal)."""
     for key in ("handovers", "tables", "q", "sim", "census", "guard", "served", "ladder",
-                "overflow", "undelivered", "recovery"):
+                "overflow", "undelivered", "recovery", "elastic", "cell_msgs"):
         if a.get(key) != b.get(key):
             if key == "handovers":
                 i = next((i for i, (x, y) in enumerate(zip(a[key], b[key])) if x != y),
@@ -3185,12 +3221,13 @@ def fault_ticks_scenario(error_tick: int, hang_tick: int, nan_tick: int,
 # 10a: phase 6a's world (config4, the gateway's default capacities, the
 # storms, followers, sensors, clients and the sim plane) on the device
 # soak's schedule, card leg against CPU leg under one fixed clock. Cut to
-# 10,000 entities (6a runs 20,000) to fit the phase's time; 30 ticks, as
+# 6,000 entities (10,000 before phase 11 joined) to fit the script's time;
+# 30 ticks, as
 # the schedule needs on a 33 ms clock: the transient errors' 100 + 200 ms
 # backoffs hold ticks 4-6 and 8-13, the hang's failed rebuild its 200 ms
 # backoff (17-22) and the rebuild (23), the corruption's rebuild 26.
 # ``--recovery ENTITIES TICKS`` runs 10a alone at another size.
-RECOVERY_ENTITIES, RECOVERY_TICKS = 10_000, 30
+RECOVERY_ENTITIES, RECOVERY_TICKS = 6_000, 30
 RECOVERY_FAULT_TICKS = (3, 16, 26)  # transient errors, hang, corruption: each on a storm tick
 RECOVERY_DEADLINE_S = 2.0  # device_step_deadline_s on both legs, the gateway's default
 RECOVERIES = {"transient": 1, "hang": 1, "corruption": 1}
@@ -3752,9 +3789,10 @@ def record(c, msg_type: int) -> list:
     return box
 
 
-def claim_world(gw: "LiveGateway", sport: int, cport: int, deadline_s: float) -> dict:
-    """A master creates GLOBAL, a client connects, 9 servers claim the
-    world (adopting any restored spatial channels)."""
+def claim_world(gw: "LiveGateway", sport: int, cport: int, deadline_s: float,
+                n_servers: int = 9) -> dict:
+    """A master creates GLOBAL, a client connects, ``n_servers`` servers
+    claim the world (adopting any restored spatial channels)."""
     from channeld_tpu_torch.core.types import ChannelDataAccess, ChannelType, MessageType
     from channeld_tpu_torch.protocol import control_pb2
 
@@ -3768,7 +3806,7 @@ def claim_world(gw: "LiveGateway", sport: int, cport: int, deadline_s: float) ->
     gw.until(lambda: gw.log().count("listening for CLIENT") >= 1, "client listener", 20)
     client = gw.connect("client", cport)
     servers, ready, handovers = [], [], []
-    for i in range(9):
+    for i in range(n_servers):
         srv = gw.connect(f"spatial{i}", sport)
         ready.append(record(srv, MessageType.SPATIAL_CHANNELS_READY))
         handovers.append(record(srv, MessageType.CHANNEL_DATA_HANDOVER))
@@ -3929,6 +3967,680 @@ def phase_recovery_live(dev_args=(), deadline_s: float = 180.0,
         shutil.rmtree(scratch, ignore_errors=True)
 
 
+# ---- phase 11: the elastic world -------------------------------------------
+
+# 11a: phase 6a's world (config4 at the gateway's defaults: followers,
+# sensors, clients and the sim plane) with adaptive partitioning on;
+# 11b: config/spatial_tpu_cells_2x2.json's world on the cells plane at
+# half the entities. Both on the port's copy of scripts/density_soak.py's
+# phases (``elastic_scenario``), 120 ticks of the fixed 33 ms clock. Cut
+# from 4,000 and 2,000 entities (283 s and 152 s on the card's host) to
+# 1,500 and 750 by the script's time. ``--elastic ENTITIES TICKS`` runs
+# 11a and 11b alone.
+ELASTIC_ENTITIES, ELASTIC_TICKS = 1_500, 120
+ELASTIC_CELLS_CONFIG = "config/spatial_tpu_cells_2x2.json"
+ELASTIC_STALL_MS = 3500.0  # the hang on the re-planned split's commit tick, past the 2 s deadline
+CELL_MSG_TYPES = (25, 26, 28)  # CellRehostedMessage, CellMigratedMessage, CellGeometryUpdateMessage
+
+
+def elastic_scenario(entities: int, cols: int, rows: int, server_cols: int, server_rows: int,
+                     ticks: int = ELASTIC_TICKS, hang: bool = True, weather: bool = False) -> dict:
+    """The port's copy of scripts/density_soak.py's phases on a fixed
+    clock, with the balance soak's granule migrations: warmup (spread),
+    pileup (the whole crowd herded into one quarter of a base cell, so the
+    cell splits and then its crowded child: the micro grid goes to depth
+    2), repile (the crowd into a quarter of a second cell, whose owner is
+    dropped on the tick its split starts draining; failover re-hosts the
+    cell and the re-planned split commits, with a ``device.step_hang``
+    on its commit tick when ``hang``), disperse (the crowd spreads; cold
+    siblings consolidate and merge back to the boot geometry). The
+    governor's and the balancer's knobs are scaled to the entity count;
+    ``weather`` adds density_soak.default_scenario's dispatch stalls."""
+    sc, sr = cols // server_cols, rows // server_rows
+    warm, pile, repile = ticks // 12, ticks * 5 // 12, ticks * 7 // 12
+    return dict(
+        ticks=ticks, entities=entities,
+        phases=dict(warmup=(0, warm), pileup=(warm, pile), repile=(pile, repile),
+                    disperse=(repile, ticks)),
+        # (col, row): the middle cell of the first server's block, then of the last's.
+        pileup_cells=((sc // 2, sr // 2), (cols - sc + sc // 2, rows - sr + sr // 2)),
+        recover_window_ms=100,
+        # The ladder steps down a level after this long under its exit
+        # threshold (the gateway's 2 s would hold L2, and veto every
+        # merge, for 60 of the run's ticks after the hang).
+        overload_down_hold_s=0.2,
+        hang=dict(stall_ms=ELASTIC_STALL_MS, deadline_s=RECOVERY_DEADLINE_S) if hang else None,
+        # A cell splits at a quarter of the crowd (a spread world never
+        # comes near); a sibling group merges under an eighth (above a
+        # spread world's base cell on the 4x4 grid, under half the split).
+        partition=dict(enabled=True, split_entities=max(8, entities // 4),
+                       merge_entities=max(2, entities // 8 - 1), max_depth=2, eval_ticks=1,
+                       hold_ticks=2, epoch_ticks=40, budget_per_epoch=6, cooldown_ticks=10,
+                       freeze_min_ticks=2, drain_deadline_ticks=30),
+        balancer=dict(enabled=True, imbalance_enter=1.25, imbalance_exit=1.1, hold_ticks=2,
+                      epoch_ticks=40, budget_per_epoch=3, cooldown_ticks=40,
+                      # A spread world's noise never arms it; a crowd does.
+                      min_entity_delta=max(8, entities // 4), freeze_min_ticks=2),
+        weather=[{"point": "device.dispatch_stall", "every_n": 40, "stall_ms": 20,
+                  "max_fires": 50}] if weather else [],
+    )
+
+
+def elastic_settings(scn: dict) -> dict:
+    """The global settings the scenario runs under, by name."""
+    out = {f"partition_{k}": v for k, v in scn["partition"].items()}
+    out.update({f"balancer_{k}": v for k, v in scn["balancer"].items()})
+    out.update(failover_enabled=True, server_conn_recoverable=True,
+               server_conn_recover_timeout_ms=scn["recover_window_ms"],
+               overload_down_hold_s=scn["overload_down_hold_s"])
+    if scn["hang"] is not None:
+        out["device_step_deadline_s"] = scn["hang"]["deadline_s"]
+    return out
+
+
+def elastic_chaos(scn: dict, hang: bool) -> dict:
+    """The chaos scenario to arm: the weather, and the hang when ``hang``
+    (armed on the tick it must land on: its first guarded step)."""
+    faults = [dict(f) for f in scn["weather"]]
+    if hang:
+        faults.append({"point": "device.step_hang", "every_n": 1, "max_fires": 1,
+                       "stall_ms": scn["hang"]["stall_ms"]})
+    return {"name": "elastic", "seed": 20260807, "faults": faults}
+
+
+def elastic_region(ctl, cell: tuple) -> tuple:
+    """(x0, z0, x1, z1): the lower-left quarter of a base cell, a margin
+    inside, so the crowd fills one child of a split and all four of that
+    child's children."""
+    col, row = cell
+    w, h = ctl.grid_width, ctl.grid_height
+    x, z = ctl.world_offset_x + col * w, ctl.world_offset_z + row * h
+    return (x + 0.02 * w, z + 0.02 * h, x + 0.48 * w, z + 0.48 * h)
+
+
+def elastic_moves(scn: dict, t: int, rng, ctl, ids: list, positions: dict) -> list:
+    """[(entity, x, z)] of tick ``t``: a quarter of the entities walk
+    (3% of a cell a step) while the world is spread; the whole crowd
+    herds into the pileup region on the first tick of the pileup and of
+    the repile, and an eighth of it jitters inside the region on their
+    other ticks; the whole crowd spreads uniformly on the first tick of
+    the disperse."""
+    ph = scn["phases"]
+    w, h = ctl.grid_width, ctl.grid_height
+    x0, z0 = ctl.world_offset_x + 1.0, ctl.world_offset_z + 1.0
+    x1 = ctl.world_offset_x + w * ctl.grid_cols - 1.0
+    z1 = ctl.world_offset_z + h * ctl.grid_rows - 1.0
+    crowd = None
+    if ph["pileup"][0] <= t < ph["pileup"][1]:
+        crowd = elastic_region(ctl, scn["pileup_cells"][0])
+        first = t == ph["pileup"][0]
+    elif ph["repile"][0] <= t < ph["repile"][1]:
+        crowd = elastic_region(ctl, scn["pileup_cells"][1])
+        first = t == ph["repile"][0]
+    if crowd is not None:
+        cx0, cz0, cx1, cz1 = crowd
+        if first:
+            return [(e, rng.uniform(cx0, cx1), rng.uniform(cz0, cz1)) for e in ids]
+        out = []
+        for e in rng.sample(ids, max(1, len(ids) // 8)):
+            x, z = positions[e]
+            out.append((e, min(max(x + rng.uniform(-0.03, 0.03) * w, cx0), cx1),
+                        min(max(z + rng.uniform(-0.03, 0.03) * h, cz0), cz1)))
+        return out
+    if t == ph["disperse"][0]:
+        return [(e, rng.uniform(x0, x1), rng.uniform(z0, z1)) for e in ids]
+    out = []
+    for e in rng.sample(ids, max(1, len(ids) // 4)):
+        x, z = positions[e]
+        out.append((e, min(max(x + rng.uniform(-0.03, 0.03) * w, x0), x1),
+                    min(max(z + rng.uniform(-0.03, 0.03) * h, z0), z1)))
+    return out
+
+
+def elastic_trigger(scn: dict, t: int, state: dict, ctl, partition, journal,
+                    spatial_start: int) -> Optional[str]:
+    """'kill', 'hang' or None for tick ``t``, decided before the tick from
+    what the partition plane holds: the repile cell's first split is
+    draining (drop its owner now: the split aborts this tick); or the
+    re-planned split will commit this tick (arm the hang)."""
+    col, row = scn["pileup_cells"][1]
+    target = spatial_start + row * ctl.grid_cols + col
+    ph = scn["phases"]
+    op = partition.op_in_flight()
+    if (op is None or op.op != "split" or op.target != target or op.state != "draining"
+            or t < ph["repile"][0]):
+        return None
+    if "killed" not in state:
+        state["killed"] = (t, op.op_id)
+        return "kill"
+    if (scn["hang"] is not None and "hung" not in state and op.op_id != state["killed"][1]
+            and partition._tick + 1 - op.planned_tick >= scn["partition"]["freeze_min_ticks"]
+            and not journal.in_flight_touching(target)):
+        state["hung"] = (t, op.op_id)
+        return "hang"
+    return None
+
+
+def elastic_state(ctl, partition, balancer, failover, journal) -> tuple:
+    """What the elastic planes hold after a tick, for the per-tick
+    comparison: the geometry epoch and splits, the micro grid, the
+    partition, balancer and failover ledgers, the journal's counts, the
+    deferred and frozen crossings and the frozen cells."""
+    return (ctl.geometry_epoch, sorted(ctl.tree.splits), (ctl._mcols, ctl._mrows),
+            sorted(partition.ledger.items()), sorted(balancer.ledger.items()),
+            sorted(failover.ledger.items()), sorted(journal.counts.items()),
+            sorted(ctl._deferred_crossings), sorted(balancer._frozen_crossings),
+            sorted(balancer.frozen_cells))
+
+
+class ElasticConn(GatewayConn):
+    """A stub that also digests the cell-authority messages it is sent
+    (re-host, migration, geometry update) apart, and that a kill leaves
+    recoverable, as a server socket's abnormal close does."""
+
+    def __init__(self, P, conn_id: int, kind: str):
+        super().__init__(P, conn_id, kind)
+        self.cell_digest = hashlib.sha256()
+        self.cell_count = 0
+
+    def send(self, ctx) -> None:
+        super().send(ctx)
+        if ctx.msg_type in CELL_MSG_TYPES:
+            body = ctx.raw_body
+            if body is None:
+                body = ctx.msg.SerializeToString(deterministic=True) if ctx.msg is not None else b""
+            self.cell_digest.update(np.array([ctx.msg_type, ctx.channel_id, len(body)],
+                                             np.int64).tobytes())
+            self.cell_digest.update(body)
+            self.cell_count += 1
+
+    def should_recover(self) -> bool:
+        return self.recover_handle is not None
+
+
+def elastic_size(entities: int = ELASTIC_ENTITIES, ticks: int = ELASTIC_TICKS,
+                 mesh: bool = False, config: str = GATEWAY_CONFIG) -> dict:
+    """11a's (or, ``mesh``, 11b's) world and scenario."""
+    with open(config) as f:
+        c = json.load(f)["Config"]
+    scn = elastic_scenario(entities, c["GridCols"], c["GridRows"], c["ServerCols"],
+                           c["ServerRows"], ticks, hang=not mesh, weather=mesh)
+    size = dict(gateway_size(entities, ticks), storms=(), census_every=40, config=config,
+                scenario=scn, settings=elastic_settings(scn), deadline=RECOVERY_DEADLINE_S)
+    if mesh:
+        size.update(sim=False, followers=64, sensors=256, subscribers=64)
+    return size
+
+
+class ElasticWorld(GatewayWorld):
+    """11a/11b: the gateway world with the partition, balancer and
+    failover planes on ``elastic_scenario``'s schedule. Records every
+    geometry epoch (its tick, micro grid, the rebuild's verify metric and
+    the host time of ``on_geometry_changed``), every engine tick, and,
+    on the card, checks K1 and K2 against their plain versions on the
+    live tensors after each tick that re-gridded the engine (uncounted,
+    outside the tick's timed window)."""
+
+    HOLDS = True
+
+    def __init__(self, dev: torch.device, clock, size: dict, K=None):
+        self.scn = size["scenario"]
+        self.K = K
+        super().__init__(dev, clock, size)
+        P, ctl, eng = self.P, self.ctl, self.eng
+        P.tracing.recorder.configure(enabled=False)
+        self.trigger, self.fired = {}, []
+        self.epochs, self.engine_ticks, self.kernel_checks = [], 0, []
+        self.t = -1
+        real_changed, real_tick = ctl.on_geometry_changed, eng.tick
+        inv = P.invariants
+
+        def recorded_changed():
+            old = (ctl._mcols, ctl._mrows)
+            before = inv.scrape(P.metrics.registry)
+            t0 = time.perf_counter()
+            real_changed()
+            ms = (time.perf_counter() - t0) * 1e3
+            d = inv.delta(inv.scrape(P.metrics.registry), before)
+            self.epochs.append(dict(
+                tick=self.t, epoch=ctl.geometry_epoch, micro=(ctl._mcols, ctl._mrows), old=old,
+                verified=int(inv.sample_total(d, "partition_device_rebuilds_total",
+                                              result="verified")),
+                mismatch=int(inv.sample_total(d, "partition_device_rebuilds_total",
+                                              result="mismatch")), ms=ms))
+
+        def counted_tick(*args, **kwargs):
+            self.engine_ticks += 1
+            return real_tick(*args, **kwargs)
+
+        ctl.on_geometry_changed, eng.tick = recorded_changed, counted_tick
+        if self.scn["weather"]:
+            P.chaos.arm(elastic_chaos(self.scn, hang=False))
+
+    @property
+    def spatial(self) -> list:
+        """The live spatial channels (leaves of the cell tree), re-read on
+        every use: a geometry epoch creates and retires them mid-tick."""
+        st = self.P.settings.global_settings
+        lo, hi = st.spatial_channel_id_start, st.entity_channel_id_start
+        return sorted(cid for cid, ch in self.P.channel.all_channels().items()
+                      if lo <= cid < hi and not ch.is_removing())
+
+    @spatial.setter
+    def spatial(self, _boot: list) -> None:
+        pass
+
+    def conn(self, conn_id: int, kind: str) -> GatewayConn:
+        c = ElasticConn(self.P, conn_id, kind)
+        self.P.connection._all_connections[conn_id] = c
+        self.conns.append(c)
+        return c
+
+    def drive(self, t: int) -> None:
+        P, ctl = self.P, self.ctl
+        self.t = t
+        P.recovery.tick_connection_recovery_once()  # the reaper loop's pass
+        start = P.settings.global_settings.spatial_channel_id_start
+        action = elastic_trigger(self.scn, t, self.trigger, ctl, P.partition.partition,
+                                 P.failover.journal, start)
+        for eid, x, z in elastic_moves(self.scn, t, self.rng, ctl, self.entity_ids,
+                                       self.positions):
+            self.move(eid, x, z)
+        if action == "kill":
+            op = P.partition.partition.op_in_flight()
+            owner = P.channel.get_channel(op.target).get_owner()
+            P.recovery.make_recoverable(owner)
+            owner.close(unexpected=True)
+            P.connection._all_connections.pop(owner.id, None)
+            P.connection.close_epoch += 1  # the channels' prune scans key off it
+            self.fired.append((t, "kill", owner.id))
+        elif action == "hang":
+            P.chaos.arm(elastic_chaos(self.scn, hang=True))
+            self.fired.append((t, "hang", None))
+
+    def tick(self, t: int) -> dict:
+        P, ctl = self.P, self.ctl
+        epochs = len(self.epochs)
+        failures = dict(P.guard.guard.failure_counts)
+        state = P.guard.guard.state.name
+        obs = super().tick(t)
+        regrid = [e for e in self.epochs[epochs:] if e["micro"] != e["old"]]
+        if regrid and self.K is not None and self.dev.type == "cuda":
+            # Outside the tick's timed window.
+            self.kernel_checks.append(uncounted(self.K, lambda: elastic_live_kernels(
+                self.K, self.eng, regrid[-1]["micro"])))
+        obs["elastic"] = elastic_state(ctl, P.partition.partition, P.balancer.balancer,
+                                       P.failover.plane, P.failover.journal)
+        obs["cell_msgs"] = {c.id: (c.cell_count, c.cell_digest.hexdigest()) for c in self.conns}
+        obs["epoch_tick"] = len(self.epochs) > epochs
+        obs["steady"] = (obs["served"] and not obs["census"] and not obs["epoch_tick"]
+                         and state == "ACTIVE" and P.guard.guard.state.name == "ACTIVE"
+                         and dict(P.guard.guard.failure_counts) == failures)
+        return obs
+
+    def elastic_census(self) -> dict:
+        """``census`` over the live leaf channels, and the journal: its
+        prepared less committed and aborted records, and those in flight."""
+        jc = self.P.failover.journal.counts
+        return dict(self.census(), journal=(
+            jc.get("prepared", 0) - jc.get("committed", 0) - jc.get("aborted", 0),
+            self.P.failover.journal.in_flight_count()))
+
+    def close(self) -> None:
+        self.P.chaos.disarm()
+        super().close()
+
+
+def elastic_live_kernels(K, eng, micro: tuple) -> dict:
+    """K1 and K2 against their plain versions on the engine's live tensors
+    after a geometry epoch (a meshed engine: its first shard's slots, and
+    its last shard's block with the cells plane's fused centre), exact,
+    with each kernel's time alone (bare launches, events), its plain
+    version's and its bound."""
+    grid, qs = eng.grid, eng._d_queries
+    mesh = eng._mesh
+    pos, valid = eng._d_positions, eng._d_valid
+    if mesh is not None:
+        from channeld_tpu_torch.parallel.spatial_alltoall import cells_per_shard
+
+        pos, valid = pos[0], valid[0]
+        blk = cells_per_shard(grid, mesh.size)
+        base, fused = (mesh.size - 1) * blk, True
+    else:
+        base, blk, fused = 0, grid.num_cells, False
+    n, c = pos.shape[0], grid.num_cells
+    err1 = max_abs_diff(zip(K.assign_and_count(grid, pos, valid),
+                            K.assign_and_count_plain(grid, pos, valid)))
+    args = (qs.kind, qs.center, qs.extent, qs.direction, torch.cos(qs.angle))
+    err2 = max_abs_diff(zip(K.aoi_tile(grid, *args, base, blk, fused_centre=fused),
+                            K.aoi_tile_plain(grid, *args, base, blk, fused_centre=fused)))
+    check(err1 == 0 and err2 == 0, f"after the epoch to {micro[0]}x{micro[1]}: K1 |diff| {err1}, "
+                                   f"K2 {err2} on the live tensors")
+    q = args[0].shape[0]
+    ids = [i for i in range(base, base + blk) if i < c]
+    axes = len({i % grid.cols for i in ids}) + len({i // grid.cols for i in ids})
+    b1, by1 = bound_ms(pos.numel() * 4 + n + 4 * n + 4 * c, ASSIGN_OPS_PER_SLOT * n)
+    b2, by2 = bound_ms(q * (4 + 3 * 8 + 4) + q * blk * 5,
+                       AOI_OPS_PER_PAIR * q * len(ids) + AOI_OPS_PER_AXIS * q * axes)
+    return {
+        "assign_count": dict(
+            shape=f"{n} slots x {c} bins", micro=micro, max_abs_err=err1, bound_ms=b1,
+            bound_by=by1, shared=K.uses_shared_histogram(grid, pos.device),
+            ms=queued_ms(K.prepare_assign_count(grid, pos, valid).run),
+            plain_ms=median_ms(lambda: K.assign_and_count_plain(grid, pos, valid), reps=20,
+                               warmup=2), library_ms=None),
+        "aoi": dict(
+            shape=f"{q} x {blk} pairs" + (f" (cell_base {base} of {c}, fused centre)"
+                                          if mesh is not None else ""),
+            micro=micro, max_abs_err=err2, bound_ms=b2, bound_by=by2,
+            ms=queued_ms(K.prepare_aoi(grid, *args, base, blk, fused_centre=fused).run,
+                         reps=200 if q * blk < 1 << 22 else 40),
+            plain_ms=median_ms(lambda: K.aoi_tile_plain(grid, *args, base, blk,
+                                                        fused_centre=fused),
+                               reps=10, warmup=2), library_ms=None),
+    }
+
+
+def phase_elastic_lockstep(K, dev, size: dict, label: str = "11a") -> tuple:
+    """11a/11b: ``elastic_scenario`` through the port's gateway on the card
+    and on the CPU, tick for tick, and the density soak's invariants on
+    both legs. Returns (K1/K2 launches on this path, the kernels' entries
+    at the post-split shapes)."""
+    scn, ticks = size["scenario"], size["ticks"]
+    mesh = label == "11b"
+    legs, report = {}, {}
+    t_phase = time.perf_counter()
+    for leg, leg_dev in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        t_leg = time.perf_counter()
+        with FixedClock() as clock:
+            world = ElasticWorld(leg_dev, clock, size, K=K)
+            P = world.P
+            K.reset_launch_counts()
+            obs = [world.tick(t) for t in range(ticks)]
+            launches = K.launch_counts()
+            part, bal = P.partition.partition, P.balancer.balancer
+            report[leg] = dict(
+                launches=launches, engine_ticks=world.engine_ticks, epochs=list(world.epochs),
+                fired=list(world.fired), census=world.elastic_census(),
+                partition=dict(part.ledger), events=[dict(e) for e in part.events],
+                balancer=dict(bal.ledger), failover=dict(P.failover.plane.ledger),
+                splits=sorted(world.ctl.tree.splits),
+                micro=(world.ctl._mcols, world.ctl._mrows), guard=P.guard.guard.report(),
+                kernel_checks=list(world.kernel_checks), agents=world.eng.agent_count(),
+                shards=world.eng._mesh.size if world.eng._mesh is not None else 1,
+                in_flight=(part.op_in_flight(), bal.migration_in_flight()))
+            world.close()
+            del world
+        report[leg]["secs"] = time.perf_counter() - t_leg
+        legs[leg] = obs
+    card, cpu = legs["cuda"], legs["cpu"]
+    for t in range(ticks):
+        where = first_gateway_diff(card[t], cpu[t])
+        if where is not None:
+            print(f"MISMATCH {label} tick {t}: {where}")
+        check(where is None, f"{label} tick {t}: cuda and cpu differ: {where}")
+    for leg in ("cuda", "cpu"):
+        r = report[leg]
+        p = r["partition"]
+        check(p.get("split_committed", 0) >= 2 and p.get("merge_committed", 0) >= 2,
+              f"{label} {leg}: partition ledger {p}")
+        check(p.get("split_aborted", 0) == 1, f"{label} {leg}: splits aborted {p}, not exactly 1")
+        aborted = [e for e in r["events"] if e["result"] == "aborted" and e["op"] == "split"]
+        check(aborted and aborted[0]["reason"] == "dst_dead",
+              f"{label} {leg}: the aborted split {aborted}")
+        for op in ("split", "merge"):
+            check(p.get(f"{op}_planned", 0) == p.get(f"{op}_committed", 0)
+                  + p.get(f"{op}_aborted", 0), f"{label} {leg}: {op}s planned != committed + "
+                  f"aborted: {p}")
+        check(r["balancer"].get("committed", 0) >= 1, f"{label} {leg}: balancer {r['balancer']}")
+        check(r["failover"]["cells_rehosted"] >= 1, f"{label} {leg}: failover {r['failover']}")
+        check(r["splits"] == [] and r["micro"] == card[0]["elastic"][2],
+              f"{label} {leg}: ends on splits {r['splits'][:8]}, micro grid {r['micro']}, not the "
+              f"boot geometry")
+        check(r["in_flight"] == (None, None), f"{label} {leg}: ops left in flight {r['in_flight']}")
+        check(r["census"] == dict(misplaced=[], duplicated=[], untracked=[], ledger_off=[],
+                                  journal=(0, 0)),
+              f"{label} {leg}: entities lost, duplicated or in flight: "
+              f"{ {k: v if isinstance(v, tuple) else v[:5] for k, v in r['census'].items()} }")
+        check(r["epochs"] and all(e["verified"] == (e["micro"] != e["old"]) and e["mismatch"] == 0
+                                  for e in r["epochs"]),
+              f"{label} {leg}: epochs (a re-grid's rebuild verified, no mismatch) {r['epochs']}")
+        check(r["guard"]["state"] == "ACTIVE", f"{label} {leg}: the guard ends {r['guard']['state']}")
+    r = report["cuda"]
+    check([e[1] for e in r["fired"]] == (["kill"] if mesh else ["kill", "hang"]),
+          f"{label}: fired {r['fired']}")
+    depths = sorted({e["micro"] for e in r["epochs"]})
+    base = card[0]["elastic"][2]
+    check((base[0] * 4, base[1] * 4) in depths and (base[0] * 2, base[1] * 2) in depths,
+          f"{label}: micro grids {depths} do not reach depth 2")
+    if not mesh:
+        hang_tick = r["fired"][1][0]
+        check(any(e["tick"] == hang_tick for e in r["epochs"]),
+              f"{label}: no epoch committed on the hang tick {hang_tick}")
+        check(r["guard"]["recovery_counts"] == {"hang": 1},
+              f"{label}: recoveries {r['guard']['recovery_counts']}")
+    want = r["engine_ticks"] * r["shards"]
+    for name, count in r["launches"].items():
+        check(count == want > 0, f"{label}: kernel {name} launched {count} times in "
+              f"{r['engine_ticks']} engine ticks x {r['shards']} shards")
+    # Reads per steady tick before the first re-grid and after each one
+    # (up to the next): each span's set of counts.
+    regrids = [e["tick"] for e in r["epochs"] if e["micro"] != e["old"]]
+    per_span = []
+    for a, b in zip([0] + regrids, regrids + [ticks]):
+        per_span.append(sorted({card[t]["reads"] for t in range(a + 1, b) if card[t]["steady"]}))
+    check(all(rd == [2] for rd in per_span) and len(per_span) == len(regrids) + 1,
+          f"{label}: device reads per steady tick before and after each re-grid {per_span}")
+    entries = {}
+    for chk in r["kernel_checks"]:
+        for name, e in chk.items():
+            entries.setdefault(name, {})[f"{e['micro'][0]}x{e['micro'][1]}"] = e
+    overflow = sum(o["overflow"] for o in card)
+    if mesh:
+        check(overflow > 0, f"{label}: the bucket never overflowed")
+    print(f"{label} elastic lockstep: {ticks} GLOBAL ticks of {scn['entities']} entity channels on "
+          f"{size['config']} ({r['shards']} shard(s){', Sharding cells, CellBucket ' if mesh else ''}"
+          f"{size.get('bucket', '') if mesh else ''}; sim agents {r['agents']}) on the port's "
+          f"copy of the density soak's schedule (pileup into {scn['pileup_cells'][0]} at "
+          f"{scn['phases']['pileup'][0]}, repile into {scn['pileup_cells'][1]} at "
+          f"{scn['phases']['repile'][0]}, disperse at {scn['phases']['disperse'][0]}; fired "
+          f"{r['fired']}) on cuda equal the CPU leg on every tick: handovers "
+          f"({sum(len(o['handovers']) for o in card)}), tables, every outbound stream, the "
+          f"cell-authority messages, geometry epoch and micro grid, the partition, balancer and "
+          f"failover ledgers and the journal; partition {r['partition']}; balancer "
+          f"{r['balancer']}; failover {r['failover']}; epochs (tick, micro grid, verified, "
+          f"on_geometry_changed ms) "
+          + ", ".join(f"({e['tick']}, {e['micro'][0]}x{e['micro'][1]}, {e['verified']}, "
+                      f"{e['ms']:.3f})" for e in r["epochs"])
+          + f"; zero entities lost or duplicated, journal balanced; launches {r['launches']} in "
+          f"{r['engine_ticks']} engine ticks; reads per steady tick before and after each re-grid "
+          f"(ticks {regrids}) {per_span}; "
+          f"overflow {overflow}; phase {time.perf_counter() - t_phase:.1f} s (card leg "
+          f"{report['cuda']['secs']:.1f} s, cpu leg {report['cpu']['secs']:.1f} s)")
+    ph = scn["phases"]
+    spread = [t for t in (*range(*ph["warmup"]), *range(*ph["disperse"])) if card[t]["steady"]]
+    for leg, obs in (("cuda", card), ("cpu", cpu)):
+        rr = report[leg]
+        pile = [obs[t]["tick_ms"] for t in range(*ph["pileup"])]
+        held = sum(1 for o in obs if not o["served"])
+        print(f"{label} on {leg}: tick median/p99 spread (steady ticks of the warmup and the "
+              f"disperse) {tick_stats([obs[t]['tick_ms'] for t in spread])}, pileup "
+              f"{tick_stats(pile)}; guarded step {tick_stats([o['step_ms'] for o in obs if o['step_ms'] is not None])}; "
+              f"apply_grid + verify (on_geometry_changed, host clock) "
+              + ", ".join(f"{e['ms']:.3f}" for e in rr["epochs"])
+              + f" ms; held ticks {held}; guard recoveries {rr['guard']['recovery_counts']}")
+    for name, shapes in entries.items():
+        for shape, e in shapes.items():
+            print(f"{label} {name} after the epoch to {shape} ({e['shape']}): exact; alone "
+                  f"{e['ms']:.4f} ms (events, bare launches), plain {e['plain_ms']:.4f} ms, bound "
+                  f"{e['bound_ms']:.5f} ms ({e['bound_by']})")
+    return r["launches"], entries
+
+
+def phase_elastic_mesh(K, entities: int = ELASTIC_ENTITIES // 2, ticks: int = ELASTIC_TICKS,
+                       n_dev: Optional[int] = None, dev=None) -> tuple:
+    """11b: ``elastic_scenario`` on config/spatial_tpu_cells_2x2.json's
+    world (Sharding cells) at MeshDevices = min(cards, 8), the CPU leg at
+    the same mesh, with the density soak's dispatch-stall weather and a
+    CellBucket the pileup overflows (on a mesh of one, every tick, as
+    7c's)."""
+    import shutil
+    import tempfile
+
+    if n_dev is None:
+        n_dev = min(torch.cuda.device_count(), MESH_SHARDS)
+    with open(ELASTIC_CELLS_CONFIG) as f:
+        cfg = json.load(f)
+    bucket = max(1, (entities * 15) // (16 * n_dev))
+    cfg["Config"].update(MeshDevices=n_dev, CellBucket=bucket)
+    scratch = tempfile.mkdtemp(prefix="elastic-mesh-")
+    path = f"{scratch}/spatial_tpu_cells_elastic.json"
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    try:
+        size = dict(elastic_size(entities, ticks, mesh=True, config=path), bucket=bucket)
+        return phase_elastic_lockstep(K, dev if dev is not None else torch.device("cuda", 0),
+                                      size, "11b")
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
+
+ELASTIC_LIVE = dict(entities=64, split=32, merge=8)
+
+
+def phase_elastic_live(dev_args=(), deadline_s: float = 180.0, size: dict = ELASTIC_LIVE) -> dict:
+    """11c: ``python -m channeld_tpu_torch`` on the cells plane
+    (config/spatial_tpu_cells_2x2.json at MeshDevices = min(cards, 8))
+    with ``-partition true`` (depth 1, split and merge thresholds scaled to
+    the entities), ``-chaos`` (the density soak's dispatch stalls),
+    ``-overload false`` (as the density soak) and ``-mport``, driven over
+    loopback TCP: a master and the 4 servers claim
+    the world, the master spawns entities over it and herds them into one
+    cell; /metrics must show a committed split, its re-grid verified (no
+    mismatch), a committed balancer migration and ``device_state`` 0; the
+    crowd disperses and the cell merges back (a second verified
+    re-grid); SIGTERM ends the child with exit code 0."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    from random import Random
+
+    from channeld_tpu_torch.core.types import MessageType
+    from channeld_tpu_torch.models import sim_pb2
+    from channeld_tpu_torch.protocol import control_pb2, spatial_pb2
+    from channeld_tpu_torch.utils.anyutil import pack_any
+
+    t_phase = time.perf_counter()
+    n_dev = 1 if dev_args else min(torch.cuda.device_count(), MESH_SHARDS)
+    sport, cport, mport = free_port(), free_port(), free_port()
+    scratch = tempfile.mkdtemp(prefix="elastic-live-")
+    with open(ELASTIC_CELLS_CONFIG) as f:
+        cfg = json.load(f)
+    cfg["Config"].update(MeshDevices=n_dev)
+    config_path = os.path.join(scratch, "spatial_tpu_cells.json")
+    with open(config_path, "w") as f:
+        json.dump(cfg, f)
+    chaos_path = os.path.join(scratch, "density_weather.json")
+    with open(chaos_path, "w") as f:
+        json.dump(elastic_chaos(elastic_scenario(size["entities"], 4, 4, 2, 2, hang=False,
+                                                 weather=True), hang=False), f)
+    cmd = [sys.executable, "-m", "channeld_tpu_torch", "-dev", "-loglevel", "0",
+           "-profilepath", scratch, "-sn", "tcp", "-sa", f"127.0.0.1:{sport}", "-cn", "tcp",
+           "-ca", f"127.0.0.1:{cport}", "-mport", str(mport),
+           "-cfsm", "config/client_authoritative_fsm.json", "-scc", config_path,
+           "-imports", "channeld_tpu_torch.models.sim", "-partition", "true",
+           "-partition-split", str(size["split"]), "-partition-merge", str(size["merge"]),
+           "-partition-depth", "1", "-partition-budget", "4", "-chaos", chaos_path,
+           # As scripts/density_soak.py pins it: the ladder's veto of
+           # geometry ops at L2+ has its own tests, and a slow first tick
+           # must not mask the ops under test.
+           "-overload", "false", *dev_args]
+    gw = LiveGateway(cmd, os.path.join(scratch, "gateway.log"), mport)
+    rng = Random(SEED + 11)
+    try:
+        world = claim_world(gw, sport, cport, deadline_s, n_servers=4)
+        check("CHAOS ARMED" in gw.log(), "11c: the child did not arm the chaos scenario")
+        master = world["master"]
+        x0, z0, w = cfg["Config"]["WorldOffsetX"], cfg["Config"]["WorldOffsetZ"], cfg["Config"]["GridWidth"]
+        span = w * cfg["Config"]["GridCols"]
+        eids = [0x80000 + 1 + i for i in range(size["entities"])]
+
+        def data(eid, x, z):
+            d = sim_pb2.SimEntityChannelData()
+            d.state.entityId = eid
+            d.state.transform.position.x, d.state.transform.position.z = x, z
+            return d
+
+        def move_all(place) -> None:
+            for eid in eids:
+                x, z = place()
+                master.send(eid, 0, MessageType.CHANNEL_DATA_UPDATE,
+                            control_pb2.ChannelDataUpdateMessage(data=pack_any(data(eid, x, z))))
+            master.flush()
+
+        def metric(name: str, **labels) -> float:
+            key = "{" + ",".join(f'{k}="{v}"' for k, v in labels.items()) + "}" if labels else ""
+            return gw.metric(name).get(key, 0.0)
+
+        spread = lambda: (rng.uniform(x0 + 1, x0 + span - 1), rng.uniform(z0 + 1, z0 + span - 1))  # noqa: E731
+        for eid in eids:
+            x, z = spread()
+            master.send(0, 0, MessageType.CREATE_ENTITY_CHANNEL, spatial_pb2.CreateEntityChannelMessage(
+                entityId=eid, data=pack_any(data(eid, x, z))))
+        master.flush()
+        gw.until(lambda: metric("tpu_entities") >= size["entities"], "every entity tracked", 30)
+        spawned_s = time.perf_counter() - gw.t0
+        # The crowd: the interior of base cell (1, 1).
+        cx0, cz0 = x0 + w + 1.0, z0 + w + 1.0
+        move_all(lambda: (rng.uniform(cx0, cx0 + w - 2.0), rng.uniform(cz0, cz0 + w - 2.0)))
+        gw.until(lambda: metric("partition_ops_total", op="split", result="committed") >= 1,
+                 "a committed split", 60)
+        split_s = time.perf_counter() - gw.t0
+        gw.until(lambda: metric("balancer_migrations_total", result="committed") >= 1,
+                 "a committed balancer migration", 60)
+        migrated_s = time.perf_counter() - gw.t0
+        verified = metric("partition_device_rebuilds_total", result="verified")
+        mismatch = metric("partition_device_rebuilds_total", result="mismatch")
+        check(verified >= 1 and mismatch == 0,
+              f"11c: partition_device_rebuilds_total verified {verified}, mismatch {mismatch}")
+        check(gw.metric("device_state") == {"": 0.0}, f"11c: device_state {gw.metric('device_state')}")
+        move_all(spread)
+        splits = metric("partition_ops_total", op="split", result="committed")
+        gw.until(lambda: metric("partition_ops_total", op="merge", result="committed") >= splits,
+                 "the merge back to the boot geometry", 90)
+        merged_s = time.perf_counter() - gw.t0
+        verified = metric("partition_device_rebuilds_total", result="verified")
+        mismatch = metric("partition_device_rebuilds_total", result="mismatch")
+        check(verified >= 2 and mismatch == 0,
+              f"11c: after the merge, device rebuilds verified {verified}, mismatch {mismatch}")
+        state = gw.metric("device_state")
+        check(state == {"": 0.0}, f"11c: device_state {state} after the merge")
+        ops = gw.metric("partition_ops_total")
+        migrations = gw.metric("balancer_migrations_total")
+        stalls = metric("chaos_faults_total", point="device.dispatch_stall")
+        gw.proc.send_signal(signal.SIGTERM)
+        try:
+            exit_code = gw.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            raise PhaseFailed(f"11c: the child did not exit within 30 s of SIGTERM: {gw.log()[-2000:]}")
+        check(exit_code == 0, f"11c: the child exited {exit_code} on SIGTERM: {gw.log()[-2000:]}")
+        print(f"11c elastic live: python -m channeld_tpu_torch on "
+              f"{'cuda' if not dev_args else ' '.join(dev_args)} with {ELASTIC_CELLS_CONFIG}'s "
+              f"world at MeshDevices {n_dev}, -partition (split {size['split']}, merge "
+              f"{size['merge']}, depth 1) and -chaos (dispatch stalls: {stalls:g} fired): "
+              f"{size['entities']} entities spawned and tracked at {spawned_s:.1f} s, herded into "
+              f"one cell; split committed at {split_s:.1f} s, a balancer migration at "
+              f"{migrated_s:.1f} s, dispersed, merged back at {merged_s:.1f} s; "
+              f"partition_ops_total {ops}, balancer_migrations_total {migrations}, "
+              f"partition_device_rebuilds_total verified {verified:g}, mismatch {mismatch:g}, "
+              f"device_state 0; SIGTERM exit 0; phase {time.perf_counter() - t_phase:.1f} s")
+        return dict(split_s=split_s, merged_s=merged_s)
+    finally:
+        gw.stop()
+        shutil.rmtree(scratch, ignore_errors=True)
+
+
 def main_gateway(entities: int, ticks: int) -> int:
     """Phase 6a alone at another size (after the device and build
     phases): ``python3 chip_smoke.py --gateway 50000 30``."""
@@ -4008,6 +4720,26 @@ def main_recovery(entities: int, ticks: int) -> int:
     return 0
 
 
+def main_elastic(entities: int, ticks: int) -> int:
+    """Phases 11a and 11b alone (after the device and build phases), 11b
+    at half the entities: ``python3 chip_smoke.py --elastic 1500 120``."""
+    from channeld_tpu_torch.ops import cuda_kernels as K
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    try:
+        name, _ = phase_device()
+        phase_build(K)
+        phase_elastic_lockstep(K, dev, elastic_size(entities, ticks))
+        phase_elastic_mesh(K, entities // 2, ticks)
+    except PhaseFailed as e:
+        print(f"FAILED: {e}")
+        return 1
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4022,6 +4754,8 @@ def main() -> int:
         return main_mesh()
     if sys.argv[1:2] == ["--engine-adapter"]:
         return main_engine_adapter(int(sys.argv[2]), int(sys.argv[3]))
+    if sys.argv[1:2] == ["--elastic"]:
+        return main_elastic(int(sys.argv[2]), int(sys.argv[3]))
     t_run = time.perf_counter()
     from channeld_tpu_torch.ops import cuda_kernels as K
     from channeld_tpu_torch.ops import engine as engine_mod
@@ -4051,6 +4785,9 @@ def main() -> int:
         phase_recovery_wedge(K, dev)
         phase_recovery_sticky()
         phase_recovery_live()
+        elastic_launches, elastic_entries = phase_elastic_lockstep(K, dev, elastic_size())
+        elastic_mesh_launches, elastic_mesh_entries = phase_elastic_mesh(K)
+        phase_elastic_live()
     except PhaseFailed as e:
         print(f"FAILED: {e}")
         return 1
@@ -4068,12 +4805,16 @@ def main() -> int:
                               "mesh_gateway": mesh_gateway_launches[spec.name],
                               "engine_adapter": engine_launches[spec.name],
                               "unreal": unreal_launches[spec.name],
-                              "recovery": recovery_launches[spec.name]},
+                              "recovery": recovery_launches[spec.name],
+                              "elastic": elastic_launches[spec.name],
+                              "elastic_mesh": elastic_mesh_launches[spec.name]},
             library_ms=None, **entries[spec.name],
             sim_path=dict(sim_entries[spec.name], library_ms=None),
             mesh_path=dict(mesh_entries[spec.name], launches_per_mesh_tick={
                 "entities": MESH_SHARDS if spec.name == "assign_count" else 1,
                 "cells": MESH_SHARDS}),
+            elastic_path=elastic_entries.get(spec.name, {}),
+            elastic_mesh_path=elastic_mesh_entries.get(spec.name, {}),
         ))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -28,7 +28,9 @@ EDITED = {
     "core/profiling.py": "-profile gpu is torch.profiler, not jax.profiler",
     "core/device_guard.py": "reads a tick through the consume blob; torch failure classes; "
                             "enters the engine's CUDA device on the worker; hands the rebuild "
-                            "the host tables copied on the loop thread",
+                            "the host tables copied on the loop thread; says when FAILED "
+                            "is terminal",
+    "core/opshttp.py": "readiness says a terminal FAILED needs a restart, not a rebuild",
     "sim/plane.py": "census columns arrive as tensors when the guard is off",
     "spatial/__init__.py": "exports GPUSpatialController (tpu_controller.py is not ported)",
     "utils/__init__.py": "also exports resolve_device",
