@@ -7,6 +7,7 @@
     python3 chip_smoke.py --engine-adapter 10000 12   # phase 8a alone, at another size
     python3 chip_smoke.py --recovery 10000 30  # phase 10a alone, at another size
     python3 chip_smoke.py --elastic 1500 120   # phases 11a and 11b alone, at another size
+    python3 chip_smoke.py --soaks 1000 4096    # phase 12 alone: sim agents, sensor-soak entities
 
 Needs one CUDA card, nvcc, and the ``channeld_tpu_torch`` package beside
 this file; imports nothing of JAX or of ``channeld_tpu``. Phases (each
@@ -60,7 +61,7 @@ prints one line; any failure exits non-zero before the final line):
 6. the gateway (``python -m channeld_tpu_torch``'s main path):
    a. lockstep: scripts/fanout_bench.py's config4
       (config/spatial_tpu_benchmark.json: 15x15 cells of 2,000 m, 3x3
-      spatial servers and the master) with 12,000 moving entity channels
+      spatial servers and the master) with 6,000 moving entity channels
       (cut from the bench's 50,000; ``--gateway ENTITIES TICKS`` runs
       this phase alone at any size), a storm of entities // 8 twice,
       the standing-query plane and the sim plane at the gateway
@@ -114,7 +115,7 @@ prints one line; any failure exits non-zero before the final line):
 8. the engines' paths through the gateway, each leg on the card
    against a CPU leg under a fixed clock, every tick equal:
    a. the engine adapter (``models/engine_adapter.py``) on phase 6a's
-      config4 at the gateway's default capacities: 10,000 objects
+      config4 at the gateway's default capacities: 5,000 objects
       (every 16th a non-spatial game-mode actor) spawned by SPAWN (103)
       with locations over the grid, moved +-60 m per tick by entity
       channel updates, a storm of an eighth into one cell and back, a
@@ -137,7 +138,7 @@ prints one line; any failure exits non-zero before the final line):
 9. if grpc and protobuf are installed, one real sidecar round trip on
    ``cuda`` (otherwise says it was not run);
 10. the recovery path (``core/device_guard.py`` on the card):
-   a. lockstep: phase 6a's world cut to 6,000 entities x 30 ticks, the
+   a. lockstep: phase 6a's world cut to 3,000 entities x 30 ticks, the
       device guard's deadline at the gateway's default 2 s, armed on a
       fixed clock with scripts/device_soak.py's schedule (two transient
       step errors, a 3,500 ms hang whose first rebuild fails, a silent
@@ -174,7 +175,7 @@ prints one line; any failure exits non-zero before the final line):
     owner is dropped on the tick its split starts draining, disperse),
     120 ticks of a fixed 33 ms clock, card leg against CPU leg:
    a. phase 6a's world (config4, the gateway's defaults, the sim plane)
-      with 1,500 entities (cut by the script's time): splits to depth 2
+      with 800 entities (cut by the script's time): splits to depth 2
       (15x15 -> 30x30 -> 60x60 on the device), granule migrations, the
       kill (the split aborts, failover re-hosts the cell, the re-planned
       split commits with a ``device.step_hang`` on its commit tick), and
@@ -189,14 +190,46 @@ prints one line; any failure exits non-zero before the final line):
       tensors after each re-grid (timed at those shapes); 2 reads per
       steady tick before and after each re-grid;
    b. config/spatial_tpu_cells_2x2.json's world on the cells plane at
-      MeshDevices = min(cards, 8), 750 entities, a CellBucket the
+      MeshDevices = min(cards, 8), 400 entities, a CellBucket the
       pileup overflows and the density soak's dispatch-stall weather:
       the same schedule without the hang, the same checks, K1 and K2
       once per shard per engine tick;
    c. live: ``python -m channeld_tpu_torch`` on that world with
       ``-partition true``, ``-chaos`` and ``-overload false``: a
       committed split, a verified re-grid, a committed migration,
-      ``device_state`` 0, the merge back.
+      ``device_state`` 0, the merge back;
+12. the device-resident populations under churn and chaos, on the
+    port's copies of scripts/sim_soak.py's and scripts/sensor_soak.py's
+    worlds and schedules, with the device tables at the gateway's
+    defaults (1<<17 entity slots, 4,096 query rows), card leg against
+    CPU leg tick for tick on a fixed clock (handovers, cell tables, every
+    outbound stream and subscription, changed query rows, sim columns bit
+    for bit, the guard and every ledger), each leg held to every
+    invariant of its soak; K1 and K2 once on every tick the engine ran
+    and never on one the guard held, exact on the live tensors; 2 reads
+    per steady tick:
+   a. the sim soak: 1,000 agents (the -sim-agents default) and 160
+      tracked humans on 4x1 cells of 100 m, a census every 4 passes, the
+      guard with a 1 ms backoff; steady 60 ticks, ``sim.stampede`` (every
+      agent herded into one cell) 50, ``sim.step_nan`` (a quarter of the
+      agent rows rotted on the card; the sentinel catches it on the same
+      tick on both legs and the rebuild heals it) 12, a same-grid
+      ``apply_grid`` and 12 more; the exact census after each phase; 4
+      more reads on a census tick. Then the kill leg: ``--sim-child WAL
+      AGENTS CENSUS_EVERY DEVICE`` runs the world on the card journaling
+      censuses until it is SIGKILLed after 2; its WAL replayed on the card
+      and on the CPU restores the last census's hash bit for bit, the
+      agent count and the sim clock. K1 is held to its plain version on
+      the stampede's crowd and on the rotted rows;
+   b. the sensor soak x16: 4,096 tracked entities on 8x8 cells, 768
+      follows, 768 clients (queries through the interest handler) and 384
+      sensors, 90 ticks: a tenth of the entities moved each tick, 16
+      clients closed and 16 arrived every 7th tick, 16 queries re-issued
+      every 11th, a rebuild at 30 and a same-grid epoch at 60; the soak's
+      books (one query-plane transfer a tick three ways, rows and resyncs
+      equal to their counters, 2 resyncs, the pass observed each tick,
+      the scope gauges, the callback, reaped = closed) and every live
+      client's subscriptions a superset of its host answer.
 
 The line before the last is a JSON object with one entry per kernel
 (times measured in this run at the sidecar path's shapes; bound from
@@ -207,8 +240,9 @@ same figures at the sim world's shapes, ``mesh_path`` at one shard's
 shapes of phase 7 with the launches per mesh tick, ``fused_block`` K2's
 fused-centre block of the cells plane beside the unfused launch,
 ``elastic_path``/``elastic_mesh_path`` each kernel at the shapes after
-each re-grid of 11a and 11b); the last line is ``{"ok": true, "device":
-{...}}``.
+each re-grid of 11a and 11b, ``soak_path`` each at the live tensors of
+12a's stampede crowd, rotted rows and last tick and 12b's last tick);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -242,13 +276,17 @@ BENCH_GRID = dict(offset_x=-15000.0, offset_z=-15000.0, cell_w=2000.0,
                   cell_h=2000.0, cols=15, rows=15)
 WIDE_GRID = dict(offset_x=-25600.0, offset_z=-25600.0, cell_w=200.0,
                  cell_h=200.0, cols=256, rows=256)
+# Phase 12a's: the sim soak's 4x1 cells of 100 m.
+SOAK_GRID = dict(offset_x=0.0, offset_z=0.0, cell_w=100.0, cell_h=100.0, cols=4, rows=1)
 # Phase 3's shapes: (label, grid, slots or queries, input). The first of
 # each kernel is the main path's shape, which the JSON line reports.
 K1_CASES = (("15x15", BENCH_GRID, 1 << 17, "uniform"),
             ("15x15 crowd", BENCH_GRID, 1 << 17, "crowd"),
             ("15x15 1M", BENCH_GRID, 1 << 20, "uniform"),
             ("256x256", WIDE_GRID, 1 << 17, "uniform"),
-            ("256x256 crowd", WIDE_GRID, 1 << 17, "crowd"))
+            ("256x256 crowd", WIDE_GRID, 1 << 17, "crowd"),
+            ("4x1 one bin", SOAK_GRID, 1 << 17, "one_bin"),
+            ("4x1 quarter NaN", SOAK_GRID, 1 << 17, "nan"))
 K2_CASES = (("15x15", BENCH_GRID, 4096), ("256x256", WIDE_GRID, 1024))
 # F6: cells whose centres are not exact in float32, where the cells
 # plane's fused centre (one rounding) moves pairs.
@@ -364,10 +402,13 @@ def bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
 # ---- inputs -----------------------------------------------------------------
 
 
-def entity_inputs(grid, n: int, rng: np.random.Generator, device, crowd: bool = False):
+def entity_inputs(grid, n: int, rng: np.random.Generator, device, what: str = "uniform"):
     """Positions over the grid and a margin around it, a quarter exactly
     on cell boundaries, plus NaN/±inf/1e20 rows and invalid slots. A
-    crowd puts half of the slots, valid, inside one cell."""
+    ``crowd`` puts half of the slots, valid, inside one cell; ``one_bin``
+    every valid slot inside one cell (12a's stampede); ``nan`` a quarter
+    of the rows at NaN (12a's sim.step_nan), which K1 counts in cell 0
+    (ROADMAP F1)."""
     lo_x, lo_z = grid.offset_x - grid.cell_w, grid.offset_z - grid.cell_h
     hi_x = grid.offset_x + grid.cell_w * (grid.cols + 1)
     hi_z = grid.offset_z + grid.cell_h * (grid.rows + 1)
@@ -381,11 +422,17 @@ def entity_inputs(grid, n: int, rng: np.random.Generator, device, crowd: bool = 
         pos[k + 8 * i: k + 8 * i + 4, 0] = v
         pos[k + 8 * i + 4: k + 8 * i + 8, 2] = v
     valid = rng.random(n) > 0.05
-    if crowd:
+    if what == "crowd":
         idx = rng.permutation(n)[: n // 2]
         pos[idx, 0] = grid.offset_x + grid.cell_w * (7 + rng.random(idx.size))
         pos[idx, 2] = grid.offset_z + grid.cell_h * (7 + rng.random(idx.size))
         valid[idx] = True
+    elif what == "one_bin":
+        pos[:, 0] = grid.offset_x + grid.cell_w * (grid.cols // 2 + rng.random(n))
+        pos[:, 2] = grid.offset_z + grid.cell_h * (grid.rows // 2 + rng.random(n))
+    elif what == "nan":
+        idx = rng.permutation(n)[: n // 4]
+        pos[idx] = np.nan
     return (torch.from_numpy(pos).to(device), torch.from_numpy(valid).to(device))
 
 
@@ -415,7 +462,7 @@ def k1_cases(ops, dev):
     for i, (label, gkw, n, what) in enumerate(K1_CASES):
         grid = ops.GridSpec(**gkw)
         rng = np.random.default_rng(SEED + 100 + i)
-        yield (label, grid, *entity_inputs(grid, n, rng, dev, crowd=what == "crowd"))
+        yield (label, grid, *entity_inputs(grid, n, rng, dev, what))
 
 
 def k2_cases(ops, dev):
@@ -475,7 +522,7 @@ def phase_kernels(K, ops, dev) -> dict:
         err = max_abs_diff([(cell_k, cell_p), (counts_k, counts_p)])
         check(err == 0, f"K1 {label}: kernel differs from plain (max |diff| {err})")
         check(int(counts_k.sum()) == int((cell_k >= 0).sum()), f"K1 {label}: counts do not add up")
-        check(shared == (grid.cols == 15), f"K1 {label}: wrong histogram path")
+        check(shared == (grid.cols != 256), f"K1 {label}: wrong histogram path")
         launch = K.prepare_assign_count(grid, pos, valid)
         alone[label] = queued_ms(launch.run)
         ms = median_ms(lambda: K.assign_and_count(grid, pos, valid))
@@ -1205,12 +1252,13 @@ def phase_sim_world(K, engine_mod, ops, dev) -> tuple[dict, dict]:
 # standing-query plane and the sim plane at the gateway's defaults
 # (4,096 query rows, 8,192 changed rows, 1,000 agents), 256 followers,
 # 1,024 sensors and subscriptions at 33-200 ms. Cut to fit the script's
-# time: 12,000 entities (the full claim is 50,000: BASELINE #4, the bench's
-# --entities 50000; 20,000 before phase 11 joined) and 12 ticks; the census every ticks // 3 (default
+# time: 6,000 entities (the full claim is 50,000: BASELINE #4, the bench's
+# --entities 50000; 20,000 before phase 11 joined, 12,000 before phase 12)
+# and 12 ticks; the census every ticks // 3 (default
 # 50) so censuses fall inside the run. ``--gateway ENTITIES TICKS`` runs
 # the phase alone at another size.
 GATEWAY_CONFIG = "config/spatial_tpu_benchmark.json"
-GATEWAY_ENTITIES, GATEWAY_TICKS = 12_000, 12
+GATEWAY_ENTITIES, GATEWAY_TICKS = 6_000, 12
 
 
 def gateway_size(entities: int = GATEWAY_ENTITIES, ticks: int = GATEWAY_TICKS) -> dict:
@@ -1298,7 +1346,10 @@ class GatewayConn:
         pass
 
 
-def gateway_modules() -> NS:
+def gateway_modules(pkg: str = "channeld_tpu_torch") -> NS:
+    """The gateway's modules of one package: the port's, or (in the
+    tests, which drive phase 12's soaks through both) a package with the
+    same module names."""
     import importlib
 
     names = dict(channel="core.channel", connection="core.connection", data="core.data",
@@ -1312,12 +1363,15 @@ def gateway_modules() -> NS:
                  metrics="core.metrics",
                  sim_plane="sim.plane", ops="ops.spatial_ops", logger="utils.logger",
                  snapshot="core.snapshot", chaos="chaos", invariants="chaos.invariants",
-                 opshttp="core.opshttp", failover="core.failover")
-    return NS(**{k: importlib.import_module(f"channeld_tpu_torch.{v}") for k, v in names.items()})
+                 opshttp="core.opshttp", failover="core.failover",
+                 spatial_pb2="protocol.spatial_pb2", spatial_messages="spatial.messages")
+    return NS(port=pkg == "channeld_tpu_torch",
+              **{k: importlib.import_module(f"{pkg}.{v}") for k, v in names.items()})
 
 
-def reset_gateway(P) -> None:
-    """Every process-wide registry of the port's gateway back to boot."""
+def reset_gateway(P, keep_census: bool = False) -> None:
+    """Every process-wide registry of the port's gateway back to boot
+    (but a census that a WAL replay staged, with ``keep_census``)."""
     P.channel.reset_channels()
     P.connection.reset_connections()
     P.data.reset_registries()
@@ -1331,7 +1385,8 @@ def reset_gateway(P) -> None:
     P.wal.reset_wal()
     P.slo.reset_slo()
     P.tracing.reset_tracing()
-    P.sim_plane.reset_sim()
+    if not keep_census:
+        P.sim_plane.reset_sim()
     P.events.reset_all()
     P.settings.reset_global_settings()
 
@@ -1615,7 +1670,8 @@ def first_gateway_diff(a: dict, b: dict) -> Optional[str]:
     """The first observation of one tick that differs between the legs,
     with its detail (None when the tick is equal)."""
     for key in ("handovers", "tables", "q", "sim", "census", "guard", "served", "ladder",
-                "overflow", "undelivered", "recovery", "elastic", "cell_msgs"):
+                "overflow", "undelivered", "recovery", "elastic", "cell_msgs", "ledgers",
+                "subs", "callbacks", "standing", "ran"):
         if a.get(key) != b.get(key):
             if key == "handovers":
                 i = next((i for i, (x, y) in enumerate(zip(a[key], b[key])) if x != y),
@@ -2693,10 +2749,11 @@ def phase_mesh_gateway(K, size: dict = MESH_GATEWAY) -> dict:
 
 # 8a: an engine's dedicated servers on config4's world, cut by the
 # phase's time as 6a is (~0.08-0.16 ms per moving entity channel and
-# tick on the card's host): 10,000 objects x 12 ticks. 8b: the Unreal
+# tick on the card's host): 5,000 objects x 12 ticks (10,000 before
+# phase 12 joined). 8b: the Unreal
 # types, 1,000 objects x 6 ticks. ``--engine-adapter OBJECTS TICKS``
 # runs 8a alone at another size.
-ENGINE_OBJECTS, ENGINE_TICKS = 10_000, 12
+ENGINE_OBJECTS, ENGINE_TICKS = 5_000, 12
 UNREAL_OBJECTS, UNREAL_TICKS = 1_000, 6
 
 
@@ -3221,13 +3278,14 @@ def fault_ticks_scenario(error_tick: int, hang_tick: int, nan_tick: int,
 # 10a: phase 6a's world (config4, the gateway's default capacities, the
 # storms, followers, sensors, clients and the sim plane) on the device
 # soak's schedule, card leg against CPU leg under one fixed clock. Cut to
-# 6,000 entities (10,000 before phase 11 joined) to fit the script's time;
+# 3,000 entities (10,000 before phase 11 joined, 6,000 before phase 12) to
+# fit the script's time;
 # 30 ticks, as
 # the schedule needs on a 33 ms clock: the transient errors' 100 + 200 ms
 # backoffs hold ticks 4-6 and 8-13, the hang's failed rebuild its 200 ms
 # backoff (17-22) and the rebuild (23), the corruption's rebuild 26.
 # ``--recovery ENTITIES TICKS`` runs 10a alone at another size.
-RECOVERY_ENTITIES, RECOVERY_TICKS = 6_000, 30
+RECOVERY_ENTITIES, RECOVERY_TICKS = 3_000, 30
 RECOVERY_FAULT_TICKS = (3, 16, 26)  # transient errors, hang, corruption: each on a storm tick
 RECOVERY_DEADLINE_S = 2.0  # device_step_deadline_s on both legs, the gateway's default
 RECOVERIES = {"transient": 1, "hang": 1, "corruption": 1}
@@ -3975,9 +4033,9 @@ def phase_recovery_live(dev_args=(), deadline_s: float = 180.0,
 # half the entities. Both on the port's copy of scripts/density_soak.py's
 # phases (``elastic_scenario``), 120 ticks of the fixed 33 ms clock. Cut
 # from 4,000 and 2,000 entities (283 s and 152 s on the card's host) to
-# 1,500 and 750 by the script's time. ``--elastic ENTITIES TICKS`` runs
+# 800 and 400 by the script's time (1,500 and 750 before phase 12). ``--elastic ENTITIES TICKS`` runs
 # 11a and 11b alone.
-ELASTIC_ENTITIES, ELASTIC_TICKS = 1_500, 120
+ELASTIC_ENTITIES, ELASTIC_TICKS = 800, 120
 ELASTIC_CELLS_CONFIG = "config/spatial_tpu_cells_2x2.json"
 ELASTIC_STALL_MS = 3500.0  # the hang on the re-planned split's commit tick, past the 2 s deadline
 CELL_MSG_TYPES = (25, 26, 28)  # CellRehostedMessage, CellMigratedMessage, CellGeometryUpdateMessage
@@ -4641,6 +4699,924 @@ def phase_elastic_live(dev_args=(), deadline_s: float = 180.0, size: dict = ELAS
         shutil.rmtree(scratch, ignore_errors=True)
 
 
+# ---- phase 12: the device-resident populations under churn and chaos --------
+#
+# The port's copies of scripts/sim_soak.py's and scripts/sensor_soak.py's
+# worlds and schedules, with the soaks' own knobs and the device tables at
+# the gateway's defaults (1<<17 entity slots, 4,096 query rows). 12a: the
+# sim soak's phases with the -sim-agents default of 1,000 agents and 160
+# tracked humans (about the soak's 96:16); 12b: the sensor soak's
+# registrations x16 (4,096 entities; 768 follows, 768 clients, 384 sensors:
+# 1,920 standing queries). ``--soaks AGENTS ENTITIES`` runs both alone.
+SOAK_AGENTS, SOAK_ENTITIES = 1_000, 4_096
+SIM_SOAK_SEED = 20260807  # scripts/sim_soak.py's
+SENSOR_SOAK_SEED = 1919  # scripts/sensor_soak.py's
+AGENT_BASE = 0x80000 + (1 << 22)  # entity_channel_id_start + the sim plane's AGENT_ID_OFFSET
+HUMAN_BASE, SENSOR_ENTITY_BASE, FIRST_CLIENT = 0x90000, 0xA0000, 100
+SUPERSET_CLIENTS = 8  # the sensor soak's superset check: its last 8 live clients
+
+
+def soak_grid(cols: int, rows: int) -> dict:
+    """The soaks' geometry: cols x rows cells of 100 m from the origin, one
+    server, border 1."""
+    return dict(WorldOffsetX=0, WorldOffsetZ=0, GridWidth=100, GridHeight=100, GridCols=cols,
+                GridRows=rows, ServerCols=1, ServerRows=1, ServerInterestBorderSize=1)
+
+
+def sim_soak_scenario(agents: int = SOAK_AGENTS, humans: Optional[int] = None,
+                      ticks: tuple = (60, 50, 12, 12), census_every: int = 4,
+                      slots: int = 1 << 17, queries: int = 4096) -> dict:
+    """scripts/sim_soak.py's world and phases: 4x1 cells, the sim plane
+    (max speed 20, step 0.25, p_wander 0.5, a census every
+    ``census_every`` passes, seed 20260807), the guard with a 1 ms retry
+    backoff; ``ticks`` ticks each of steady, stampede (``sim.stampede``
+    once), guard (``sim.step_nan`` once) and epoch (a same-grid
+    ``apply_grid`` first); the kill leg stops its child after 2 censuses.
+    ``humans`` defaults to agents * 4 // 25."""
+    seed = SIM_SOAK_SEED
+    return dict(
+        grid=soak_grid(4, 1), agents=agents, census_every=census_every, child_censuses=2,
+        humans=agents * 4 // 25 if humans is None else humans,
+        settings=dict(tpu_entity_capacity=slots, tpu_query_capacity=queries, sim_enabled=True,
+                      sim_agents=agents, sim_seed=seed & 0xFFFFFFFF,
+                      sim_census_every_ticks=census_every, sim_max_speed=20.0, sim_step_dt=0.25,
+                      sim_p_wander=0.5, device_guard_enabled=True, device_retry_backoff_ms=1,
+                      device_step_deadline_s=GATEWAY_DEADLINE_S),
+        phases=(("steady", ticks[0], None),
+                ("stampede", ticks[1], {"seed": seed, "faults": [
+                    {"point": "sim.stampede", "every_n": 1, "max_fires": 1}]}),
+                ("guard", ticks[2], {"seed": seed + 1, "faults": [
+                    {"point": "sim.step_nan", "every_n": 1, "max_fires": 1}]}),
+                ("epoch", ticks[3], None)))
+
+
+def sensor_soak_scenario(entities: int = SOAK_ENTITIES, ticks: int = 90,
+                         scale: Optional[int] = None, slots: int = 1 << 17,
+                         queries: int = 4096) -> dict:
+    """scripts/sensor_soak.py's world and schedule: 8x8 cells, the sim
+    plane pinned off; ``entities`` tracked entities, a tenth moved each
+    tick; 48, 48 and 24 x ``scale`` follows, clients (queries sent through
+    the UpdateSpatialInterestMessage handler) and sensors (the first with
+    a callback); ``scale`` clients close and as many arrive on ticks with
+    t % 7 == 3, ``scale`` live clients re-issue a moved query on
+    t % 11 == 5; a rebuild at ticks // 3 and a same-grid epoch at
+    2 * ticks // 3. ``scale`` defaults to entities // 256 (the soak's own
+    is 256 entities at scale 1)."""
+    k = max(1, entities // 256) if scale is None else scale
+    return dict(grid=soak_grid(8, 8), world=800.0, entities=entities, ticks=ticks,
+                follows=48 * k, clients=48 * k, sensors=24 * k, churn=k,
+                rebuild=ticks // 3, epoch=2 * ticks // 3,
+                settings=dict(tpu_entity_capacity=slots, tpu_query_capacity=queries,
+                              sim_enabled=False, device_step_deadline_s=GATEWAY_DEADLINE_S))
+
+
+def host(x) -> np.ndarray:
+    """A device array of either package as numpy."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def census_hash(eng) -> str:
+    """scripts/sim_soak.py's census digest: rows sorted by agent id, every
+    kinematic column of the host shadow, and the RNG cursor."""
+    slots = eng.agent_slots()
+    ids = np.asarray(eng.agent_ids(slots), np.uint32)
+    order = np.argsort(ids, kind="stable")
+    h = hashlib.sha256(ids[order].tobytes())
+    for col, dtype in ((eng._positions, np.float32), (eng._vel, np.float32),
+                       (eng._sim_state, np.int32), (eng._sim_target, np.float32)):
+        h.update(np.asarray(col[slots], dtype)[order].tobytes())
+    h.update(int(eng.sim_tick).to_bytes(8, "little"))
+    return h.hexdigest()
+
+
+def sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+class SoakWorld:
+    """A soak's world on one device, built and driven as scripts/sim_soak.py
+    and scripts/sensor_soak.py build and drive theirs: the controller
+    loaded from the soak's grid, one stub server subscribed to every cell,
+    each tick the controller's ``tick`` and then every spatial channel's
+    ``tick_once(0)``, on a fixed clock. ``P`` is the port's modules (or,
+    in the tests, the JAX package's). Records each tick's handovers and
+    engine ticks, the guarded step's and each guard rebuild's host time,
+    and, with ``K`` on the card, each tick's kernel launches and device
+    reads. ``checks`` collects the soak's invariants as (name, held,
+    detail)."""
+
+    def __init__(self, P, dev: torch.device, clock, scn: dict, K=None, wal_path: str = "",
+                 restore: bool = False):
+        self.P, self.dev, self.clock, self.scn, self.K = P, dev, clock, scn, K
+        reset_gateway(P, keep_census=restore)
+        P.tracing.recorder.enabled = False  # no anomaly dumps from the ladder's pins
+        s = P.settings.global_settings
+        s.development = True
+        if P.port:
+            s.spatial_device = dev.type
+        for name, value in scn["settings"].items():
+            setattr(s, name, value)
+        P.message.init_message_map()
+        P.channel.init_channels()
+        P.sim_models.register_sim_types()
+        if wal_path:
+            s.wal_fsync_ms = 1.0
+            P.wal.wal.start(wal_path)
+        ctl = self.ctl = P.controller._controller_registry["TPUSpatialController"]()
+        ctl.load_config(dict(scn["grid"]))
+        P.controller.set_spatial_controller(ctl)
+        self.eng = ctl.engine
+        if P.port:
+            check(self.eng.device.type == dev.type, f"the engine is on {self.eng.device}, not {dev}")
+        server = GatewayConn(P, 1, "SERVER")
+        self.conns = [server]
+        ctx = P.message.MessageContext(msg_type=P.types.MessageType.CREATE_CHANNEL,
+                                       msg=P.control_pb2.CreateChannelMessage(),
+                                       connection=server)
+        self.channels = ctl.create_channels(ctx)
+        for ch in self.channels:
+            P.sub.subscribe_to_channel(server, ch, None)
+        self.handovers, self.step_ms, self.rebuild_ms, self.checks = [], [], [], []
+        self.engine_ticks = 0
+        self._wrap()
+
+    def _wrap(self) -> None:
+        guard, eng = self.P.guard, self.eng
+        dispatch, body = guard.guard._dispatch, guard.DeviceGuard._rebuild_body
+        handover_list, tick = eng.handover_list, eng.tick
+
+        def timed_dispatch(engine):
+            t0 = time.perf_counter()
+            try:
+                return dispatch(engine)
+            finally:
+                self.step_ms.append((time.perf_counter() - t0) * 1e3)
+
+        def timed_body(*args):
+            t0 = time.perf_counter()
+            try:
+                return body(*args)
+            finally:
+                self.rebuild_ms.append((time.perf_counter() - t0) * 1e3)
+
+        def recorded_handovers(result):
+            rows = handover_list(result)
+            self.handovers.append(rows)
+            return rows
+
+        def counted_tick(*args, **kwargs):
+            self.engine_ticks += 1
+            return tick(*args, **kwargs)
+
+        guard.guard._dispatch = timed_dispatch
+        guard.DeviceGuard._rebuild_body = staticmethod(timed_body)
+        eng.handover_list, eng.tick = recorded_handovers, counted_tick
+        self._unwrap = lambda: (delattr(guard.guard, "_dispatch"),
+                                setattr(guard.DeviceGuard, "_rebuild_body", staticmethod(body)))
+
+    def expect(self, name: str, ok, detail="") -> None:
+        self.checks.append((name, bool(ok), str(detail)[:300]))
+
+    def drive(self, t: int) -> None:
+        pass
+
+    def observe(self) -> dict:
+        return {}
+
+    def report(self) -> dict:
+        return {}
+
+    def tick(self, t: int) -> dict:
+        """One soak tick; returns what it produced (digests) and its costs."""
+        P, eng, K = self.P, self.eng, self.K
+        self.clock.advance(GATEWAY_TICK_S)
+        self.drive(t)
+        cuda = self.dev.type == "cuda"
+        steps, crossings, ran = len(self.step_ms), len(self.handovers), self.engine_ticks
+        before = K.launch_counts() if K is not None else None
+        guard = P.guard.guard
+        state, failures = guard.state.name, dict(guard.failure_counts)
+        sync(self.dev)
+        eng.last_result = None  # set again only by a step the guard serves
+        with (Reads() if cuda else contextlib.nullcontext()) as reads:
+            t0 = time.perf_counter()
+            self.ctl.tick()
+            for ch in self.channels:
+                ch.tick_once(0)
+            t1 = time.perf_counter()
+        result = eng.last_result
+        q = None
+        if result is not None:
+            count, rows = eng.query_changed_rows(result)
+            q = (count, digest([rows[: min(count, len(rows))]])[0])
+        tables = hashlib.sha256()
+        for ch in self.channels:
+            tables.update(ch.get_data_message().SerializeToString(deterministic=True))
+        obs = dict(
+            handovers=[r for rows in self.handovers[crossings:] for r in rows], q=q,
+            tables=tables.hexdigest(),
+            sent={c.id: (c.count, c.digest.hexdigest()) for c in self.conns},
+            guard=(guard.state.name, dict(guard.recovery_counts), dict(guard.failure_counts),
+                   guard.held_ticks),
+            served=result is not None, census=result is not None and "sim_census" in result,
+            ran=self.engine_ticks - ran, tick_ms=(t1 - t0) * 1e3,
+            step_ms=self.step_ms[steps] if len(self.step_ms) > steps else None,
+            reads=reads.count if cuda else None, syncs=reads.syncs if cuda else None)
+        obs["quiet"] = (obs["served"] and state == "ACTIVE" and guard.state.name == "ACTIVE"
+                        and dict(guard.failure_counts) == failures)
+        obs["steady"] = obs["quiet"] and not obs["census"]
+        if K is not None:
+            obs["launches"] = {n: c - before[n] for n, c in K.launch_counts().items()}
+        obs.update(self.observe())
+        return obs
+
+    def close(self) -> None:
+        self.P.chaos.disarm()
+        self._unwrap()
+        reset_gateway(self.P)
+
+
+class SimSoakWorld(SoakWorld):
+    """12a: scripts/sim_soak.py's world: the sim plane's channel-backed
+    population on 4x1 cells, driven through its four phases by ``run``
+    (the tracked humans seeded first), each tick's sim columns digested
+    (with ``columns``, their agent rows kept). On the card with ``K`` it
+    keeps the live positions after the stampede (the population in one
+    bin) and those the ``sim.step_nan`` rot left (NaN rows) for K1's
+    checks at those shapes."""
+
+    def __init__(self, P, dev, clock, scn: dict, K=None, wal_path: str = "",
+                 restore: bool = False, columns: bool = False):
+        super().__init__(P, dev, clock, scn, K, wal_path, restore)
+        self.plane = self.ctl.simplane
+        self.columns = [] if columns else None
+        self.k1_inputs: dict = {}
+        self.phase_ticks: dict = {}
+        self.epoch_ms = self.stampede_handovers = None
+        if K is not None:
+            eng, corrupt = self.eng, self.eng.corrupt_sim_state_for_chaos
+
+            def kept_corrupt():
+                corrupt()
+                self.k1_inputs["nan"] = (eng._d_positions.clone(), eng._d_valid.clone())
+
+            eng.corrupt_sim_state_for_chaos = kept_corrupt
+
+    def seed_humans(self) -> None:
+        """scripts/sim_soak.py's human-driven entities sharing the world."""
+        P, ctl = self.P, self.ctl
+        rng = np.random.default_rng(SIM_SOAK_SEED)
+        for i in range(self.scn["humans"]):
+            x, z = float(rng.uniform(5, 395)), float(rng.uniform(5, 95))
+            ctl.track_entity(HUMAN_BASE + i, P.controller.SpatialInfo(x, 0.0, z))
+
+    def observe(self) -> dict:
+        eng, plane = self.eng, self.plane
+        cols = [host(c) for c in (eng._d_positions, eng._d_vel, eng._d_sim_state,
+                                  eng._d_sim_target)]
+        if self.columns is not None:
+            slots = eng.agent_slots()
+            self.columns.append([c[slots].copy() for c in cols])
+        return dict(sim=digest(cols), ledgers=(dict(plane.ledgers), dict(plane.authority.ledgers),
+                                               dict(eng.sim_rebuild_counts)))
+
+    def report(self) -> dict:
+        return dict(phase_ticks=dict(self.phase_ticks), agents=self.eng.agent_count(),
+                    handovers=self.stampede_handovers,
+                    recoveries=dict(self.P.guard.guard.recovery_counts),
+                    rebuilds=dict(self.eng.sim_rebuild_counts), ledgers=dict(self.plane.ledgers))
+
+    def exact_census(self, phase: str) -> None:
+        """Every channel-backed agent in exactly one cell table; the device
+        population equal to the authority's set."""
+        eng, backed = self.eng, self.plane.authority._backed
+        rows: dict[int, int] = {}
+        for ch in self.channels:
+            for eid in ch.get_data_message().entities:
+                if eid >= AGENT_BASE:
+                    rows[eid] = rows.get(eid, 0) + 1
+        lost = [e for e in backed if rows.get(e, 0) == 0]
+        duped = [e for e, n in rows.items() if n > 1]
+        self.expect(f"{phase}: zero agents lost from cell tables", not lost, f"lost={lost[:5]}")
+        self.expect(f"{phase}: zero agents duplicated in cell tables", not duped,
+                    f"duped={duped[:5]}")
+        self.expect(f"{phase}: device population intact", eng.agent_count() == len(backed),
+                    f"device={eng.agent_count()} backed={len(backed)}")
+
+    def run(self) -> list:
+        """The soak's phases tick by tick with each phase's invariants and
+        the exact census after each; returns every tick's observation."""
+        P, ctl, eng, plane = self.P, self.ctl, self.eng, self.plane
+        met, guard = P.metrics, P.guard.guard
+        self.seed_humans()
+        census0 = met.sim_census_transfers._value.get()
+        rebuild0 = met.sim_device_rebuilds.labels(result="verified")._value.get()
+        ledger0 = eng.sim_rebuild_counts.get("verified", 0)
+        obs: list = []
+        for name, n, chaos in self.scn["phases"]:
+            ids = set(eng.agent_ids().tolist())
+            h0 = met.handover_count._value.get()
+            r0 = guard.recovery_counts.get("corruption", 0)
+            if name == "epoch":
+                t0 = time.perf_counter()
+                eng.apply_grid(eng.grid, ctl.rebuild_seed_cells())
+                errors = eng.verify_device_state(ctl.rebuild_seed_cells())
+                self.epoch_ms = (time.perf_counter() - t0) * 1e3
+                self.expect("epoch: verify clean after re-home", not errors, errors)
+                self.expect("epoch: population ids exact across epoch",
+                            set(eng.agent_ids().tolist()) == ids, "id set changed")
+            if chaos:
+                P.chaos.arm(chaos)
+            self.phase_ticks[name] = (len(obs), len(obs) + n)
+            for _ in range(n):
+                obs.append(self.tick(len(obs)))
+            if chaos:
+                P.chaos.disarm()
+            led = dict(plane.ledgers)
+            if name == "steady":
+                self.expect("steady: sim passes ran", led.get("sim_passes", 0) >= n, led)
+                self.expect("steady: censuses flowed", led.get("census_transfers", 0) >= 2, led)
+                self.expect("steady: censuses journaled to WAL",
+                            led.get("censuses_journaled", 0) >= 2, led)
+                self.expect("steady: authority commits flowed",
+                            plane.authority.ledgers.get("commits", 0) >= 2,
+                            plane.authority.ledgers)
+                self.expect("steady: census transfer double-entry",
+                            met.sim_census_transfers._value.get() - census0
+                            == led.get("census_transfers", 0),
+                            f"metric {met.sim_census_transfers._value.get()} baseline {census0}")
+            elif name == "stampede":
+                handovers = met.handover_count._value.get() - h0
+                self.stampede_handovers = int(handovers)
+                self.expect("stampede: chaos point fired", led.get("chaos_stampede", 0) == 1, led)
+                self.expect("stampede: crossings flowed through ordinary handover",
+                            handovers > 0, f"handovers={handovers}")
+                if self.K is not None:
+                    self.k1_inputs["one_bin"] = (eng._d_positions.clone(), eng._d_valid.clone())
+            elif name == "guard":
+                self.expect("guard: corruption sentinel recovered",
+                            guard.recovery_counts.get("corruption", 0) == r0 + 1,
+                            guard.recovery_counts)
+                self.expect("guard: device ACTIVE after rebuild", guard.state.name == "ACTIVE",
+                            guard.state)
+                self.expect("guard: population ids exact across rebuild",
+                            set(eng.agent_ids().tolist()) == ids, "id set changed")
+                pos = host(eng._d_positions)[eng.agent_slots()]
+                self.expect("guard: device positions finite", np.isfinite(pos).all(),
+                            "NaN survived rebuild")
+                self.expect("guard: sim rebuild double-entry",
+                            eng.sim_rebuild_counts.get("verified", 0) - ledger0
+                            == met.sim_device_rebuilds.labels(result="verified")._value.get()
+                            - rebuild0, eng.sim_rebuild_counts)
+            self.exact_census(name)
+        return obs
+
+
+class SensorSoakWorld(SoakWorld):
+    """12b: scripts/sensor_soak.py's world: tracked entities on 8x8 cells
+    and the three scopes of standing queries (follows, clients through
+    the interest handler, sensors), churned on the soak's schedule;
+    ``books`` checks its accounting after the run. Each tick's query pass
+    (``queryplane.pump``) is timed on the host's clock."""
+
+    def __init__(self, P, dev, clock, scn: dict, K=None):
+        super().__init__(P, dev, clock, scn, K)
+        P, ctl = self.P, self.ctl
+        ops = P.ops
+        self.plane = ctl.queryplane
+        self.rng = np.random.default_rng(SENSOR_SOAK_SEED)
+        self.eids = []
+        for i in range(scn["entities"]):
+            x, z = self.rand_xz()
+            ctl.track_entity(SENSOR_ENTITY_BASE + i, P.controller.SpatialInfo(x, 0.0, z))
+            self.eids.append(SENSOR_ENTITY_BASE + i)
+        self.next_cid = FIRST_CLIENT
+        for i in range(scn["follows"]):
+            ctl.register_follow_interest(self.new_conn(), self.eids[i % len(self.eids)],
+                                         ops.AOI_SPHERE, extent=(150.0, 0.0))
+        self.clients = []
+        for _ in range(scn["clients"]):
+            conn = self.new_conn()
+            self.send_query(conn, *self.rand_xz())
+            self.clients.append(conn)
+        self.callback_hits = []
+        world = scn["world"]
+        ctl.register_sensor("cb", kind=ops.AOI_SPHERE, center=(world / 2, world / 2),
+                            extent=(200.0, 0.0),
+                            callback=lambda key, cells: self.callback_hits.append(len(cells)))
+        for i in range(scn["sensors"] - 1):
+            ctl.register_sensor(f"s{i}", kind=ops.AOI_BOX if i % 2 else ops.AOI_SPHERE,
+                                center=self.rand_xz(), extent=(90.0, 140.0))
+        self.closed, self.pass_ms, self.epoch_ms = 0, [], None
+        pump = self.plane.pump
+
+        def timed_pump(result, apply=True):
+            t0 = time.perf_counter()
+            try:
+                return pump(result, apply)
+            finally:
+                self.pass_ms.append((time.perf_counter() - t0) * 1e3)
+
+        self.plane.pump = timed_pump
+        # The books' baselines: after registration, before the measured window.
+        self.base = P.invariants.scrape()
+        self.ledgers0 = dict(self.plane.ledgers)
+
+    def rand_xz(self) -> tuple:
+        w = self.scn["world"]
+        return float(self.rng.uniform(0, w)), float(self.rng.uniform(0, w))
+
+    def new_conn(self) -> GatewayConn:
+        conn = GatewayConn(self.P, self.next_cid, "CLIENT")
+        self.next_cid += 1
+        self.P.connection._all_connections[conn.id] = conn
+        self.conns.append(conn)
+        return conn
+
+    def send_query(self, conn, x: float, z: float, r: float = 120.0) -> None:
+        P = self.P
+        msg = P.spatial_pb2.UpdateSpatialInterestMessage(connId=conn.id)
+        msg.query.sphereAOI.center.x, msg.query.sphereAOI.center.z = x, z
+        msg.query.sphereAOI.radius = r
+        P.spatial_messages.handle_update_spatial_interest(P.message.MessageContext(
+            msg_type=P.types.MessageType.UPDATE_SPATIAL_INTEREST, msg=msg, connection=conn))
+
+    def drive(self, t: int) -> None:
+        scn, ctl, eng = self.scn, self.ctl, self.eng
+        SpatialInfo = self.P.controller.SpatialInfo
+        for eid in self.rng.choice(self.eids, max(1, len(self.eids) // 10), replace=False).tolist():
+            x, z = self.rand_xz()
+            ctl.track_entity(eid, SpatialInfo(x, 0.0, z))
+        if t % 7 == 3:
+            for _ in range(min(scn["churn"], len(self.clients))):
+                gone = self.clients.pop(0)
+                gone.close()
+                self.closed += 1
+                conn = self.new_conn()
+                self.send_query(conn, *self.rand_xz())
+                self.clients.append(conn)
+        if t % 11 == 5:
+            for conn in self.clients[-scn["churn"]:]:
+                self.send_query(conn, *self.rand_xz())
+        if t in (scn["rebuild"], scn["epoch"]):
+            sync(self.dev)
+            t0 = time.perf_counter()
+            if t == scn["rebuild"]:
+                eng.rebuild_device_state(ctl.rebuild_seed_cells())
+            else:
+                eng.apply_grid(eng.grid, ctl.rebuild_seed_cells())
+            sync(self.dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            if t == scn["rebuild"]:
+                self.rebuild_ms.append(ms)
+            else:
+                self.epoch_ms = ms
+
+    def report(self) -> dict:
+        return dict(closed=self.closed, standing=self.plane.count(),
+                    callbacks=len(self.callback_hits), ledgers=dict(self.plane.ledgers),
+                    pass_ms=list(self.pass_ms), clients=len(self.clients))
+
+    def observe(self) -> dict:
+        subs = [(c.id, sorted(c.spatial_subscriptions)) for c in self.conns[1:]]
+        return dict(ledgers=dict(self.plane.ledgers), subs=digest([np.array(
+            [v for cid, chs in subs for v in (cid, len(chs), *chs)], np.int64)])[0],
+            callbacks=len(self.callback_hits), standing=self.plane.count())
+
+    def superset(self, conns) -> list:
+        """The clients among ``conns`` whose host answer
+        (``query_channel_ids`` of their standing query) is not a subset of
+        their device-driven subscriptions."""
+        bad = []
+        for conn in conns:
+            entry = self.plane._entries.get(conn.id)
+            if entry is None:
+                bad.append((conn.id, "no standing row"))
+                continue
+            q = self.P.spatial_pb2.SpatialInterestQuery()
+            q.sphereAOI.center.x, q.sphereAOI.center.z = entry["center"]
+            q.sphereAOI.radius = entry["extent"][0]
+            missing = set(self.ctl.query_channel_ids(q)) - set(conn.spatial_subscriptions)
+            if missing:
+                bad.append((conn.id, sorted(missing)[:4]))
+        return bad
+
+    def books(self, ticks: int, every_client: bool) -> None:
+        """The sensor soak's invariants over the ``ticks`` ticks run; the
+        superset check over its last 8 live clients and, with
+        ``every_client``, over every live one."""
+        inv, plane = self.P.invariants, self.plane
+        d = inv.delta(inv.scrape(), self.base)
+        led = {k: plane.ledgers[k] - self.ledgers0.get(k, 0) for k in plane.ledgers}
+        self.expect("one_transfer_per_tick", led["transfers"] == ticks, led)
+        self.expect("transfers_ledger_matches_metric",
+                    led["transfers"] == inv.sample_total(d, "query_plane_transfers_total"), led)
+        self.expect("rows_changed_ledger_matches_metric",
+                    led["rows_changed"] == inv.sample_total(d, "query_rows_changed_total"), led)
+        self.expect("full_resyncs_ledger_matches_metric",
+                    led["full_resyncs"] == inv.sample_total(d, "query_full_resyncs_total"), led)
+        self.expect("rebuild_and_epoch_each_full_resynced", led["full_resyncs"] == 2, led)
+        self.expect("pass_timed_every_tick",
+                    inv.sample_total(d, "query_pass_ms_count") == ticks,
+                    inv.sample_total(d, "query_pass_ms_count"))
+        self.expect("churned_rows_reaped", plane.ledgers["reaped"] == self.closed,
+                    (plane.ledgers["reaped"], self.closed))
+        scopes = {"follow": 0, "client": 0, "sensor": 0}
+        for e in plane._entries.values():
+            scopes[e["scope"]] += 1
+        live = inv.scrape()
+        for scope, n in scopes.items():
+            got = inv.sample_total(live, "standing_queries", scope=scope)
+            self.expect(f"standing_queries_gauge_matches_registry_{scope}", got == n, (got, n))
+        self.expect("sensor_callback_fired", len(self.callback_hits) > 0, len(self.callback_hits))
+        self.expect("rows_flowed", led["rows_changed"] > 0, led)
+        bad = self.superset(self.clients[-SUPERSET_CLIENTS:])
+        self.expect("client_query_subs_superset_of_host", not bad, bad)
+        if every_client:
+            bad = self.superset(self.clients)
+            self.expect("every_live_client_subs_superset_of_host", not bad, bad[:4])
+        conns = self.P.connection._all_connections
+        held = [k for k in range(FIRST_CLIENT, self.next_cid)
+                if (c := conns.get(k)) is not None and c.is_closing() and k in plane._entries]
+        self.expect("closed_clients_hold_no_rows", not held, held[:5])
+
+
+def run_soak_legs(K, dev, make_world, run) -> tuple:
+    """One soak on the card (counted launches) and then on the CPU, each in
+    a fresh gateway on a fixed clock; returns ({leg: observations},
+    {leg: report}), the report holding ``run``'s result and the world's
+    checks, timings and counts."""
+    legs, report = {}, {}
+    for leg, leg_dev in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        t_leg = time.perf_counter()
+        with FixedClock() as clock:
+            world = make_world(leg, leg_dev, clock)
+            if leg == "cuda":
+                K.reset_launch_counts()
+            obs = run(world)
+            r = dict(checks=list(world.checks), engine_ticks=world.engine_ticks,
+                     step_ms=list(world.step_ms), rebuild_ms=list(world.rebuild_ms),
+                     epoch_ms=world.epoch_ms, world=world.report())
+            if leg == "cuda":
+                r["launches"] = K.launch_counts()
+            world.close()
+            del world
+        r["secs"] = time.perf_counter() - t_leg
+        legs[leg], report[leg] = obs, r
+    return legs, report
+
+
+def check_soak_legs(K, label: str, legs: dict, report: dict, census_extra: int) -> list:
+    """Card equal to CPU on every tick; every invariant held on both legs;
+    each kernel launched once on every tick the engine ran and never
+    otherwise (once per engine tick in all); 2 reads per steady tick and
+    ``census_extra`` more on a census tick. Returns the census ticks."""
+    card, cpu = legs["cuda"], legs["cpu"]
+    check(len(card) == len(cpu), f"{label}: {len(card)} card ticks, {len(cpu)} cpu ticks")
+    for t in range(len(card)):
+        where = first_gateway_diff(card[t], cpu[t])
+        if where is not None:
+            print(f"MISMATCH {label} tick {t}: {where}")
+        check(where is None, f"{label} tick {t}: cuda and cpu differ: {where}")
+    for leg in ("cuda", "cpu"):
+        failed = [c for c in report[leg]["checks"] if not c[1]]
+        for name, _, detail in failed:
+            print(f"INVARIANT FAILED {label} {leg}: {name}: {detail}")
+        check(not failed, f"{label} {leg}: {len(failed)} invariants failed, first "
+                          f"{failed[:1]}")
+    r = report["cuda"]
+    for t, o in enumerate(card):
+        want = {name: o["ran"] for name in o["launches"]}
+        check(o["launches"] == want and o["ran"] <= 1,
+              f"{label} tick {t}: launches {o['launches']} with {o['ran']} engine ticks")
+    for name, count in r["launches"].items():
+        check(count == r["engine_ticks"] > 0, f"{label}: kernel {name} launched {count} times in "
+                                              f"{r['engine_ticks']} engine ticks")
+    census = [t for t, o in enumerate(card) if o["census"]]
+    steady = [t for t, o in enumerate(card) if t and o["steady"]]
+    reads = sorted({card[t]["reads"] for t in steady})
+    check(reads == [2], f"{label}: device reads per steady tick {reads}, not 2")
+    if census_extra:
+        extra = sorted({card[t]["reads"] - 2 for t in census if card[t]["quiet"]})
+        check(extra == [census_extra], f"{label}: census ticks read {extra} more than a steady "
+                                       f"tick, not {census_extra}")
+    return census
+
+
+def soak_live_kernels(K, grid, pos, valid, qs) -> dict:
+    """K1 (and, given the query rows ``qs``, K2) against the plain version
+    on a soak's live tensors, exact, with each alone (bare launches,
+    events), its plain version and its bound. Uncounted."""
+    def measure():
+        n, c = pos.shape[0], grid.num_cells
+        err1 = max_abs_diff(zip(K.assign_and_count(grid, pos, valid),
+                                K.assign_and_count_plain(grid, pos, valid)))
+        check(err1 == 0, f"K1 on the soak's live tensors ({n} x {c}): |diff| {err1}")
+        counts = K.assign_and_count_plain(grid, pos, valid)[1]
+        b1, by1 = bound_ms(pos.numel() * 4 + n + 4 * n + 4 * c, ASSIGN_OPS_PER_SLOT * n)
+        out = {"assign_count": dict(
+            shape=f"{n} slots x {c} bins", max_abs_err=err1, bound_ms=b1, bound_by=by1,
+            placed=int(counts.sum()), top_bin=int(counts.max()),
+            nan_rows=int(torch.isnan(pos[:, 0]).sum()),
+            ms=queued_ms(K.prepare_assign_count(grid, pos, valid).run),
+            plain_ms=median_ms(lambda: K.assign_and_count_plain(grid, pos, valid), reps=20,
+                               warmup=2), library_ms=None)}
+        if qs is not None:
+            args = (qs.kind, qs.center, qs.extent, qs.direction, torch.cos(qs.angle))
+            err2 = max_abs_diff(zip(K.aoi_tile(grid, *args), K.aoi_tile_plain(grid, *args)))
+            check(err2 == 0, f"K2 on the soak's live query rows: |diff| {err2}")
+            q = args[0].shape[0]
+            b2, by2 = bound_ms(q * (4 + 3 * 8 + 4) + q * c * 5,
+                               AOI_OPS_PER_PAIR * q * c
+                               + AOI_OPS_PER_AXIS * q * (grid.cols + grid.rows))
+            out["aoi"] = dict(
+                shape=f"{q} x {c} pairs", max_abs_err=err2, bound_ms=b2, bound_by=by2,
+                live_rows=int((qs.kind != 0).sum()),
+                ms=queued_ms(K.prepare_aoi(grid, *args, 0, c).run),
+                plain_ms=median_ms(lambda: K.aoi_tile_plain(grid, *args), reps=20, warmup=2),
+                library_ms=None)
+        return out
+
+    return uncounted(K, measure)
+
+
+def sim_soak_replay(P, dev: torch.device, scn: dict, wal_path: str, last: dict) -> dict:
+    """A restarted gateway on ``dev``: a fresh runtime replays the child's
+    WAL at boot and the sim plane takes the staged census at activation
+    (scripts/sim_soak.py's kill9_phase); the restored population must
+    hash as the child's last journaled census, then keep stepping."""
+    reset_gateway(P)
+    P.message.init_message_map()
+    P.channel.init_channels()
+    P.sim_models.register_sim_types()
+    t0 = time.perf_counter()
+    rep = P.wal.boot_replay("", wal_path)
+    replay_s = time.perf_counter() - t0
+    replayed = dict(P.wal.wal.replay_counts)
+    n, tick = int(last["n"]), int(last["tick"])
+    with FixedClock() as clock:
+        t0 = time.perf_counter()
+        world = SimSoakWorld(P, dev, clock, scn, restore=True)
+        boot_s = time.perf_counter() - t0
+        eng = world.eng
+        restored = census_hash(eng)
+        world.expect("kill9: WAL replay clean", rep["wal_records"] > 0 and not rep["torn"], rep)
+        world.expect("kill9: restored census bit-identical to last journaled",
+                     restored == last["hash"], f"restored {restored[:16]} journaled "
+                                               f"{last['hash'][:16]}")
+        world.expect("kill9: population count exact", eng.agent_count() == n,
+                     f"{eng.agent_count()} != {n}")
+        world.expect("kill9: sim clock resumed", eng.sim_tick == tick, f"{eng.sim_tick} != {tick}")
+        world.expect("kill9: replay counter double-entry", replayed.get("sim_census", 0) == n,
+                     replayed)
+        for t in range(scn["census_every"] + 1):
+            world.tick(t)
+        world.expect("kill9: restored world keeps stepping", eng.sim_tick > tick, eng.sim_tick)
+        world.exact_census("kill9")
+        checks = list(world.checks)
+        world.close()
+    failed = [c for c in checks if not c[1]]
+    check(not failed, f"12a kill leg on {dev.type}: {failed}")
+    return dict(hash=restored, replay_s=replay_s, boot_s=boot_s, records=rep["wal_records"])
+
+
+def sim_soak_kill(scn: dict, scratch: str, dev: torch.device) -> dict:
+    """12a's kill leg: ``--sim-child`` on ``dev`` (the card) journals
+    censuses to a WAL and is SIGKILLed after ``child_censuses`` of them;
+    the WAL is then replayed on ``dev`` and on the CPU."""
+    import os
+    import queue
+    import signal
+    import threading
+
+    wal_path, log_path = f"{scratch}/child.wal", f"{scratch}/child.log"
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-u", os.path.join(here, "chip_smoke.py"), "--sim-child", wal_path,
+           str(scn["agents"]), str(scn["census_every"]), dev.type]
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        child = subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE, stderr=log, text=True)
+    lines: queue.Queue = queue.Queue()
+
+    def read_lines():
+        for ln in child.stdout:
+            lines.put(ln)
+        lines.put("")  # end of its output
+
+    threading.Thread(target=read_lines, daemon=True).start()
+    censuses, ready_s = [], None
+    try:
+        while len(censuses) < scn["child_censuses"]:
+            try:
+                line = lines.get(timeout=max(1.0, 300.0 - (time.perf_counter() - t0)))
+            except queue.Empty:
+                line = None
+            if not line:
+                with open(log_path) as f:
+                    tail = f.read()[-2000:]
+                check(False, f"12a child: {len(censuses)} censuses before it "
+                             f"{'died' if line == '' else 'timed out'} (exit {child.poll()}); "
+                             f"its log ends: {tail}")
+            if line.startswith("READY"):
+                ready_s = time.perf_counter() - t0
+            elif line.startswith("CENSUS "):
+                censuses.append(dict(kv.split("=") for kv in line.split()[1:]))
+    finally:
+        child.send_signal(signal.SIGKILL)
+        child.wait()
+    killed_s = time.perf_counter() - t0
+    last = censuses[-1]
+    P = gateway_modules()
+    restored = {leg: sim_soak_replay(P, d, scn, wal_path, last)
+                for leg, d in (("cuda", dev), ("cpu", torch.device("cpu")))}
+    return dict(ready_s=ready_s, killed_s=killed_s, censuses=censuses, restored=restored,
+                wal_bytes=os.path.getsize(wal_path))
+
+
+def sim_child(wal_path: str, agents: int = SOAK_AGENTS, census_every: int = 4,
+              device: str = "cuda") -> int:
+    """``--sim-child WAL [AGENTS CENSUS_EVERY [DEVICE]]``: 12a's world
+    (without its humans, as scripts/sim_soak.py's child) on the card,
+    journaling to ``WAL`` until it is SIGKILLed; prints ``READY`` once
+    built and one ``CENSUS tick= n= hash=`` line per journaled census."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    P = gateway_modules()
+    scn = sim_soak_scenario(agents, census_every=census_every)
+    world = SimSoakWorld(P, dev, WallClock(), scn, wal_path=wal_path)
+    eng, plane = world.eng, world.plane
+    print("READY", flush=True)
+    last = 0
+    for t in range(1_000_000):
+        world.tick(t)
+        journaled = plane.ledgers.get("censuses_journaled", 0)
+        if journaled > last:
+            last = journaled
+            P.wal.wal.flush()
+            print(f"CENSUS tick={eng.sim_tick} n={eng.agent_count()} hash={census_hash(eng)}",
+                  flush=True)
+    return 1
+
+
+def phase_sim_soak(K, dev, scn: dict) -> tuple:
+    """12a: the port's copy of scripts/sim_soak.py through the port's
+    controller on the card and on the CPU, tick for tick, each leg held to
+    every invariant of the soak; then the kill leg. Returns (K1/K2
+    launches on this path, the kernels' entries at its shapes)."""
+    import shutil
+    import tempfile
+
+    P = gateway_modules()
+    scratch = tempfile.mkdtemp(prefix="sim-soak-")
+    t_phase = time.perf_counter()
+    entries: dict = {}
+
+    def make(leg, leg_dev, clock):
+        return SimSoakWorld(P, leg_dev, clock, scn, K=K if leg == "cuda" else None,
+                            wal_path=f"{scratch}/{leg}.wal")
+
+    def run(world):
+        obs = world.run()
+        if world.K is not None:
+            eng = world.eng
+            for case, (pos, valid) in world.k1_inputs.items():
+                entries[case] = soak_live_kernels(K, eng.grid, pos, valid, None)
+            entries["queries"] = soak_live_kernels(K, eng.grid, eng._d_positions, eng._d_valid,
+                                                   eng._d_queries)
+        return obs
+
+    try:
+        legs, report = run_soak_legs(K, dev, make, run)
+        census = check_soak_legs(K, "12a", legs, report, census_extra=4)
+        kill = sim_soak_kill(scn, scratch, dev)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    card, r = legs["cuda"], report["cuda"]
+    w = r["world"]
+    check(set(entries) == {"one_bin", "nan", "queries"}, f"12a kernel cases {sorted(entries)}")
+    nan_tick = next(t for t, o in enumerate(card) if o["guard"][1].get("corruption"))
+    for leg in ("cuda", "cpu"):
+        restored = kill["restored"][leg]["hash"]
+        check(restored == kill["censuses"][-1]["hash"], f"12a kill leg: {leg} restored {restored}")
+    print(f"12a sim soak: {len(card)} ticks (steady, stampede, guard, epoch at "
+          f"{ {k: v[0] for k, v in w['phase_ticks'].items()} }) of {w['agents']} agents and "
+          f"{scn['humans']} tracked humans on 4x1 cells ({scn['settings']['tpu_entity_capacity']} "
+          f"slots, {scn['settings']['tpu_query_capacity']} query rows) on cuda equal the CPU leg "
+          f"on every tick: handovers ({sum(len(o['handovers']) for o in card)}; the stampede's "
+          f"{w['handovers']}), cell tables, the server's stream, sim columns bit for bit, the "
+          f"guard, the plane's, authority's and rebuild ledgers; every invariant of the soak on "
+          f"both legs ({len(r['checks'])} checks); sim.step_nan's corruption caught on tick "
+          f"{nan_tick} on both legs, recoveries {w['recoveries']}, sim rebuilds {w['rebuilds']}; "
+          f"census ticks {len(census)}, reads per steady tick 2 and +4 on a census tick; "
+          f"launches {r['launches']} in {r['engine_ticks']} engine ticks of {len(card)}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s (card leg {r['secs']:.1f} s, cpu leg "
+          f"{report['cpu']['secs']:.1f} s)")
+    for leg in ("cuda", "cpu"):
+        obs, rr = legs[leg], report[leg]
+        ph = rr["world"]["phase_ticks"]
+        print(f"12a on {leg}: tick median/p99 " + "; ".join(
+            f"{name} {tick_stats([obs[t]['tick_ms'] for t in range(a, b)])}"
+            for name, (a, b) in ph.items())
+              + f"; guarded step {tick_stats(rr['step_ms'])}; rebuild + verify after "
+              f"sim.step_nan " + ", ".join(f"{ms:.3f}" for ms in rr["rebuild_ms"])
+              + f" ms; same-grid apply_grid + verify {rr['epoch_ms']:.3f} ms")
+    print(f"12a kill leg: the child (--sim-child, cuda) ready after {kill['ready_s']:.1f} s, "
+          f"SIGKILLed after {len(kill['censuses'])} censuses at {kill['killed_s']:.1f} s (last "
+          f"census sim tick {kill['censuses'][-1]['tick']}, {kill['censuses'][-1]['n']} agents, "
+          f"hash {kill['censuses'][-1]['hash'][:16]}); its WAL ({kill['wal_bytes']} bytes) "
+          f"replayed on " + "; ".join(
+              f"{leg}: {x['records']} records in {x['replay_s']:.3f} s, world up in "
+              f"{x['boot_s']:.3f} s, census restored bit for bit"
+              for leg, x in kill["restored"].items()))
+    for case, e in entries.items():
+        for name, k in e.items():
+            print(f"12a {name} on the live tensors ({case}: {k['shape']}"
+                  + (f", {k['placed']} placed, {k['top_bin']} in the fullest bin, "
+                     f"{k['nan_rows']} NaN rows" if name == "assign_count" else
+                     f", {k['live_rows']} live rows")
+                  + f"): exact; alone {k['ms']:.4f} ms (events, bare launches), plain "
+                  f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.5f} ms ({k['bound_by']})")
+    return r["launches"], entries
+
+
+def phase_sensor_soak(K, dev, scn: dict) -> tuple:
+    """12b: the port's copy of scripts/sensor_soak.py through the port's
+    controller on the card and on the CPU, tick for tick, each leg held to
+    every book of the soak. Returns (K1/K2 launches on this path, the
+    kernels' entries at its shapes)."""
+    P = gateway_modules()
+    t_phase = time.perf_counter()
+    entries: dict = {}
+
+    def make(leg, leg_dev, clock):
+        return SensorSoakWorld(P, leg_dev, clock, scn, K=K if leg == "cuda" else None)
+
+    def run(world):
+        obs = [world.tick(t) for t in range(scn["ticks"])]
+        world.books(scn["ticks"], every_client=True)
+        if world.K is not None:
+            eng = world.eng
+            entries["queries"] = soak_live_kernels(K, eng.grid, eng._d_positions, eng._d_valid,
+                                                   eng._d_queries)
+        return obs
+
+    legs, report = run_soak_legs(K, dev, make, run)
+    check_soak_legs(K, "12b", legs, report, census_extra=0)
+    card, r = legs["cuda"], report["cuda"]
+    w = r["world"]
+    print(f"12b sensor soak: {scn['ticks']} ticks of {scn['entities']} tracked entities (a "
+          f"tenth moved a tick) on 8x8 cells with {scn['follows']} follows, {scn['clients']} "
+          f"clients and {scn['sensors']} sensors ({w['standing']} standing queries at the end; "
+          f"{w['closed']} clients closed and as many arrived; rebuild at {scn['rebuild']}, "
+          f"same-grid epoch at {scn['epoch']}) on cuda equal the CPU leg on every tick: changed "
+          f"query rows, the plane's ledgers, every connection's stream and subscriptions, the "
+          f"callback; the soak's books on both legs ({len(r['checks'])} checks, the superset "
+          f"over every live client among them); ledgers {w['ledgers']}; reads per steady tick "
+          f"2; launches {r['launches']} in {r['engine_ticks']} engine ticks; phase "
+          f"{time.perf_counter() - t_phase:.1f} s (card leg {r['secs']:.1f} s, cpu leg "
+          f"{report['cpu']['secs']:.1f} s)")
+    for leg in ("cuda", "cpu"):
+        obs, rr = legs[leg], report[leg]
+        print(f"12b on {leg}: tick {tick_stats([o['tick_ms'] for o in obs])}; guarded step "
+              f"{tick_stats(rr['step_ms'])}; query pass (queryplane.pump) "
+              f"{tick_stats(rr['world']['pass_ms'])}; rebuild {rr['rebuild_ms'][0]:.3f} ms; "
+              f"same-grid apply_grid {rr['epoch_ms']:.3f} ms")
+    for name, k in entries["queries"].items():
+        print(f"12b {name} on the live tensors ({k['shape']}): exact; alone {k['ms']:.4f} ms "
+              f"(events, bare launches), plain {k['plain_ms']:.4f} ms, bound "
+              f"{k['bound_ms']:.5f} ms ({k['bound_by']})")
+    return r["launches"], entries
+
+
+def phase_soaks(K, dev, agents: int = SOAK_AGENTS, entities: int = SOAK_ENTITIES) -> tuple:
+    """12a and 12b. Returns ({path: launches}, {path: kernel entries})."""
+    sim_launches, sim_entries = phase_sim_soak(K, dev, sim_soak_scenario(agents))
+    sensor_launches, sensor_entries = phase_sensor_soak(K, dev, sensor_soak_scenario(entities))
+    return ({"sim_soak": sim_launches, "sensor_soak": sensor_launches},
+            {"sim_soak": sim_entries, "sensor_soak": sensor_entries})
+
+
+def main_soaks(agents: int, entities: int) -> int:
+    """Phase 12 alone (after the device and build phases):
+    ``python3 chip_smoke.py --soaks 1000 4096``."""
+    from channeld_tpu_torch.ops import cuda_kernels as K
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    try:
+        name, _ = phase_device()
+        phase_build(K)
+        phase_soaks(K, dev, agents, entities)
+    except PhaseFailed as e:
+        print(f"FAILED: {e}")
+        return 1
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main_gateway(entities: int, ticks: int) -> int:
     """Phase 6a alone at another size (after the device and build
     phases): ``python3 chip_smoke.py --gateway 50000 30``."""
@@ -4756,6 +5732,10 @@ def main() -> int:
         return main_engine_adapter(int(sys.argv[2]), int(sys.argv[3]))
     if sys.argv[1:2] == ["--elastic"]:
         return main_elastic(int(sys.argv[2]), int(sys.argv[3]))
+    if sys.argv[1:2] == ["--soaks"]:
+        return main_soaks(int(sys.argv[2]), int(sys.argv[3]))
+    if sys.argv[1:2] == ["--sim-child"]:
+        return sim_child(sys.argv[2], *map(int, sys.argv[3:5]), *sys.argv[5:6])
     t_run = time.perf_counter()
     from channeld_tpu_torch.ops import cuda_kernels as K
     from channeld_tpu_torch.ops import engine as engine_mod
@@ -4788,6 +5768,7 @@ def main() -> int:
         elastic_launches, elastic_entries = phase_elastic_lockstep(K, dev, elastic_size())
         elastic_mesh_launches, elastic_mesh_entries = phase_elastic_mesh(K)
         phase_elastic_live()
+        soak_launches, soak_entries = phase_soaks(K, dev)
     except PhaseFailed as e:
         print(f"FAILED: {e}")
         return 1
@@ -4807,7 +5788,8 @@ def main() -> int:
                               "unreal": unreal_launches[spec.name],
                               "recovery": recovery_launches[spec.name],
                               "elastic": elastic_launches[spec.name],
-                              "elastic_mesh": elastic_mesh_launches[spec.name]},
+                              "elastic_mesh": elastic_mesh_launches[spec.name],
+                              **{path: n[spec.name] for path, n in soak_launches.items()}},
             library_ms=None, **entries[spec.name],
             sim_path=dict(sim_entries[spec.name], library_ms=None),
             mesh_path=dict(mesh_entries[spec.name], launches_per_mesh_tick={
@@ -4815,6 +5797,8 @@ def main() -> int:
                 "cells": MESH_SHARDS}),
             elastic_path=elastic_entries.get(spec.name, {}),
             elastic_mesh_path=elastic_mesh_entries.get(spec.name, {}),
+            soak_path={path: {case: e[spec.name] for case, e in cases.items() if spec.name in e}
+                       for path, cases in soak_entries.items()},
         ))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": kernels}))
