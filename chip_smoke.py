@@ -8,6 +8,7 @@
     python3 chip_smoke.py --recovery 10000 30  # phase 10a alone, at another size
     python3 chip_smoke.py --elastic 1500 120   # phases 11a and 11b alone, at another size
     python3 chip_smoke.py --soaks 1000 4096    # phase 12 alone: sim agents, sensor-soak entities
+    python3 chip_smoke.py --trace-obs          # phases 1-3, then phase 13 alone
 
 Needs one CUDA card, nvcc, and the ``channeld_tpu_torch`` package beside
 this file; imports nothing of JAX or of ``channeld_tpu``. Phases (each
@@ -229,7 +230,48 @@ prints one line; any failure exits non-zero before the final line):
       books (one query-plane transfer a tick three ways, rows and resyncs
       equal to their counters, 2 resyncs, the pass observed each tick,
       the scope gauges, the callback, reaped = closed) and every live
-      client's subscriptions a superset of its host answer.
+      client's subscriptions a superset of its host answer;
+13. the trace and obs planes, on the port's copies of
+    scripts/trace_soak.py's and scripts/obs_soak.py's phases 1 and 3, on
+    their cells world (config/spatial_tpu_cells_2x2.json at MeshDevices =
+    min(cards, 8)) with the device tables at the gateway's defaults (1<<17
+    entity slots, 4,096 query rows), the query plane and the sim plane
+    off, so followers take the legacy path (``interest_rows``, the
+    ``readback`` stage):
+   a. lockstep: the trace soak's world in-process on a fixed clock whose
+      ``time.sleep`` moves the clock (a chaos stall costs its tick exactly
+      its stall on both legs): the master and 4 servers, 120 entities
+      jittered every tick, a storm of 40 at 30% dispersed at 70%, 16
+      clients' forwards a tick, 8 followers, the guard off, the recorder
+      on, the soak's chaos with ``every_n`` scaled to 150 ticks; card leg
+      against CPU leg, every tick equal (handovers, tables, every outbound
+      stream, the span names the recorder holds for the tick, the stage
+      counts, ``follower_readbacks_total``, the anomalies, the chaos
+      fires); 2 device reads a tick; K1 and K2 once per shard a tick and
+      exact on the live tensors; each leg's ``tick_budget`` dumps
+      Perfetto-valid with ``device_step`` spans;
+   b. live: the trace soak's phase 1 at its own parameters (20 s, 16
+      clients at 30 msg/s, 120 entities, 8 followers, a storm of 40, its
+      scenario) on an in-process asyncio gateway with TCP listeners on
+      loopback and the engine on ``cuda``: every stage of the GLOBAL tick
+      measured (count, mean, p50, p99 printed), a Perfetto-valid
+      ``tick_budget`` dump, follower readbacks; K1 and K2 once per shard
+      on every engine tick;
+   c. and e. the trace soak's and the obs soak's overhead phases (the
+      recorder, then the SLO plane, on and off tick by tick, 120 x 3, gc
+      off) at their own tables (256 slots, 16 query rows) and at the
+      gateway's defaults: the four ratios printed against the 3% and 2%
+      bars, pass or fail, and the raw span cost; K1 and K2 once a tick,
+      exact on the live tensors;
+   d. live: the obs soak's phase 1 at its own parameters (steady 15 s,
+      breach 12 s, 8 clients, an updater and 4 viewers on a SUBWORLD
+      channel) with the guard on and the ops surface on an ephemeral
+      port: the steady window's delivery p50 and p99 (the < 5 ms verdict
+      printed as measured), the SLO breach and its dump, the ledger equal
+      to ``slo_breaches_total``, /healthz, /introspect, /metrics, the
+      staleness samples, /readyz 200 -> 503 -> 200 across a FAILED set
+      directly (not terminal, F8) and across a wedged WAL, the guard
+      ACTIVE at the end; K1 and K2 once per shard on every engine tick.
 
 The line before the last is a JSON object with one entry per kernel
 (times measured in this run at the sidecar path's shapes; bound from
@@ -241,7 +283,8 @@ shapes of phase 7 with the launches per mesh tick, ``fused_block`` K2's
 fused-centre block of the cells plane beside the unfused launch,
 ``elastic_path``/``elastic_mesh_path`` each kernel at the shapes after
 each re-grid of 11a and 11b, ``soak_path`` each at the live tensors of
-12a's stampede crowd, rotted rows and last tick and 12b's last tick);
+12a's stampede crowd, rotted rows and last tick and 12b's last tick,
+``trace_obs_path`` at 13a's cells shard and 13c's two tables);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -1348,7 +1391,7 @@ class GatewayConn:
 
 def gateway_modules(pkg: str = "channeld_tpu_torch") -> NS:
     """The gateway's modules of one package: the port's, or (in the
-    tests, which drive phase 12's soaks through both) a package with the
+    tests, which drive phases 12 and 13 through both) a package with the
     same module names."""
     import importlib
 
@@ -1364,7 +1407,9 @@ def gateway_modules(pkg: str = "channeld_tpu_torch") -> NS:
                  sim_plane="sim.plane", ops="ops.spatial_ops", logger="utils.logger",
                  snapshot="core.snapshot", chaos="chaos", invariants="chaos.invariants",
                  opshttp="core.opshttp", failover="core.failover",
-                 spatial_pb2="protocol.spatial_pb2", spatial_messages="spatial.messages")
+                 spatial_pb2="protocol.spatial_pb2", spatial_messages="spatial.messages",
+                 server="core.server", protocol="protocol", wire_pb2="protocol.wire_pb2",
+                 anyutil="utils.anyutil")
     return NS(port=pkg == "channeld_tpu_torch",
               **{k: importlib.import_module(f"{pkg}.{v}") for k, v in names.items()})
 
@@ -1389,6 +1434,89 @@ def reset_gateway(P, keep_census: bool = False) -> None:
         P.sim_plane.reset_sim()
     P.events.reset_all()
     P.settings.reset_global_settings()
+
+
+class EntitySim:
+    """scripts/chaos_soak.py's EntitySim against one package's modules: the
+    entities created at seeded positions over the world, a jitter step that
+    walks an eighth of them +-8 m, a storm that marches ``storm_size`` into
+    one cell, and its dispersal."""
+
+    def __init__(self, P, ctl, entities: int, storm_size: int, rng):
+        self.P, self.ctl, self.rng = P, ctl, rng
+        self.entities, self.storm_size = entities, storm_size
+        self.positions: dict[int, tuple[float, float]] = {}
+        self.entity_ids: list[int] = []
+
+    def world_xz(self) -> tuple:
+        c = self.ctl
+        return (c.world_offset_x + 1.0, c.world_offset_z + 1.0,
+                c.world_offset_x + c.grid_width * c.grid_cols - 1.0,
+                c.world_offset_z + c.grid_height * c.grid_rows - 1.0)
+
+    def create_entities(self) -> None:
+        P, ctl = self.P, self.ctl
+        x0, z0, x1, z1 = self.world_xz()
+        estart = P.settings.global_settings.entity_channel_id_start
+        for i in range(self.entities):
+            eid = estart + 1 + i
+            x, z = self.rng.uniform(x0, x1), self.rng.uniform(z0, z1)
+            info = P.controller.SpatialInfo(x, 0, z)
+            cell_ch = P.channel.get_channel(ctl.get_channel_id(info))
+            owner = cell_ch.get_owner()
+            ch = P.channel.create_entity_channel(eid, owner)
+            d = P.sim_pb2.SimEntityChannelData()
+            d.state.entityId = eid
+            d.state.transform.position.x = x
+            d.state.transform.position.z = z
+            ch.init_data(d, None)
+            ch.spatial_notifier = ctl
+            if owner is not None:
+                P.sub.subscribe_to_channel(owner, ch, None)
+            cell_ch.execute(lambda c, e=eid, dd=d: c.get_data_message().add_entity(e, dd))
+            ctl.track_entity(eid, info)
+            self.positions[eid] = (x, z)
+            self.entity_ids.append(eid)
+
+    def _move(self, eid: int, x: float, z: float) -> None:
+        P, ctl = self.P, self.ctl
+        ch = P.channel.get_channel(eid)
+        if ch is None or ch.is_removing():
+            return
+        upd = P.sim_pb2.SimEntityChannelData()
+        upd.state.entityId = eid
+        upd.state.transform.position.x = x
+        upd.state.transform.position.z = z
+
+        def apply(c, u=upd):
+            owner = c.get_owner()
+            c.data.on_update(u, c.get_time(), owner.id if owner is not None else 0, ctl)
+
+        ch.execute(apply)
+        self.positions[eid] = (x, z)
+
+    def jitter_step(self) -> None:
+        x0, z0, x1, z1 = self.world_xz()
+        for eid in self.rng.sample(self.entity_ids, max(1, len(self.entity_ids) // 8)):
+            x, z = self.positions[eid]
+            self._move(eid, min(max(x + self.rng.uniform(-8, 8), x0), x1),
+                       min(max(z + self.rng.uniform(-8, 8), z0), z1))
+
+    def storm_gather(self) -> list:
+        c = self.ctl
+        col, row = self.rng.randrange(c.grid_cols), self.rng.randrange(c.grid_rows)
+        cx = c.world_offset_x + (col + 0.5) * c.grid_width
+        cz = c.world_offset_z + (row + 0.5) * c.grid_height
+        crowd = self.rng.sample(self.entity_ids, min(self.storm_size, len(self.entity_ids)))
+        for eid in crowd:
+            self._move(eid, cx + self.rng.uniform(-c.grid_width * 0.4, c.grid_width * 0.4),
+                       cz + self.rng.uniform(-c.grid_height * 0.4, c.grid_height * 0.4))
+        return crowd
+
+    def disperse(self, crowd: list) -> None:
+        x0, z0, x1, z1 = self.world_xz()
+        for eid in crowd:
+            self._move(eid, self.rng.uniform(x0, x1), self.rng.uniform(z0, z1))
 
 
 class GatewayWorld:
@@ -1498,34 +1626,11 @@ class GatewayWorld:
         check(len(self.spatial) == ctl.grid_cols * ctl.grid_rows, "the servers did not claim the world")
 
     def _entities(self, rng) -> None:
-        P, ctl = self.P, self.ctl
-        x0, z0 = ctl.world_offset_x + 1.0, ctl.world_offset_z + 1.0
-        x1 = ctl.world_offset_x + ctl.grid_width * ctl.grid_cols - 1.0
-        z1 = ctl.world_offset_z + ctl.grid_height * ctl.grid_rows - 1.0
-        self.bounds = (x0, z0, x1, z1)
-        estart = P.settings.global_settings.entity_channel_id_start
-        SpatialInfo = P.controller.SpatialInfo
-        self.positions: dict[int, tuple[float, float]] = {}
-        self.entity_channels = []
-        for i in range(self.size["entities"]):
-            eid = estart + 1 + i
-            x, z = rng.uniform(x0, x1), rng.uniform(z0, z1)
-            info = SpatialInfo(x, 0, z)
-            cell_ch = P.channel.get_channel(ctl.get_channel_id(info))
-            owner = cell_ch.get_owner()
-            ch = P.channel.create_entity_channel(eid, owner)
-            d = P.sim_pb2.SimEntityChannelData()
-            d.state.entityId = eid
-            d.state.transform.position.x = x
-            d.state.transform.position.z = z
-            ch.init_data(d, None)
-            ch.spatial_notifier = ctl
-            P.sub.subscribe_to_channel(owner, ch, None)
-            cell_ch.execute(lambda c, e=eid, dd=d: c.get_data_message().add_entity(e, dd))
-            ctl.track_entity(eid, info)
-            self.positions[eid] = (x, z)
-            self.entity_channels.append(ch)
-        self.entity_ids = list(self.positions)
+        sim = EntitySim(self.P, self.ctl, self.size["entities"], 0, rng)
+        sim.create_entities()
+        self.bounds = sim.world_xz()
+        self.positions, self.entity_ids = sim.positions, sim.entity_ids
+        self.entity_channels = [self.P.channel.get_channel(e) for e in self.entity_ids]
 
     def _clients(self, rng) -> None:
         P, ctl, size = self.P, self.ctl, self.size
@@ -1671,7 +1776,8 @@ def first_gateway_diff(a: dict, b: dict) -> Optional[str]:
     with its detail (None when the tick is equal)."""
     for key in ("handovers", "tables", "q", "sim", "census", "guard", "served", "ladder",
                 "overflow", "undelivered", "recovery", "elastic", "cell_msgs", "ledgers",
-                "subs", "callbacks", "standing", "ran"):
+                "subs", "callbacks", "standing", "ran", "spans", "stages", "readbacks",
+                "anomalies", "fires", "transfers"):
         if a.get(key) != b.get(key):
             if key == "handovers":
                 i = next((i for i, (x, y) in enumerate(zip(a[key], b[key])) if x != y),
@@ -5598,6 +5704,1290 @@ def phase_soaks(K, dev, agents: int = SOAK_AGENTS, entities: int = SOAK_ENTITIES
             {"sim_soak": sim_entries, "sensor_soak": sensor_entries})
 
 
+# ---- phase 13: the trace and obs planes ----------------------------------------
+
+TRACE_SOAK_SEED = 20260803  # scripts/trace_soak.py's
+OBS_SOAK_SEED = 20260804  # scripts/obs_soak.py's
+TRACE_STAGES = ("ingest", "messages", "fanout", "device_step", "readback", "follow_interests",
+                "handover", "overload")
+TRACE_CELLS_CONFIG = "config/spatial_tpu_cells_2x2.json"
+SOAK_TABLES = dict(tpu_entity_capacity=256, tpu_query_capacity=32)  # both soaks' live phase
+OVERHEAD_TABLES = dict(tpu_entity_capacity=256, tpu_query_capacity=16)  # their phase 3
+DEFAULT_TABLES = dict(tpu_entity_capacity=1 << 17, tpu_query_capacity=4096)  # the gateway's
+SERVER_FSM, CLIENT_FSM = "config/server_authoritative_fsm.json", "config/client_authoritative_fsm.json"
+
+
+def trace_scenario(tick_budget_every: int = 300, dispatch_every: int = 200) -> dict:
+    """scripts/trace_soak.py's chaos scenario (seed 20260803): 60 ms stalls in
+    a message handler (a blown tick budget) and 40 ms device-dispatch
+    stalls; ``*_every`` are the rules' ``every_n``."""
+    return {"name": "trace-soak", "seed": TRACE_SOAK_SEED, "faults": [
+        {"point": "channel.tick_budget", "every_n": tick_budget_every, "stall_ms": 60,
+         "max_fires": 6},
+        {"point": "device.dispatch_stall", "every_n": dispatch_every, "stall_ms": 40,
+         "max_fires": 8}]}
+
+
+def obs_scenario() -> dict:
+    """scripts/obs_soak.py's chaos scenario (seed 20260804): 60 ms stalls in
+    message handling every 25th call, the breach window's weather."""
+    return {"name": "obs-soak", "seed": OBS_SOAK_SEED, "faults": [
+        {"point": "channel.tick_budget", "every_n": 25, "stall_ms": 60, "max_fires": 60}]}
+
+
+def trace_params(**kw) -> dict:
+    """scripts/trace_soak.py's TraceSoakParams for its phases 1 and 3."""
+    return dict(dict(live_s=20.0, clients=16, msg_rate=30.0, entities=120, followers=8,
+                     storm_size=40, quiesce_s=3.0, overhead_ticks=120, overhead_rounds=3,
+                     seed=TRACE_SOAK_SEED, scenario=trace_scenario()), **kw)
+
+
+def obs_params(**kw) -> dict:
+    """scripts/obs_soak.py's ObsSoakParams for its phases 1 and 3."""
+    return dict(dict(steady_s=15.0, breach_s=12.0, clients=8, msg_rate=20.0, viewers=4,
+                     update_rate=40.0, entities=48, warmup_s=6.0, quiesce_s=2.0,
+                     overhead_ticks=120, overhead_rounds=3, seed=OBS_SOAK_SEED,
+                     scenario=obs_scenario()), **kw)
+
+
+def trace_lockstep_scenario(ticks: int = 150, entities: int = 120,
+                            followers: int = 8, clients: int = 16, storm: int = 40,
+                            tables: dict = DEFAULT_TABLES) -> dict:
+    """13a: the trace soak's live world on a fixed clock. Each tick every
+    client sends one forward (30 msg/s is about one a 33 ms tick) and an
+    eighth of the entities take a jitter step; the storm gathers at 30% of
+    the run and disperses at 70%. The chaos rules keep the soak's stalls
+    with ``every_n`` scaled to this run's calls (one ``channel.tick_budget``
+    call per handled message, one ``device.dispatch_stall`` call per
+    controller tick), so each can fire 4 times."""
+    calls = ticks * (max(1, entities // 8) + clients)
+    return dict(ticks=ticks, entities=entities, followers=followers, clients=clients,
+                storm=storm, storm_at=int(ticks * 0.3), disperse_at=int(ticks * 0.7),
+                tables=dict(tables), seed=TRACE_SOAK_SEED,
+                chaos=trace_scenario(min(300, max(1, calls // 4)), min(200, max(1, ticks // 4))))
+
+
+def cells_config(n_dev: int, scratch: str) -> str:
+    """A copy of config/spatial_tpu_cells_2x2.json with MeshDevices = n_dev
+    (the cards present bound it: F10)."""
+    import os
+
+    with open(TRACE_CELLS_CONFIG) as f:
+        cfg = json.load(f)
+    cfg["Config"]["MeshDevices"] = n_dev
+    path = os.path.join(scratch, "spatial_tpu_cells_2x2.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def soak_pins(P, dev, tables: dict, subworld: Optional[tuple] = None) -> None:
+    """Both soaks' pins: the balancer, partitioning, the ladder, the query
+    plane and the sim plane off, no federation; channel intervals GLOBAL
+    33/50 ms, SPATIAL and ENTITY 50/100 ms (tick / fan-out), SUBWORLD
+    ``subworld``; the device tables ``tables``; the engine on ``dev``."""
+    s = P.settings.global_settings
+    s.development = True
+    if P.port:
+        s.spatial_device = dev.type
+    s.balancer_enabled = s.partition_enabled = False
+    s.overload_enabled = s.queryplane_enabled = s.sim_enabled = False
+    s.federation_config = ""
+    for name, value in tables.items():
+        setattr(s, name, value)
+    cs, ct = P.settings.ChannelSettings, P.types.ChannelType
+    s.channel_settings = {
+        ct.GLOBAL: cs(tick_interval_ms=33, default_fanout_interval_ms=50),
+        ct.SPATIAL: cs(tick_interval_ms=50, default_fanout_interval_ms=100),
+        ct.ENTITY: cs(tick_interval_ms=50, default_fanout_interval_ms=100)}
+    if subworld is not None:
+        s.channel_settings[ct.SUBWORLD] = cs(tick_interval_ms=subworld[0],
+                                             default_fanout_interval_ms=subworld[1])
+
+
+class StallClock(FixedClock):
+    """FixedClock whose ``time.sleep`` moves the clock instead of the thread:
+    a chaos stall costs its tick exactly ``stall_ms`` on both legs, so the
+    same ticks blow their budget, break their message drain and freeze the
+    recorder on the card and on the CPU."""
+
+    def __enter__(self):
+        super().__enter__()
+        self._sleep = time.sleep
+        time.sleep = self.advance
+        return self
+
+    def __exit__(self, *exc):
+        time.sleep = self._sleep
+        return super().__exit__(*exc)
+
+
+def stage_counts(P) -> dict:
+    """{stage: observations} of ``tick_stage_ms`` so far."""
+    return {s.labels["stage"]: int(s.value) for m in P.metrics.tick_stage_ms.collect()
+            for s in m.samples if s.name == "tick_stage_ms_count"}
+
+
+def spans_of_tick(recorder, tick: int) -> dict:
+    """{span name: count} of the spans the recorder holds stamped ``tick``."""
+    with recorder._rings_lock:
+        rings = list(recorder._rings.values())
+    names: dict = {}
+    for ring in rings:
+        for entry in ring.snapshot():
+            if entry[5] == tick:
+                names[entry[1]] = names.get(entry[1], 0) + 1
+    return dict(sorted(names.items()))
+
+
+def check_perfetto(path: str, wait_s: float = 3.0) -> tuple:
+    """scripts/trace_soak.py's pinned Perfetto schema for a dump (written
+    off-thread: waits for it, bounded): (valid, note, span names)."""
+    doc = None
+    deadline = time.monotonic() + wait_s
+    while doc is None:
+        try:
+            with open(path) as f:
+                doc = json.load(f)
+        except (OSError, ValueError) as e:
+            if time.monotonic() > deadline:
+                return False, f"unreadable: {e}", set()
+            time.sleep(0.05)
+    try:
+        assert set(doc) >= {"traceEvents", "displayTimeUnit", "otherData"}
+        for ev in doc["traceEvents"]:
+            assert set(ev) >= {"name", "ph", "ts", "pid", "tid", "args"}
+            assert ev["ph"] in ("X", "i")
+            assert "tick" in ev["args"]
+            if ev["ph"] == "X":
+                assert ev["dur"] >= 0
+    except AssertionError as e:
+        return False, f"schema violation: {e}", set()
+    return True, f"{len(doc['traceEvents'])} events", {ev["name"] for ev in doc["traceEvents"]}
+
+
+class TraceWorld(GatewayWorld):
+    """13a: scripts/trace_soak.py's live world in-process on a fixed clock
+    (``StallClock``), through one package's modules ``P``: its cells world
+    (``config``), the master owning GLOBAL and the 4 servers claiming the
+    cells, the soak's ``EntitySim`` entities, ``clients`` stub clients each
+    sending one forward to the master a tick and the first ``followers``
+    following an entity (sphere, extent 60) through the legacy follower
+    path (the query plane is off); the guard off, so the controller steps
+    the engine on the loop thread; the recorder on (16,384-span rings, 150
+    ticks a dump, dumps under ``scratch``); the scenario's chaos armed.
+    Each tick: moves and forwards, every entity channel, GLOBAL (the
+    controller), every spatial channel. Records per tick what the gateway
+    produced and what the recorder and its metrics saw."""
+
+    def __init__(self, P, dev: torch.device, clock, scn: dict, config: str, scratch: str,
+                 K=None):
+        from random import Random
+
+        self.P, self.dev, self.clock, self.scn, self.K = P, dev, clock, scn, K
+        reset_gateway(P)
+        soak_pins(P, dev, scn["tables"])
+        s = P.settings.global_settings
+        s.device_guard_enabled = s.slo_enabled = False
+        s.trace_enabled = True
+        self.recorder = P.tracing.recorder
+        self.recorder.configure(enabled=True, ring_spans=16384, dump_ticks=150,
+                                dump_path=scratch, anomaly_cooldown_s=2.0, origin="lockstep")
+        P.message.init_message_map()
+        P.channel.init_channels()
+        P.sim_models.register_sim_types()
+        P.controller.init_spatial_controller(config)
+        ctl = self.ctl = P.controller.get_spatial_controller()
+        self.eng = ctl.engine
+        if P.port:
+            check(self.eng.device.type == dev.type, f"the engine is on {self.eng.device}, not {dev}")
+        self.conns: list = []
+        self._servers()
+        self.gch = P.channel.get_global_channel()
+        self.sim = EntitySim(P, ctl, scn["entities"], scn["storm"], Random(scn["seed"] ^ 0x7247))
+        self.sim.create_entities()
+        self.entity_channels = [P.channel.get_channel(e) for e in self.sim.entity_ids]
+        self.clients = [self.conn(1000 + i, "CLIENT") for i in range(scn["clients"])]
+        for i, client in enumerate(self.clients):
+            client.pit = f"soak-client-{i}"
+            if i < scn["followers"]:
+                ctl.register_follow_interest(
+                    client, self.sim.entity_ids[i % len(self.sim.entity_ids)],
+                    P.ops.AOI_SPHERE, extent=(60.0, 0.0))
+        self.seq = [0] * scn["clients"]
+        self.crowd: list = []
+        self.handovers, self.step_ms = [], []
+        self.transfers = 0
+        self._wrap()
+        P.chaos.arm(scn["chaos"])
+
+    def _wrap(self) -> None:
+        """Record each tick's handovers, time the device step (the engine's
+        tick up to its handover list, where the host waits for the card)
+        on the host's perf_counter, and, in the port, count the engine's
+        device-to-host transfers: the consume blob's fetch and each
+        ``interest_rows``."""
+        eng = self.eng
+        tick, handover_list = eng.tick, eng.handover_list
+        started = []
+
+        def timed_tick(*args, **kwargs):
+            started.append(time.perf_counter())
+            return tick(*args, **kwargs)
+
+        def recorded_handovers(result):
+            rows = handover_list(result)
+            if started:
+                self.step_ms.append((time.perf_counter() - started.pop()) * 1e3)
+            self.handovers.append(rows)
+            return rows
+
+        eng.tick, eng.handover_list = timed_tick, recorded_handovers
+        if self.P.port:
+            consume, interest_rows = eng.consume, eng.interest_rows
+
+            def counted_consume(result):
+                self.transfers += result.get("consume_host") is None
+                return consume(result)
+
+            def counted_rows(result, q_rows):
+                self.transfers += 1
+                return interest_rows(result, q_rows)
+
+            eng.consume, eng.interest_rows = counted_consume, counted_rows
+
+    def drive(self, t: int) -> None:
+        P, sim = self.P, self.sim
+        sim.jitter_step()
+        if t == self.scn["storm_at"]:
+            self.crowd = sim.storm_gather()
+        elif t == self.scn["disperse_at"]:
+            sim.disperse(self.crowd)
+            self.crowd = []
+        handler = P.message.handle_client_to_server_user_message
+        for i, client in enumerate(self.clients):
+            msg = P.wire_pb2.ServerForwardMessage(
+                clientConnId=client.id, payload=np.array([i, self.seq[i]], "<u4").tobytes())
+            pack = P.wire_pb2.MessagePack(channelId=0, msgType=100)
+            self.gch.put_message(msg, handler, client, pack)
+            self.seq[i] += 1
+
+    def tick(self, t: int) -> dict:
+        P, eng, K, rec = self.P, self.eng, self.K, self.recorder
+        self.clock.advance(GATEWAY_TICK_S)
+        self.drive(t)
+        now = time.monotonic_ns()
+        chans = P.channel.all_channels()
+        cuda = self.dev.type == "cuda"
+        crossings, steps, transfers = len(self.handovers), len(self.step_ms), self.transfers
+        stages, readbacks = stage_counts(P), P.metrics.follower_readbacks._value.get()
+        anomalies, fires = len(rec.anomalies), P.chaos.chaos.fire_counts()
+        before = K.launch_counts() if K is not None else None
+        sync(self.dev)
+        with (Reads() if cuda else contextlib.nullcontext()) as reads:
+            t0 = time.perf_counter()
+            for ch in self.entity_channels:
+                ch.tick_once(now)
+            self.gch.tick_once(now)
+            for cid in self.spatial:
+                chans[cid].tick_once(now)
+            t1 = time.perf_counter()
+        tables = hashlib.sha256()
+        for cid in self.spatial:
+            tables.update(chans[cid].get_data_message().SerializeToString(deterministic=True))
+        after = stage_counts(P)
+        obs = dict(
+            handovers=[r for rows in self.handovers[crossings:] for r in rows],
+            tables=tables.hexdigest(),
+            sent={c.id: (c.count, c.digest.hexdigest()) for c in self.conns},
+            spans=spans_of_tick(rec, rec.tick - 1),
+            stages={k: v - stages.get(k, 0) for k, v in after.items() if v != stages.get(k, 0)},
+            readbacks=int(P.metrics.follower_readbacks._value.get() - readbacks),
+            anomalies=[(a["trigger"], a["detail"], a["tick"]) for a in rec.anomalies[anomalies:]],
+            fires={p: n - fires.get(p, 0) for p, n in P.chaos.chaos.fire_counts().items()
+                   if n != fires.get(p, 0)},
+            transfers=self.transfers - transfers if P.port else None,
+            tick_ms=(t1 - t0) * 1e3,
+            step_ms=self.step_ms[steps] if len(self.step_ms) > steps else None,
+            reads=reads.count if cuda else None)
+        if K is not None:
+            obs["launches"] = {n: c - before[n] for n, c in K.launch_counts().items()}
+        return obs
+
+    def dumps(self) -> list:
+        """(trigger, path) of every anomaly that froze a dump."""
+        return [(a["trigger"], a["path"]) for a in self.recorder.anomalies if "path" in a]
+
+    def close(self) -> None:
+        self.P.chaos.disarm()
+        reset_gateway(self.P)
+
+
+def run_trace_lockstep(P, dev: torch.device, scn: dict, config: str, scratch: str,
+                       K=None) -> tuple:
+    """One leg of 13a: (per-tick observations, report). The dumps are read
+    after the fixed clock is left (the check waits on the host's clock)."""
+    import os
+
+    leg_dir = os.path.join(scratch, f"{dev.type}-{P.channel.__name__.split('.')[0]}")
+    os.makedirs(leg_dir, exist_ok=True)
+    t_leg = time.perf_counter()
+    with StallClock() as clock:
+        world = TraceWorld(P, dev, clock, scn, config, leg_dir, K)
+        if K is not None:
+            K.reset_launch_counts()
+        obs = [world.tick(t) for t in range(scn["ticks"])]
+        report = dict(dumps=world.dumps(), step_ms=list(world.step_ms),
+                      fires=P.chaos.chaos.fire_counts(), eng=world.eng,
+                      launches=K.launch_counts() if K is not None else None,
+                      n_shards=world.eng._mesh.size if getattr(world.eng, "_mesh", None) else 1)
+        if K is not None:
+            report["kernels"] = uncounted(K, lambda: elastic_live_kernels(K, world.eng, (4, 4)))
+        world.close()
+        del world
+    report["dump_checks"] = [(trigger, os.path.basename(path)) + check_perfetto(path)
+                             for trigger, path in report["dumps"]]
+    report["secs"] = time.perf_counter() - t_leg
+    del report["eng"]
+    return obs, report
+
+
+def engine_tick_counter(eng) -> list:
+    """Counts the engine's ticks (on any thread) in the returned one-item list."""
+    ticks, tick = [0], eng.tick
+
+    def counted(*args, **kwargs):
+        ticks[0] += 1
+        return tick(*args, **kwargs)
+
+    eng.tick = counted
+    return ticks
+
+
+def soak_frame(P, msg_type: int, body: bytes, channel_id: int = 0) -> bytes:
+    return P.protocol.encode_packet(P.wire_pb2.Packet(messages=[P.wire_pb2.MessagePack(
+        channelId=channel_id, msgType=msg_type, msgBody=body)]))
+
+
+async def soak_read_frames(P, reader, on_pack, stop) -> None:
+    """Drain a socket into per-MessagePack callbacks until EOF or ``stop``."""
+    dec = P.protocol.FrameDecoder()
+    while not stop.is_set():
+        try:
+            data = await reader.read(65536)
+        except (ConnectionError, OSError):
+            return
+        if not data:
+            return
+        for packet in dec.decode_packets(data):
+            for mp in packet.messages:
+                on_pack(mp)
+
+
+async def soak_auth(P, reader, writer, pit: str, timeout: float = 5.0) -> None:
+    """AUTH and wait for the first frame back."""
+    import asyncio
+
+    writer.write(soak_frame(P, P.types.MessageType.AUTH, P.control_pb2.AuthMessage(
+        playerIdentifierToken=pit, loginToken="soak").SerializeToString()))
+    await writer.drain()
+    dec = P.protocol.FrameDecoder()
+    deadline = time.monotonic() + timeout
+    while True:
+        remaining = deadline - time.monotonic()
+        if remaining <= 0:
+            raise TimeoutError(f"auth timeout for {pit}")
+        data = await asyncio.wait_for(reader.read(65536), timeout=remaining)
+        if not data:
+            raise ConnectionError(f"closed during auth of {pit}")
+        if any(p.messages for p in dec.decode_packets(data)):
+            return
+
+
+async def soak_boot_world(P, host: str, server_port: int, stop) -> list:
+    """scripts/chaos_soak.py's _boot_world: the master possesses GLOBAL and
+    4 spatial servers claim their blocks through CREATE_CHANNEL over TCP;
+    returns the drain task and the streams of each socket (a stream writer
+    nothing refers to closes its socket) once all 16 cells are owned."""
+    import asyncio
+
+    MT, CT = P.types.MessageType, P.types.ChannelType
+    socks = []
+    reader, writer = await asyncio.open_connection(host, server_port)
+    await soak_auth(P, reader, writer, "soak-master")
+    writer.write(soak_frame(P, MT.CREATE_CHANNEL, P.control_pb2.CreateChannelMessage(
+        channelType=CT.GLOBAL).SerializeToString()))
+    await writer.drain()
+    socks.append((asyncio.ensure_future(soak_read_frames(P, reader, lambda mp: None, stop)),
+                  reader, writer))
+    for i in range(4):
+        r, w = await asyncio.open_connection(host, server_port)
+        await soak_auth(P, r, w, f"soak-spatial-{i}")
+        w.write(soak_frame(P, MT.CREATE_CHANNEL, P.control_pb2.CreateChannelMessage(
+            channelType=CT.SPATIAL, subOptions=P.control_pb2.ChannelSubscriptionOptions(
+                dataAccess=P.types.ChannelDataAccess.WRITE_ACCESS)).SerializeToString()))
+        await w.drain()
+        socks.append((asyncio.ensure_future(soak_read_frames(P, r, lambda mp: None, stop)),
+                      r, w))
+    s = P.settings.global_settings
+    deadline = time.monotonic() + 20.0
+    while time.monotonic() < deadline:
+        spatial = [ch for cid, ch in P.channel.all_channels().items()
+                   if s.spatial_channel_id_start <= cid < s.entity_channel_id_start]
+        if len(spatial) == 16 and all(ch.has_owner() for ch in spatial):
+            return socks
+        await asyncio.sleep(0.1)
+    raise RuntimeError("spatial world failed to come up")
+
+
+async def soak_client_loop(P, idx: int, host: str, port: int, rate: float, sent: dict, stop,
+                           send_stop) -> None:
+    """scripts/chaos_soak.py's _client_loop: connect, auth, stream
+    sequence-stamped forwards at ``rate``; reconnect when the socket dies."""
+    import asyncio
+
+    seq, interval = 0, 1.0 / rate
+    while not stop.is_set():
+        writer = None
+        try:
+            reader, writer = await asyncio.open_connection(host, port)
+            await soak_auth(P, reader, writer, f"soak-client-{idx}", timeout=1.5)
+        except (ConnectionError, OSError, TimeoutError):
+            if writer is not None:
+                writer.close()
+            await asyncio.sleep(0.1)
+            continue
+        reader_task = asyncio.ensure_future(soak_read_frames(P, reader, lambda mp: None, stop))
+        failed = False
+        try:
+            while not stop.is_set():
+                if reader_task.done():
+                    raise ConnectionError("gateway closed the socket")
+                if send_stop.is_set():
+                    await asyncio.sleep(0.2)
+                    continue
+                writer.write(soak_frame(P, 100, np.array([idx, seq], "<u4").tobytes()))
+                await writer.drain()
+                seq += 1
+                sent[idx] = sent.get(idx, 0) + 1
+                await asyncio.sleep(interval)
+        except (ConnectionError, OSError):
+            failed = True
+        finally:
+            reader_task.cancel()
+            writer.close()
+        if not failed:
+            break
+
+
+def stage_stats(P, d: dict) -> dict:
+    """scripts/trace_soak.py's _stage_stats: count, mean, p50 and p99 of
+    each stage of ``tick_stage_ms`` in a scrape delta."""
+    stages: dict = {}
+    for (name, labels), value in d.items():
+        ld = dict(labels)
+        if name == "tick_stage_ms_count" and value > 0:
+            stages.setdefault(ld["stage"], {})["count"] = int(value)
+        elif name == "tick_stage_ms_sum" and "stage" in ld:
+            stages.setdefault(ld["stage"], {})["sum_ms"] = value
+    q = P.invariants.histogram_quantile
+    out = {}
+    for st, e in sorted(stages.items()):
+        if e.get("count"):
+            out[st] = dict(count=e["count"], mean_ms=e.get("sum_ms", 0.0) / e["count"],
+                           p50_ms=q(d, "tick_stage_ms", 0.50, stage=st) or 0.0,
+                           p99_ms=q(d, "tick_stage_ms", 0.99, stage=st) or 0.0)
+    return out
+
+
+def delivery_stats(P, d: dict) -> dict:
+    """scripts/obs_soak.py's _delivery_stats: count, mean, p50 and p99 of
+    ``delivery_latency_ms`` per (channel type, path) in a scrape delta."""
+    series: dict = {}
+    for (name, labels), value in d.items():
+        ld = dict(labels)
+        if name == "delivery_latency_ms_count" and value > 0:
+            series.setdefault((ld["channel_type"], ld["path"]), {})["count"] = int(value)
+        elif name == "delivery_latency_ms_sum" and "path" in ld:
+            series.setdefault((ld["channel_type"], ld["path"]), {})["sum_ms"] = value
+    q = P.invariants.histogram_quantile
+    return {f"{ct}/{path}": dict(
+        count=e["count"], mean_ms=e.get("sum_ms", 0.0) / e["count"],
+        p50_ms=q(d, "delivery_latency_ms", 0.50, channel_type=ct, path=path) or 0.0,
+        p99_ms=q(d, "delivery_latency_ms", 0.99, channel_type=ct, path=path) or 0.0)
+        for (ct, path), e in sorted(series.items()) if e.get("count")}
+
+
+async def trace_live(P, dev: torch.device, p: dict, scratch: str, n_dev: int, tables: dict,
+                     K=None) -> dict:
+    """13b: scripts/trace_soak.py's phase 1 through one package's gateway,
+    in-process on this asyncio loop: TCP listeners on loopback, the flush
+    pump, the master and 4 spatial servers, ``clients`` clients streaming
+    forwards, the soak's entities and followers on the cells world at
+    MeshDevices ``n_dev`` with the engine on ``dev``, the guard off, the
+    recorder on, the scenario armed for ``live_s`` with one storm, then
+    ``quiesce_s``. Returns the soak's report, plus the engine's ticks and
+    (with ``K``) the kernels' launches over the phase."""
+    import asyncio
+    import os
+    from random import Random
+
+    reset_gateway(P)
+    soak_pins(P, dev, tables)
+    s = P.settings.global_settings
+    s.device_guard_enabled = s.slo_enabled = False
+    s.trace_enabled = True
+    recorder = P.tracing.recorder
+    recorder.configure(enabled=True, ring_spans=16384, dump_ticks=150, dump_path=scratch,
+                       anomaly_cooldown_s=2.0, origin="live")
+    P.sim_models.register_sim_types()
+    P.connection.init_connections(SERVER_FSM, CLIENT_FSM)
+    P.channel.init_channels()
+    P.ddos.init_anti_ddos()
+    P.controller.init_spatial_controller(cells_config(n_dev, scratch))
+    ctl = P.controller.get_spatial_controller()
+    engine_ticks = engine_tick_counter(ctl.engine)
+    before = K.launch_counts() if K is not None else None
+    baseline = P.invariants.scrape()
+    P.chaos.arm(p["scenario"])
+    CT = P.types.ConnectionType
+    host = "127.0.0.1"
+    server_srv = await P.server.start_listening(CT.SERVER, "tcp", f"{host}:0")
+    client_srv = await P.server.start_listening(CT.CLIENT, "tcp", f"{host}:0")
+    client_port = client_srv.sockets[0].getsockname()[1]
+    stop, send_stop = asyncio.Event(), asyncio.Event()
+    tasks = [asyncio.ensure_future(P.server.flush_loop()),
+             asyncio.ensure_future(P.ddos.unauth_reaper_loop())]
+    sent: dict = {}
+    try:
+        servers = await soak_boot_world(P, host, server_srv.sockets[0].getsockname()[1], stop)
+        tasks += [task for task, _, _ in servers]
+        sim = EntitySim(P, ctl, p["entities"], p["storm_size"], Random(p["seed"] ^ 0x7247))
+        sim.create_entities()
+        tasks += [asyncio.ensure_future(soak_client_loop(
+            P, i, host, client_port, p["msg_rate"], sent, stop, send_stop))
+            for i in range(p["clients"])]
+        deadline, followers = time.monotonic() + 10.0, 0
+        while time.monotonic() < deadline and followers < p["followers"]:
+            for conn in list(P.connection.all_connections().values()):
+                if followers >= p["followers"]:
+                    break
+                if ((getattr(conn, "pit", "") or "").startswith("soak-client-")
+                        and not conn.is_closing() and conn.id not in ctl._followers):
+                    ctl.register_follow_interest(
+                        conn, sim.entity_ids[followers % len(sim.entity_ids)],
+                        P.ops.AOI_SPHERE, extent=(60.0, 0.0))
+                    followers += 1
+            await asyncio.sleep(0.2)
+        t0, stormed, crowd = time.monotonic(), False, []
+        while time.monotonic() - t0 < p["live_s"]:
+            sim.jitter_step()
+            if not stormed and time.monotonic() - t0 > p["live_s"] * 0.3:
+                crowd, stormed = sim.storm_gather(), True
+            elif crowd and time.monotonic() - t0 > p["live_s"] * 0.7:
+                sim.disperse(crowd)
+                crowd = []
+            await asyncio.sleep(0.1)
+        send_stop.set()
+        fires = dict(P.chaos.chaos.fire_counts())
+        P.chaos.disarm()
+        await asyncio.sleep(p["quiesce_s"])
+        d = P.invariants.delta(P.invariants.scrape(), baseline)
+        dumps, anomalies_total = [], {}
+        for a in recorder.anomalies:
+            anomalies_total[a["trigger"]] = anomalies_total.get(a["trigger"], 0) + 1
+            if "path" in a:
+                ok, note, names = check_perfetto(a["path"])
+                dumps.append(dict(trigger=a["trigger"], tick=a["tick"], detail=a["detail"],
+                                  path=os.path.basename(a["path"]), perfetto_valid=ok,
+                                  note=note, device_step="device_step" in names))
+        total = P.invariants.sample_total
+        return dict(
+            stages=stage_stats(P, d), anomaly_dumps=dumps, anomalies_total=anomalies_total,
+            trace_dumps_total={"tick_budget": int(total(d, "trace_dumps_total",
+                                                        trigger="tick_budget"))},
+            follower_readbacks_total=int(total(d, "follower_readbacks_total")),
+            batched_ingest=batched_ingest(P),
+            followers=followers, recorder=recorder.stats(), chaos_fires=fires,
+            clients=p["clients"], entities=p["entities"], frames_sent=sum(sent.values()),
+            engine_ticks=engine_ticks[0],
+            launches=({n: c - before[n] for n, c in K.launch_counts().items()}
+                      if K is not None else None))
+    finally:
+        stop.set()
+        send_stop.set()
+        P.chaos.disarm()
+        for t in tasks:
+            t.cancel()
+        await asyncio.gather(*tasks, return_exceptions=True)
+        server_srv.close()
+        client_srv.close()
+        reset_gateway(P)
+
+
+def batched_ingest(P) -> bool:
+    """Whether the package's connections take the batched ingest path, the
+    only one that records the ``ingest`` stage: it needs the native codec's
+    ``parse_forward`` (ROADMAP F19)."""
+    return getattr(P.connection._native_codec, "parse_forward", None) is not None
+
+
+def trace_live_checks(r: dict) -> list:
+    """scripts/trace_soak.py's invariants of its phase 1 (the federation
+    ones apart), as (name, held, detail); ``ingest`` is expected only where
+    the native codec runs the batched ingest path (F19)."""
+    missing = [s for s in TRACE_STAGES if s not in r["stages"]
+               and (s != "ingest" or r["batched_ingest"])]
+    budget = [d for d in r["anomaly_dumps"] if d["trigger"] == "tick_budget"]
+    return [
+        ("every_tick_stage_measured", not missing, f"missing {missing}"),
+        ("tick_budget_anomaly_dump_written",
+         budget and r["trace_dumps_total"]["tick_budget"] > 0, r["trace_dumps_total"]),
+        ("anomaly_dumps_are_valid_perfetto", all(d["perfetto_valid"] for d in r["anomaly_dumps"]),
+         [(d["path"], d["note"]) for d in r["anomaly_dumps"]]),
+        ("follower_readbacks_counted", r["follower_readbacks_total"] > 0,
+         r["follower_readbacks_total"])]
+
+
+def overhead_world(P, dev: torch.device, tables: dict, scratch: str,
+                   channel_settings=None) -> tuple:
+    """Both soaks' phase-3 world through one package: the controller on 4x4
+    cells of 100 m (one server, no border) with 64 entities at mid-cell, the
+    engine on ``dev`` with ``tables``, the ladder off, the recorder on with
+    no dump possible in the window; ``channel_settings(P)``, when given,
+    before GLOBAL is made. Returns (settings, GLOBAL, controller,
+    [(eid, x, z)])."""
+    reset_gateway(P)
+    s = P.settings.global_settings
+    s.development = False
+    if P.port:
+        s.spatial_device = dev.type
+    for name, value in tables.items():
+        setattr(s, name, value)
+    s.overload_enabled = False
+    s.trace_enabled = True
+    recorder = P.tracing.recorder
+    recorder.configure(enabled=True, ring_spans=16384, dump_path=scratch,
+                       anomaly_cooldown_s=1e9)
+    recorder._last_dump_at = time.monotonic()
+    if channel_settings is not None:
+        s.channel_settings = channel_settings(P)
+        P.sim_models.register_sim_types()
+    P.channel.init_channels()
+    gch = P.channel.get_global_channel()
+    ctl = P.controller._controller_registry["TPUSpatialController"]()
+    ctl.load_config(dict(WorldOffsetX=0, WorldOffsetZ=0, GridWidth=100, GridHeight=100,
+                         GridCols=4, GridRows=4, ServerCols=1, ServerRows=1,
+                         ServerInterestBorderSize=0))
+    P.controller.set_spatial_controller(ctl)
+    eids = []
+    for i in range(64):
+        eid = s.entity_channel_id_start + 1 + i
+        x, z = (i % 4) * 100.0 + 50.0, (i // 4 % 4) * 100.0 + 50.0
+        ctl.track_entity(eid, P.controller.SpatialInfo(x, 0, z))
+        eids.append((eid, x, z))
+    return s, gch, ctl, eids
+
+
+def alternate(one_tick, ticks: int, rounds: int, arm) -> tuple:
+    """30 warm-up ticks off the clock, then ``ticks * rounds`` pairs of ticks
+    with ``arm(True)`` and ``arm(False)`` in turn, the collector off:
+    (median ns on, median ns off)."""
+    import gc
+
+    for _ in range(30):
+        one_tick()
+    on, off = [], []
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        for _ in range(ticks * rounds):
+            arm(True)
+            on.append(one_tick())
+            arm(False)
+            off.append(one_tick())
+    finally:
+        if enabled:
+            gc.enable()
+        arm(True)
+    return statistics.median(on), statistics.median(off)
+
+
+def trace_overhead(P, dev: torch.device, tables: dict, ticks: int, rounds: int, scratch: str,
+                   seed: int = TRACE_SOAK_SEED, K=None) -> dict:
+    """13c: scripts/trace_soak.py's phase 3 through one package: the GLOBAL
+    tick (the controller's device step and 8 entity updates a tick) with the
+    recorder on and off tick by tick; the median of each arm, the overhead
+    in percent, and the raw cost of one span."""
+    from random import Random
+
+    s, gch, ctl, eids = overhead_world(P, dev, tables, scratch)
+    recorder = P.tracing.recorder
+    rng = Random(seed ^ 0x0ffd)
+
+    def one_tick() -> int:
+        for eid, x, z in rng.sample(eids, 8):
+            ctl.observe_entity(eid, P.controller.SpatialInfo(
+                x + rng.uniform(-20, 20), 0, z + rng.uniform(-20, 20)))
+        t0 = time.perf_counter_ns()
+        gch.tick_once(gch.get_time())
+        return time.perf_counter_ns() - t0
+
+    before = K.launch_counts() if K is not None else None
+    tick_on, tick_off = alternate(one_tick, ticks, rounds,
+                                  lambda on: setattr(recorder, "enabled", on))
+    n = 100_000
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        recorder.span("bench", recorder.now())
+    span_cost_ns = (time.perf_counter_ns() - t0) / n
+    out = dict(tick_ns_enabled=int(tick_on), tick_ns_disabled=int(tick_off),
+               overhead_pct=(tick_on - tick_off) / tick_off * 100.0, span_cost_ns=span_cost_ns,
+               ticks=30 + 2 * ticks * rounds, tables=dict(tables))
+    if K is not None:
+        out["launches"] = {n: c - before[n] for n, c in K.launch_counts().items()}
+        eng = ctl.engine
+        out["kernels"] = soak_live_kernels(K, eng.grid, eng._d_positions, eng._d_valid,
+                                           eng._d_queries)
+    reset_gateway(P)
+    return out
+
+
+class ListConn(GatewayConn):
+    """tests/helpers.py's StubConnection: keeps every outbound context."""
+
+    def __init__(self, P, conn_id: int, kind: str = "CLIENT"):
+        super().__init__(P, conn_id, kind)
+        self.sent: list = []
+
+    def send(self, ctx) -> None:
+        self.sent.append(ctx)
+
+
+def obs_overhead(P, dev: torch.device, tables: dict, ticks: int, rounds: int, scratch: str,
+                 seed: int = OBS_SOAK_SEED, K=None) -> dict:
+    """13e: scripts/obs_soak.py's phase 3 through one package: the GLOBAL
+    and SUBWORLD ticks (the device step, 8 entity updates, one stamped
+    update a tick fanned out to 8 subscribers, the burn-rate evaluation)
+    with the SLO plane on and off tick by tick."""
+    from random import Random
+
+    def channel_settings(P):
+        cs, ct = P.settings.ChannelSettings, P.types.ChannelType
+        return {ct.GLOBAL: cs(tick_interval_ms=10, default_fanout_interval_ms=20),
+                ct.SUBWORLD: cs(tick_interval_ms=10, default_fanout_interval_ms=20)}
+
+    s, gch, ctl, eids = overhead_world(P, dev, tables, scratch, channel_settings)
+    ct = P.types.ChannelType
+    rng = Random(seed ^ 0x0b5d)
+    sub_ch = P.channel.create_channel(ct.SUBWORLD, None)
+    sub_ch.init_data(P.sim_pb2.SimSpatialChannelData(), None)
+    for i in range(8):
+        P.sub.subscribe_to_channel(ListConn(P, 9000 + i), sub_ch,
+                                   P.control_pb2.ChannelSubscriptionOptions(
+                                       dataAccess=P.types.ChannelDataAccess.READ_ACCESS,
+                                       fanOutIntervalMs=10, skipSelfUpdateFanOut=False))
+    slo = P.slo.slo
+    slo.configure(enabled=True)
+    estart, seq = s.entity_channel_id_start, [0]
+
+    def one_tick() -> int:
+        for eid, x, z in rng.sample(eids, 8):
+            ctl.observe_entity(eid, P.controller.SpatialInfo(
+                x + rng.uniform(-20, 20), 0, z + rng.uniform(-20, 20)))
+        upd = P.sim_pb2.SimSpatialChannelData()
+        e = estart + 2000
+        upd.entities[e].entityId = e
+        upd.entities[e].transform.position.x = float(seq[0] % 89)
+        seq[0] += 1
+        sub_ch.data.on_update(upd, sub_ch.get_time(), 999, now_ns=sub_ch.get_time(),
+                              ingest_ns=time.monotonic_ns())
+        t0 = time.perf_counter_ns()
+        gch.tick_once(gch.get_time())
+        sub_ch.tick_once(sub_ch.get_time())
+        return time.perf_counter_ns() - t0
+
+    before = K.launch_counts() if K is not None else None
+    tick_on, tick_off = alternate(one_tick, ticks, rounds, lambda on: setattr(slo, "enabled", on))
+    out = dict(tick_ns_enabled=int(tick_on), tick_ns_disabled=int(tick_off),
+               overhead_pct=(tick_on - tick_off) / tick_off * 100.0,
+               ticks=30 + 2 * ticks * rounds, tables=dict(tables))
+    if K is not None:
+        out["launches"] = {n: c - before[n] for n, c in K.launch_counts().items()}
+    reset_gateway(P)
+    return out
+
+
+def ops_get(port: int, path: str, timeout: float = 3.0) -> tuple:
+    """(status, parsed JSON or text) from the ops surface on loopback."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=timeout) as resp:
+            body, code = resp.read(), resp.status
+    except urllib.error.HTTPError as e:
+        body, code = e.read(), e.code
+    try:
+        return code, json.loads(body)
+    except ValueError:
+        return code, body.decode(errors="replace")
+
+
+def readyz_flips(P, port: int, wal_dir: str) -> dict:
+    """scripts/obs_soak.py's /readyz matrix: 200, 503 with the guard set
+    FAILED directly (not terminal: its text must not say so, F8), 200 back
+    at ACTIVE; 200 with the WAL armed, 503 wedged, 200 unwedged. The ops
+    requests block the loop, as the soak's do, so no tick runs between a
+    state and its read."""
+    import os
+
+    guard, DS, wal, s = P.guard.guard, P.guard.DeviceState, P.wal.wal, P.settings.global_settings
+    codes, docs = [], []
+
+    def ready() -> int:
+        code, doc = ops_get(port, "/readyz")
+        codes.append(code)
+        docs.append(doc)
+        return code
+
+    ok = ready() == 200
+    guard._set_state(DS.FAILED)
+    terminal = getattr(guard, "terminal", False)  # the JAX guard is never terminal (F8)
+    ok = ready() == 503 and ok
+    guard._set_state(DS.ACTIVE)
+    ok = ready() == 200 and ok
+    os.makedirs(wal_dir, exist_ok=True)
+    s.wal_path = os.path.join(wal_dir, "g.wal")
+    wal.start(s.wal_path)
+    ok = ready() == 200 and ok
+    wal._wedged = True
+    ok = ready() == 503 and ok
+    wal._wedged = False
+    ok = ready() == 200 and ok
+    wal.stop()
+    s.wal_path = ""
+    return dict(codes=codes, flip_ok=ok, failed_terminal=terminal,
+                failed_device=docs[1]["components"]["device"],
+                wedged_wal=docs[4]["components"]["wal"])
+
+
+async def obs_live(P, dev: torch.device, p: dict, scratch: str, n_dev: int, tables: dict,
+                   K=None) -> dict:
+    """13d: scripts/obs_soak.py's phase 1 through one package's gateway,
+    in-process on this asyncio loop: the trace soak's world with the guard
+    on (the step on its worker) and the SLO plane on, the ops surface on an
+    ephemeral port, an updater at ``update_rate`` and ``viewers`` viewers on
+    a SUBWORLD channel (tick 20 ms, fan-out 50 ms) over TCP; warm-up, the
+    steady window (delivery latency), the ops probes and the /readyz flips,
+    then the breach window under the scenario. Returns the soak's report,
+    plus the engine's ticks and (with ``K``) the kernels' launches."""
+    import asyncio
+    import os
+    from random import Random
+
+    reset_gateway(P)
+    soak_pins(P, dev, tables, subworld=(20, 50))
+    s = P.settings.global_settings
+    s.device_guard_enabled = True
+    s.trace_enabled = s.slo_enabled = True
+    recorder, slo = P.tracing.recorder, P.slo.slo
+    recorder.configure(enabled=True, ring_spans=16384, dump_ticks=150, dump_path=scratch,
+                       anomaly_cooldown_s=2.0, origin="obs-live")
+    slo.configure(enabled=True)
+    P.sim_models.register_sim_types()
+    P.connection.init_connections(SERVER_FSM, CLIENT_FSM)
+    P.channel.init_channels()
+    P.ddos.init_anti_ddos()
+    P.controller.init_spatial_controller(cells_config(n_dev, scratch))
+    ctl = P.controller.get_spatial_controller()
+    engine_ticks = engine_tick_counter(ctl.engine)
+    before = K.launch_counts() if K is not None else None
+    ops = P.opshttp.serve_ops(0, host="127.0.0.1")
+    inv = P.invariants
+    baseline = inv.scrape()
+    CT, MT = P.types.ConnectionType, P.types.MessageType
+    host = "127.0.0.1"
+    server_srv = await P.server.start_listening(CT.SERVER, "tcp", f"{host}:0")
+    client_srv = await P.server.start_listening(CT.CLIENT, "tcp", f"{host}:0")
+    client_port = client_srv.sockets[0].getsockname()[1]
+    stop, send_stop = asyncio.Event(), asyncio.Event()
+    tasks = [asyncio.ensure_future(P.server.flush_loop()),
+             asyncio.ensure_future(P.ddos.unauth_reaper_loop())]
+    sent: dict = {}
+    try:
+        servers = await soak_boot_world(P, host, server_srv.sockets[0].getsockname()[1], stop)
+        tasks += [task for task, _, _ in servers]
+        sim = EntitySim(P, ctl, p["entities"], 20, Random(p["seed"] ^ 0x0b5))
+        sim.create_entities()
+        tasks += [asyncio.ensure_future(soak_client_loop(
+            P, i, host, client_port, p["msg_rate"], sent, stop, send_stop))
+            for i in range(p["clients"])]
+        sub_ch = P.channel.create_channel(P.types.ChannelType.SUBWORLD, None)
+        sub_ch.init_data(P.sim_pb2.SimSpatialChannelData(), None)
+        up_reader, up_writer = await asyncio.open_connection(host, client_port)
+        await soak_auth(P, up_reader, up_writer, "obs-updater")
+        viewers = []
+        for i in range(p["viewers"]):
+            r, w = await asyncio.open_connection(host, client_port)
+            await soak_auth(P, r, w, f"obs-viewer-{i}")
+            viewers.append((r, w))
+        await asyncio.sleep(0.3)
+
+        def conn_of(pit: str):
+            for conn in P.connection.all_connections().values():
+                if conn.pit == pit and not conn.is_closing():
+                    return conn
+            raise RuntimeError(f"no server-side conn for {pit}")
+
+        opts = P.control_pb2.ChannelSubscriptionOptions
+        access = P.types.ChannelDataAccess
+        P.sub.subscribe_to_channel(conn_of("obs-updater"), sub_ch, opts(
+            dataAccess=access.WRITE_ACCESS, fanOutIntervalMs=1000, skipSelfUpdateFanOut=True))
+        for i in range(p["viewers"]):
+            P.sub.subscribe_to_channel(conn_of(f"obs-viewer-{i}"), sub_ch, opts(
+                dataAccess=access.READ_ACCESS, fanOutIntervalMs=50, skipSelfUpdateFanOut=False))
+
+        async def updater_loop():
+            eid = s.entity_channel_id_start + 9001
+            seq, interval = 0, 1.0 / p["update_rate"]
+            while not stop.is_set() and not send_stop.is_set():
+                upd = P.sim_pb2.SimSpatialChannelData()
+                upd.entities[eid].entityId = eid
+                upd.entities[eid].transform.position.x = float(seq % 97)
+                body = P.control_pb2.ChannelDataUpdateMessage(
+                    data=P.anyutil.pack_any(upd)).SerializeToString()
+                up_writer.write(soak_frame(P, int(MT.CHANNEL_DATA_UPDATE), body,
+                                           channel_id=sub_ch.id))
+                try:
+                    await up_writer.drain()
+                except (ConnectionError, OSError):
+                    return
+                seq += 1
+                await asyncio.sleep(interval)
+
+        tasks.append(asyncio.ensure_future(updater_loop()))
+        tasks += [asyncio.ensure_future(soak_read_frames(P, r, lambda mp: None, stop))
+                  for r, _ in viewers + [(up_reader, up_writer)]]
+        await asyncio.sleep(p["warmup_s"] / 2)
+        crowd = sim.storm_gather()
+        await asyncio.sleep(1.0)
+        sim.disperse(crowd)
+        for _ in range(6):
+            sim.jitter_step()
+            await asyncio.sleep(0.1)
+        await asyncio.sleep(p["warmup_s"] / 2)
+        steady_base, t0 = inv.scrape(), time.monotonic()
+        while time.monotonic() - t0 < p["steady_s"]:
+            sim.jitter_step()
+            await asyncio.sleep(0.1)
+        steady = delivery_stats(P, inv.delta(inv.scrape(), steady_base))
+        code, health = ops_get(ops.port, "/healthz")
+        healthz_ok = code == 200 and health.get("ok") is True
+        code, intro = ops_get(ops.port, "/introspect")
+        introspect_ok = (code == 200 and intro.get("ready") is True
+                         and intro.get("connections", {}).get("CLIENT", 0) >= p["clients"]
+                         and "delivery_p99" in intro.get("slo", {}))
+        metrics_ok = ops_get(ops.port, "/metrics")[0] == 200
+        readyz = readyz_flips(P, ops.port, os.path.join(scratch, "obs_wal"))
+        slo.configure(enabled=True)
+        metric_before = {name: inv.sample_total(None, "slo_breaches_total", slo=name)
+                         for name in slo.status()}
+        P.chaos.arm(p["scenario"])
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < p["breach_s"]:
+            sim.jitter_step()
+            await asyncio.sleep(0.1)
+        fires = dict(P.chaos.chaos.fire_counts())
+        P.chaos.disarm()
+        await asyncio.sleep(p["quiesce_s"])
+        send_stop.set()
+        await asyncio.sleep(0.5)
+        breaches = {k: v for k, v in slo.breach_counts.items() if v > 0}
+        ledger_exact = all(
+            slo.breach_counts[name] == int(inv.sample_total(None, "slo_breaches_total", slo=name)
+                                           - metric_before.get(name, 0.0))
+            for name in slo.breach_counts)
+        breach_dumps = [dict(trigger=a["trigger"], detail=a["detail"], tick=a["tick"],
+                             path=os.path.basename(a["path"]),
+                             perfetto_valid=check_perfetto(a["path"])[0])
+                        for a in recorder.anomalies if a["trigger"] == "slo_breach" and "path" in a]
+        full = inv.delta(inv.scrape(), baseline)
+        guard = P.guard.guard
+        return dict(
+            steady=steady, full_run=delivery_stats(P, full), delivery_total=slo.delivery_total,
+            slo_status=slo.status(), breaches=breaches, breach_ledger_matches_metric=ledger_exact,
+            breach_dumps=breach_dumps,
+            burn_peak={name: max(e["burn"] for e in slo.breach_events if e["slo"] == name)
+                       for name in {e["slo"] for e in slo.breach_events}},
+            staleness_samples=int(inv.sample_total(full, "fanout_staleness_ms_count")),
+            readyz=readyz["codes"], readyz_flip_ok=readyz["flip_ok"],
+            readyz_failed=readyz, healthz_ok=healthz_ok, introspect_ok=introspect_ok,
+            metrics_ok=metrics_ok, ops_port=ops.port, chaos_fires=fires, clients=p["clients"],
+            viewers=p["viewers"], frames_sent=sum(sent.values()),
+            guard_state=guard.state.name, device_state=int(P.metrics.device_state._value.get()),
+            engine_ticks=engine_ticks[0],
+            launches=({n: c - before[n] for n, c in K.launch_counts().items()}
+                      if K is not None else None))
+    finally:
+        stop.set()
+        send_stop.set()
+        P.chaos.disarm()
+        for t in tasks:
+            t.cancel()
+        await asyncio.gather(*tasks, return_exceptions=True)
+        server_srv.close()
+        client_srv.close()
+        P.opshttp.reset_ops()
+        reset_gateway(P)
+
+
+def obs_live_checks(r: dict) -> list:
+    """scripts/obs_soak.py's invariants of its phase 1 (the federation ones
+    apart), as (name, held, detail), plus the /readyz body of a FAILED
+    guard that is not terminal (F8) and the guard ACTIVE at the end."""
+    host = next((k for k in r["steady"] if k.endswith("/host")), None)
+    st = r["steady"].get(host, {})
+    return [
+        ("delivery_p99_measured_under_load", host is not None and st["count"] > 100, st),
+        ("delivery_p99_bounded", host is not None and st["p99_ms"] < 1000.0, st),
+        ("delivery_p50_bounded", host is not None and st["p50_ms"] < 100.0, st),
+        ("slo_breach_fired", sum(r["breaches"].values()) > 0, r["breaches"]),
+        ("breach_ledger_matches_metric", r["breach_ledger_matches_metric"], ""),
+        ("breach_anomaly_dump_perfetto_valid",
+         r["breach_dumps"] and all(d["perfetto_valid"] for d in r["breach_dumps"]),
+         r["breach_dumps"]),
+        ("readyz_flipped_on_device_fault", r["readyz_flip_ok"], r["readyz"]),
+        ("readyz_failed_is_not_terminal",
+         not r["readyz_failed"]["failed_terminal"]
+         and "terminally" not in r["readyz_failed"]["failed_device"]["detail"],
+         r["readyz_failed"]["failed_device"]),
+        ("healthz_and_introspect_served",
+         r["healthz_ok"] and r["introspect_ok"] and r["metrics_ok"], ""),
+        ("staleness_sampled", r["staleness_samples"] > 0, r["staleness_samples"]),
+        ("device_active_at_the_end", r["guard_state"] == "ACTIVE" and r["device_state"] == 0,
+         (r["guard_state"], r["device_state"]))]
+
+
+def phase_trace_lockstep(K, dev, scn: dict, n_dev: int) -> tuple:
+    """13a: ``TraceWorld`` on the card against a lockstep CPU leg, tick for
+    tick. Returns (K1/K2 launches, the kernels' entries at its shapes)."""
+    import shutil
+    import tempfile
+
+    P = gateway_modules()
+    scratch = tempfile.mkdtemp(prefix="trace-lockstep-")
+    t_phase = time.perf_counter()
+    try:
+        config = cells_config(n_dev, scratch)
+        card, rc = run_trace_lockstep(P, dev, scn, config, scratch, K)
+        cpu, rp = run_trace_lockstep(P, torch.device("cpu"), scn, config, scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    ticks = scn["ticks"]
+    check(len(card) == len(cpu) == ticks, f"13a: {len(card)} card and {len(cpu)} cpu ticks")
+    for t in range(ticks):
+        where = first_gateway_diff(card[t], cpu[t])
+        check(where is None, f"13a tick {t}: cuda and cpu differ: {where}")
+    n = rc["n_shards"]
+    for t, o in enumerate(card):
+        check(o["launches"] == {name: n for name in o["launches"]},
+              f"13a tick {t}: launches {o['launches']}, not {n} each (one per shard)")
+        check(o["reads"] == 2, f"13a tick {t}: {o['reads']} device reads, not 2 (the consume "
+                               f"blob and the followers' interest rows)")
+    for leg, obs in (("cuda", card), ("cpu", cpu)):
+        check({o["transfers"] for o in obs} == {2}, f"13a {leg}: engine transfers a tick "
+                                                    f"{sorted({o['transfers'] for o in obs})}")
+        check({o["readbacks"] for o in obs} == {1}, f"13a {leg}: follower_readbacks_total a tick "
+                                                    f"{sorted({o['readbacks'] for o in obs})}")
+    fires = rc["fires"]
+    check(fires == rp["fires"] and min(fires.values()) >= 3, f"13a chaos fires {fires} vs "
+                                                             f"{rp['fires']}")
+    stages: dict = {}
+    for o in card:
+        for k, v in o["stages"].items():
+            stages[k] = stages.get(k, 0) + v
+    missing = [s for s in TRACE_STAGES if s != "ingest" and not stages.get(s)]
+    check(not missing, f"13a: stages never measured: {missing} ({stages})")
+    for leg, r in (("cuda", rc), ("cpu", rp)):
+        budget = [d for d in r["dump_checks"] if d[0] == "tick_budget"]
+        check(budget, f"13a {leg}: no tick_budget dump")
+        for trigger, path, ok, note, names in r["dump_checks"]:
+            check(ok and "device_step" in names, f"13a {leg} dump {path}: {note}, "
+                                                 f"device_step {'device_step' in names}")
+    anomalies = [a for o in card for a in o["anomalies"]]
+    k1, k2 = rc["kernels"]["assign_count"], rc["kernels"]["aoi"]
+    print(f"13a trace lockstep: {ticks} GLOBAL ticks of config/spatial_tpu_cells_2x2.json at "
+          f"MeshDevices {n_dev} ({scn['tables']['tpu_entity_capacity']} slots, "
+          f"{scn['tables']['tpu_query_capacity']} query rows), {scn['entities']} entities "
+          f"(storm of {scn['storm']} at tick {scn['storm_at']}, dispersed at "
+          f"{scn['disperse_at']}), {scn['clients']} clients' forwards, {scn['followers']} "
+          f"followers on the legacy path, the guard off, the recorder on, chaos fires {fires}: "
+          f"cuda equals the CPU leg on every tick: handovers "
+          f"({sum(len(o['handovers']) for o in card)}), tables, every outbound stream (the "
+          f"followers' interest diffs), the recorder's spans a tick, the stage counts "
+          f"{stages}, follower_readbacks_total 1 a tick, the anomalies ({len(anomalies)}: "
+          f"{sorted({a[0] for a in anomalies})}); 2 device reads and 2 engine transfers a tick; "
+          f"launches {rc['launches']}; dumps cuda {len(rc['dump_checks'])} / cpu "
+          f"{len(rp['dump_checks'])}, each Perfetto-valid with device_step spans; phase "
+          f"{time.perf_counter() - t_phase:.1f} s (card leg {rc['secs']:.1f} s, cpu leg "
+          f"{rp['secs']:.1f} s)")
+    for leg, obs, r in (("cuda", card, rc), ("cpu", cpu, rp)):
+        print(f"13a on {leg}: tick {tick_stats([o['tick_ms'] for o in obs[1:]])}; device step "
+              f"(engine tick to its handover list, the loop thread) "
+              f"{tick_stats(r['step_ms'][1:])}")
+    for name, k in (("assign_count", k1), ("aoi", k2)):
+        print(f"13a {name} on the live tensors ({k['shape']}): exact; alone {k['ms']:.4f} ms "
+              f"(events, bare launches), plain {k['plain_ms']:.4f} ms, bound "
+              f"{k['bound_ms']:.5f} ms ({k['bound_by']})")
+    return rc["launches"], rc["kernels"]
+
+
+def phase_trace_live(K, dev, n_dev: int, p: dict) -> dict:
+    """13b: ``trace_live`` on the card, held to the trace soak's invariants
+    and to K1/K2 once per shard on every engine tick."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    P = gateway_modules()
+    scratch = tempfile.mkdtemp(prefix="trace-live-")
+    t_phase = time.perf_counter()
+    try:
+        r = asyncio.run(trace_live(P, dev, p, scratch, n_dev, DEFAULT_TABLES, K))
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    for name, ok, detail in trace_live_checks(r):
+        check(ok, f"13b: {name}: {detail}")
+    want = {name: n_dev * r["engine_ticks"] for name in r["launches"]}
+    check(r["engine_ticks"] > 0 and r["launches"] == want,
+          f"13b: launches {r['launches']} in {r['engine_ticks']} engine ticks")
+    budget = [d for d in r["anomaly_dumps"] if d["trigger"] == "tick_budget"]
+    print(f"13b trace live: {p['live_s']:g} s, {p['clients']} clients at {p['msg_rate']:g} msg/s "
+          f"({r['frames_sent']} forwards), {p['entities']} entities, {r['followers']} followers, "
+          f"a storm of {p['storm_size']}, MeshDevices {n_dev}, "
+          f"{DEFAULT_TABLES['tpu_entity_capacity']} slots / "
+          f"{DEFAULT_TABLES['tpu_query_capacity']} query rows; "
+          f"every stage measured ("
+          + ("ingest too: the native codec's batched ingest path" if r["batched_ingest"] else
+             "but ingest, not measured: no native codec here, and without it neither package "
+             "records that stage (F19)")
+          + f"), trace_dumps_total{{tick_budget}} "
+          f"{r['trace_dumps_total']['tick_budget']}, {len(r['anomaly_dumps'])} dumps "
+          f"Perfetto-valid ({len(budget)} tick_budget, device_step in "
+          f"{sum(d['device_step'] for d in budget)}), anomalies {r['anomalies_total']}, "
+          f"follower_readbacks_total {r['follower_readbacks_total']}, chaos fires "
+          f"{r['chaos_fires']}, recorder {r['recorder']}; launches {r['launches']} in "
+          f"{r['engine_ticks']} engine ticks; phase {time.perf_counter() - t_phase:.1f} s")
+    print("13b stages (count, mean / p50 / p99 ms): " + "; ".join(
+        f"{st} {e['count']}, {e['mean_ms']:.4f} / {e['p50_ms']:.4f} / {e['p99_ms']:.4f}"
+        for st, e in r["stages"].items()))
+    return r
+
+
+def phase_overheads(K, dev, tp: dict, op: dict) -> dict:
+    """13c and 13e: each soak's overhead phase at its own tables and at the
+    gateway's defaults, K1/K2 once on every tick, each exact on the live
+    tensors; the ratios printed against their bars, pass or fail."""
+    import shutil
+    import tempfile
+
+    P = gateway_modules()
+    scratch = tempfile.mkdtemp(prefix="overhead-")
+    out: dict = {}
+    try:
+        for label, tables in (("soak", OVERHEAD_TABLES), ("default", DEFAULT_TABLES)):
+            t0 = time.perf_counter()
+            tr = trace_overhead(P, dev, tables, tp["overhead_ticks"], tp["overhead_rounds"],
+                                scratch, K=K)
+            ob = obs_overhead(P, dev, tables, op["overhead_ticks"], op["overhead_rounds"],
+                              scratch, K=K)
+            for what, r in (("13c", tr), ("13e", ob)):
+                check(r["launches"] == {name: r["ticks"] for name in r["launches"]},
+                      f"{what} ({label}): launches {r['launches']} in {r['ticks']} ticks")
+            out[label] = dict(trace=tr, obs=ob)
+            k1, k2 = tr["kernels"]["assign_count"], tr["kernels"]["aoi"]
+            print(f"13c trace overhead ({tables['tpu_entity_capacity']} slots, "
+                  f"{tables['tpu_query_capacity']} query rows; 4x4 cells of 100 m, 64 entities, "
+                  f"8 updates a tick; {tp['overhead_ticks']} x {tp['overhead_rounds']} "
+                  f"alternated): median tick on {tr['tick_ns_enabled'] / 1e6:.4f} ms, off "
+                  f"{tr['tick_ns_disabled'] / 1e6:.4f} ms, overhead {tr['overhead_pct']:.3f}% "
+                  f"({'under' if tr['overhead_pct'] < 3.0 else 'NOT under'} the 3% bar), "
+                  f"span_cost_ns {tr['span_cost_ns']:.1f}; K1 and K2 {tr['ticks']} launches in "
+                  f"{tr['ticks']} ticks; K1 ({k1['shape']}) exact, alone {k1['ms']:.4f} ms, "
+                  f"plain {k1['plain_ms']:.4f} ms, bound {k1['bound_ms']:.6f} ms; K2 "
+                  f"({k2['shape']}) exact, alone {k2['ms']:.4f} ms, plain {k2['plain_ms']:.4f} "
+                  f"ms, bound {k2['bound_ms']:.6f} ms")
+            print(f"13e obs overhead ({tables['tpu_entity_capacity']} slots; the same world, a "
+                  f"SUBWORLD of 8 subscribers, one stamped update a tick; "
+                  f"{op['overhead_ticks']} x {op['overhead_rounds']} alternated): median tick "
+                  f"on {ob['tick_ns_enabled'] / 1e6:.4f} ms, off "
+                  f"{ob['tick_ns_disabled'] / 1e6:.4f} ms, overhead {ob['overhead_pct']:.3f}% "
+                  f"({'under' if ob['overhead_pct'] < 2.0 else 'NOT under'} the 2% bar); "
+                  f"{time.perf_counter() - t0:.1f} s for both")
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    return out
+
+
+def phase_obs_live(K, dev, n_dev: int, p: dict) -> dict:
+    """13d: ``obs_live`` on the card, held to the obs soak's invariants,
+    the /readyz flips and K1/K2 once per shard on every engine tick."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    P = gateway_modules()
+    scratch = tempfile.mkdtemp(prefix="obs-live-")
+    t_phase = time.perf_counter()
+    try:
+        r = asyncio.run(obs_live(P, dev, p, scratch, n_dev, DEFAULT_TABLES, K))
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    for name, ok, detail in obs_live_checks(r):
+        check(ok, f"13d: {name}: {str(detail)[:300]}")
+    want = {name: n_dev * r["engine_ticks"] for name in r["launches"]}
+    check(r["engine_ticks"] > 0 and r["launches"] == want,
+          f"13d: launches {r['launches']} in {r['engine_ticks']} engine ticks")
+    host = next(k for k in r["steady"] if k.endswith("/host"))
+    st = r["steady"][host]
+    print(f"13d obs live: {p['clients']} clients at {p['msg_rate']:g} msg/s, an updater at "
+          f"{p['update_rate']:g}/s and {p['viewers']} viewers on SUBWORLD {host}, "
+          f"{p['entities']} entities, the guard on (the step on its worker), MeshDevices "
+          f"{n_dev}, {DEFAULT_TABLES['tpu_entity_capacity']} slots; steady {p['steady_s']:g} s: "
+          f"delivery_latency_ms {st['count']} samples, p50 {st['p50_ms']:.4f} ms, p99 "
+          f"{st['p99_ms']:.4f} ms, mean {st['mean_ms']:.4f} ms (the < 5 ms p99: "
+          f"{'met' if st['p99_ms'] < 5.0 else 'not met'}); breach window {p['breach_s']:g} s: "
+          f"breaches {r['breaches']} equal to slo_breaches_total, burn peak {r['burn_peak']}, "
+          f"{len(r['breach_dumps'])} slo_breach dumps Perfetto-valid; /readyz {r['readyz']} "
+          f"(FAILED: {r['readyz_failed']['failed_device']['detail']}; wedged WAL: "
+          f"{r['readyz_failed']['wedged_wal']['detail']}); /healthz, /introspect, "
+          f"/metrics 200; staleness samples {r['staleness_samples']}; guard {r['guard_state']}, "
+          f"device_state {r['device_state']}; chaos fires {r['chaos_fires']}; launches "
+          f"{r['launches']} in {r['engine_ticks']} engine ticks; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    print("13d delivery (count, p50 / p99 ms) over the whole run: " + "; ".join(
+        f"{k} {e['count']}, {e['p50_ms']:.4f} / {e['p99_ms']:.4f}"
+        for k, e in r["full_run"].items()))
+    return r
+
+
+def phase_trace_obs(K, dev) -> tuple:
+    """13a-13e on the cells world at MeshDevices = min(cards, 8). Returns
+    ({path: launches}, {kernel: {case: entry}})."""
+    n_dev = min(torch.cuda.device_count(), MESH_SHARDS)
+    launches, kernels = phase_trace_lockstep(K, dev, trace_lockstep_scenario(), n_dev)
+    tp, op = trace_params(), obs_params()
+    phase_trace_live(K, dev, n_dev, tp)
+    overheads = phase_overheads(K, dev, tp, op)
+    obs = phase_obs_live(K, dev, n_dev, op)
+    entries = {name: {"13a_cells_shard": kernels[name],
+                      **{f"13c_{label}_tables": o["trace"]["kernels"][name]
+                         for label, o in overheads.items()}}
+               for name in kernels}
+    return {"trace_soak": launches, "obs_soak": obs["launches"]}, entries
+
+
 def main_soaks(agents: int, entities: int) -> int:
     """Phase 12 alone (after the device and build phases):
     ``python3 chip_smoke.py --soaks 1000 4096``."""
@@ -5612,6 +7002,28 @@ def main_soaks(agents: int, entities: int) -> int:
     except PhaseFailed as e:
         print(f"FAILED: {e}")
         return 1
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main_trace_obs() -> int:
+    """Phases 1-3 and then phase 13 alone: ``python3 chip_smoke.py --trace-obs``."""
+    from channeld_tpu_torch.ops import cuda_kernels as K
+    from channeld_tpu_torch.ops import spatial_ops as ops
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t_run = time.perf_counter()
+    try:
+        name, _ = phase_device()
+        phase_build(K)
+        phase_kernels(K, ops, dev)
+        phase_trace_obs(K, dev)
+    except PhaseFailed as e:
+        print(f"FAILED: {e}")
+        return 1
+    print(f"chip_smoke --trace-obs: every phase passed in {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
@@ -5734,6 +7146,8 @@ def main() -> int:
         return main_elastic(int(sys.argv[2]), int(sys.argv[3]))
     if sys.argv[1:2] == ["--soaks"]:
         return main_soaks(int(sys.argv[2]), int(sys.argv[3]))
+    if sys.argv[1:2] == ["--trace-obs"]:
+        return main_trace_obs()
     if sys.argv[1:2] == ["--sim-child"]:
         return sim_child(sys.argv[2], *map(int, sys.argv[3:5]), *sys.argv[5:6])
     t_run = time.perf_counter()
@@ -5769,6 +7183,7 @@ def main() -> int:
         elastic_mesh_launches, elastic_mesh_entries = phase_elastic_mesh(K)
         phase_elastic_live()
         soak_launches, soak_entries = phase_soaks(K, dev)
+        trace_obs_launches, trace_obs_entries = phase_trace_obs(K, dev)
     except PhaseFailed as e:
         print(f"FAILED: {e}")
         return 1
@@ -5789,7 +7204,8 @@ def main() -> int:
                               "recovery": recovery_launches[spec.name],
                               "elastic": elastic_launches[spec.name],
                               "elastic_mesh": elastic_mesh_launches[spec.name],
-                              **{path: n[spec.name] for path, n in soak_launches.items()}},
+                              **{path: n[spec.name] for path, n in soak_launches.items()},
+                              **{path: n[spec.name] for path, n in trace_obs_launches.items()}},
             library_ms=None, **entries[spec.name],
             sim_path=dict(sim_entries[spec.name], library_ms=None),
             mesh_path=dict(mesh_entries[spec.name], launches_per_mesh_tick={
@@ -5799,6 +7215,7 @@ def main() -> int:
             elastic_mesh_path=elastic_mesh_entries.get(spec.name, {}),
             soak_path={path: {case: e[spec.name] for case, e in cases.items() if spec.name in e}
                        for path, cases in soak_entries.items()},
+            trace_obs_path=trace_obs_entries[spec.name],
         ))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": kernels}))
