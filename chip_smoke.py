@@ -9,6 +9,7 @@
     python3 chip_smoke.py --elastic 1500 120   # phases 11a and 11b alone, at another size
     python3 chip_smoke.py --soaks 1000 4096    # phase 12 alone: sim agents, sensor-soak entities
     python3 chip_smoke.py --trace-obs          # phases 1-3, then phase 13 alone
+    python3 chip_smoke.py --chaos-overload     # phases 1-3, then phase 14 alone
 
 Needs one CUDA card, nvcc, and the ``channeld_tpu_torch`` package beside
 this file; imports nothing of JAX or of ``channeld_tpu``. Phases (each
@@ -272,6 +273,43 @@ prints one line; any failure exits non-zero before the final line):
       staleness samples, /readyz 200 -> 503 -> 200 across a FAILED set
       directly (not terminal, F8) and across a wedged WAL, the guard
       ACTIVE at the end; K1 and K2 once per shard on every engine tick.
+14. the live chaos soak and the overload ladder, on the port's copies of
+    scripts/chaos_soak.py and scripts/overload_soak.py, on their cells
+    world (config/spatial_tpu_cells_2x2.json at MeshDevices = min(cards,
+    8), CellBucket 6) at the gateway's tables (1<<17 entity slots, 4,096
+    query rows), the overload ladder on, the guard, SLO plane, recorder,
+    balancer, partitioning, federation and sim plane off:
+   a. lockstep: the overload soak's world in-process on the fixed clock
+      whose ``time.sleep`` moves it (so a tick's budget utilisation, the
+      pressure and every hold of the ladder are the same numbers on both
+      legs): 128 entities jittered every tick, storms of 64 every 3 s in
+      the window, 16 clients' forwards and 4 observers at 200 ms, the
+      query plane on; the soak's scenario armed at tick 0 with a 2 s
+      warmup and a 12 s saturation window (every dispatch stalls 90 ms,
+      every 6th message 12 ms), then recovery until L0 and 1 s quiet; on
+      each of the first 3 ticks at L3 a new client's AUTH through the
+      gateway's handler. Card leg against CPU leg, every tick equal
+      (level, pressure, components, transitions, shed ledger, overflow,
+      handovers and the deferred crossings, tables, every outbound stream
+      with the ServerBusyMessage frames); each leg reaches L3 one step at a
+      time, never rises once it descends, ends at L0, sheds low-priority
+      updates and defers handovers with a ledger equal to
+      ``overload_sheds_total``, and loses no entity; 2 device reads a
+      tick; K1 and K2 once per shard a tick and exact on the live tensors
+      of the first overflowing tick and the first tick at L2+ in the window;
+   b. live: the chaos soak at its acceptance widths (24 clients at 25
+      msg/s, 160 entities, storms of 48 every 10 s, all seven fault
+      points), 50 s of traffic and 10 s quiesced, on an in-process asyncio
+      gateway with TCP listeners on loopback and the engine on ``cuda``:
+      every invariant of the soak under its own name; K1 and K2 once per
+      shard on every engine tick;
+   c. live: the overload soak at its acceptance widths (16 busy-aware
+      clients at 20 msg/s, 4 observers, 128 entities, storms of 64 every
+      6 s, a 50 ms GLOBAL budget, batch cap 4, down-hold 1 s), warmup 6
+      s, saturation 20 s, recovery up to 15 s, quiesce 4 s: every
+      invariant of the soak under its own name, the tick p99 bounded at
+      each level, the return to L0 within the deadline; K1 and K2 once
+      per shard on every engine tick.
 
 The line before the last is a JSON object with one entry per kernel
 (times measured in this run at the sidecar path's shapes; bound from
@@ -284,7 +322,9 @@ fused-centre block of the cells plane beside the unfused launch,
 ``elastic_path``/``elastic_mesh_path`` each kernel at the shapes after
 each re-grid of 11a and 11b, ``soak_path`` each at the live tensors of
 12a's stampede crowd, rotted rows and last tick and 12b's last tick,
-``trace_obs_path`` at 13a's cells shard and 13c's two tables);
+``trace_obs_path`` at 13a's cells shard and 13c's two tables,
+``chaos_overload_path`` at 14a's live tensors on its first overflowing
+tick and its first tick at L2 or above in the saturation window);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -351,6 +391,13 @@ class PhaseFailed(Exception):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise PhaseFailed(what)
+
+
+def report_failure(e: PhaseFailed) -> None:
+    """The failed check, on standard output and on standard error (whose
+    end is what a runner that keeps only the end of the log shows)."""
+    print(f"FAILED: {e}")
+    print(f"chip_smoke FAILED: {e}", file=sys.stderr)
 
 
 # ---- timing ---------------------------------------------------------------
@@ -1375,6 +1422,9 @@ class GatewayConn:
     def has_interest_in(self, ch_id: int) -> bool:
         return ch_id in self.spatial_subscriptions
 
+    def flush(self) -> None:
+        pass
+
     def has_authority_over(self, ch) -> bool:
         gch = self.P.channel.get_global_channel()
         return (gch is not None and gch.get_owner() is self) or ch.get_owner() is self
@@ -1409,7 +1459,7 @@ def gateway_modules(pkg: str = "channeld_tpu_torch") -> NS:
                  opshttp="core.opshttp", failover="core.failover",
                  spatial_pb2="protocol.spatial_pb2", spatial_messages="spatial.messages",
                  server="core.server", protocol="protocol", wire_pb2="protocol.wire_pb2",
-                 anyutil="utils.anyutil")
+                 anyutil="utils.anyutil", federation="federation")
     return NS(port=pkg == "channeld_tpu_torch",
               **{k: importlib.import_module(f"{pkg}.{v}") for k, v in names.items()})
 
@@ -1777,7 +1827,7 @@ def first_gateway_diff(a: dict, b: dict) -> Optional[str]:
     for key in ("handovers", "tables", "q", "sim", "census", "guard", "served", "ladder",
                 "overflow", "undelivered", "recovery", "elastic", "cell_msgs", "ledgers",
                 "subs", "callbacks", "standing", "ran", "spans", "stages", "readbacks",
-                "anomalies", "fires", "transfers"):
+                "anomalies", "fires", "transfers", "governor", "sheds", "deferred"):
         if a.get(key) != b.get(key):
             if key == "handovers":
                 i = next((i for i, (x, y) in enumerate(zip(a[key], b[key])) if x != y),
@@ -5767,14 +5817,15 @@ def trace_lockstep_scenario(ticks: int = 150, entities: int = 120,
                 chaos=trace_scenario(min(300, max(1, calls // 4)), min(200, max(1, ticks // 4))))
 
 
-def cells_config(n_dev: int, scratch: str) -> str:
+def cells_config(n_dev: int, scratch: str, overrides: Optional[dict] = None) -> str:
     """A copy of config/spatial_tpu_cells_2x2.json with MeshDevices = n_dev
-    (the cards present bound it: F10)."""
+    (the cards present bound it: F10) and a scenario's ``config_overrides``."""
     import os
 
     with open(TRACE_CELLS_CONFIG) as f:
         cfg = json.load(f)
     cfg["Config"]["MeshDevices"] = n_dev
+    cfg["Config"].update(overrides or {})
     path = os.path.join(scratch, "spatial_tpu_cells_2x2.json")
     with open(path, "w") as f:
         json.dump(cfg, f)
@@ -5925,8 +5976,8 @@ class TraceWorld(GatewayWorld):
         """Record each tick's handovers, time the device step (the engine's
         tick up to its handover list, where the host waits for the card)
         on the host's perf_counter, and, in the port, count the engine's
-        device-to-host transfers: the consume blob's fetch and each
-        ``interest_rows``."""
+        device-to-host transfers: the consume blob's fetch, each
+        ``interest_rows`` and the query plane's changed-rows fetch."""
         eng = self.eng
         tick, handover_list = eng.tick, eng.handover_list
         started = []
@@ -5954,7 +6005,14 @@ class TraceWorld(GatewayWorld):
                 self.transfers += 1
                 return interest_rows(result, q_rows)
 
+            changed_rows = eng.query_changed_rows
+
+            def counted_changed(result):
+                self.transfers += isinstance(result.get("query_blob"), torch.Tensor)
+                return changed_rows(result)
+
             eng.consume, eng.interest_rows = counted_consume, counted_rows
+            eng.query_changed_rows = counted_changed
 
     def drive(self, t: int) -> None:
         P, sim = self.P, self.sim
@@ -6104,21 +6162,49 @@ async def soak_auth(P, reader, writer, pit: str, timeout: float = 5.0) -> None:
             return
 
 
-async def soak_boot_world(P, host: str, server_port: int, stop) -> list:
-    """scripts/chaos_soak.py's _boot_world: the master possesses GLOBAL and
-    4 spatial servers claim their blocks through CREATE_CHANNEL over TCP;
-    returns the drain task and the streams of each socket (a stream writer
-    nothing refers to closes its socket) once all 16 cells are owned."""
+class SoakStats:
+    """scripts/chaos_soak.py's SoakStats: the forwards each client wrote and
+    each client's sequence numbers the master drained, and the clients'
+    outages."""
+
+    def __init__(self):
+        self.client_sent: dict = {}
+        self.drained: dict = {}
+        self.disconnects = self.reconnects = self.auth_retries = 0
+        self.recovery_latencies: list = []
+
+
+async def soak_boot_world(P, host: str, server_port: int, stats: SoakStats, stop) -> list:
+    """scripts/chaos_soak.py's _boot_world: the master possesses GLOBAL (its
+    drain unpacks every routed forward into ``stats.drained``) and 4 spatial
+    servers claim their blocks through CREATE_CHANNEL over TCP; returns the
+    drain task and the streams of each socket (a stream writer nothing
+    refers to closes its socket) once all 16 cells are owned."""
     import asyncio
+    import struct
+
+    from google.protobuf.message import DecodeError
 
     MT, CT = P.types.MessageType, P.types.ChannelType
+
+    def on_master_pack(mp) -> None:
+        if mp.msgType < 100:
+            return
+        sfm = P.wire_pb2.ServerForwardMessage()
+        try:  # a corrupted frame's remains are skipped, as the script skips them
+            sfm.ParseFromString(mp.msgBody)
+            cid, seq = struct.unpack("<II", sfm.payload[:8])
+        except (DecodeError, struct.error):
+            return
+        stats.drained.setdefault(cid, []).append(seq)
+
     socks = []
     reader, writer = await asyncio.open_connection(host, server_port)
     await soak_auth(P, reader, writer, "soak-master")
     writer.write(soak_frame(P, MT.CREATE_CHANNEL, P.control_pb2.CreateChannelMessage(
         channelType=CT.GLOBAL).SerializeToString()))
     await writer.drain()
-    socks.append((asyncio.ensure_future(soak_read_frames(P, reader, lambda mp: None, stop)),
+    socks.append((asyncio.ensure_future(soak_read_frames(P, reader, on_master_pack, stop)),
                   reader, writer))
     for i in range(4):
         r, w = await asyncio.open_connection(host, server_port)
@@ -6140,25 +6226,30 @@ async def soak_boot_world(P, host: str, server_port: int, stop) -> list:
     raise RuntimeError("spatial world failed to come up")
 
 
-async def soak_client_loop(P, idx: int, host: str, port: int, rate: float, sent: dict, stop,
-                           send_stop) -> None:
+async def soak_client_loop(P, idx: int, host: str, port: int, rate: float, stats: SoakStats,
+                           stop, send_stop) -> None:
     """scripts/chaos_soak.py's _client_loop: connect, auth, stream
-    sequence-stamped forwards at ``rate``; reconnect when the socket dies."""
+    sequence-stamped forwards at ``rate``; reconnect when the socket dies,
+    counting the outage and its recovery latency in ``stats``."""
     import asyncio
 
-    seq, interval = 0, 1.0 / rate
+    seq, interval, disconnected_at = 0, 1.0 / rate, None
     while not stop.is_set():
         writer = None
         try:
             reader, writer = await asyncio.open_connection(host, port)
             await soak_auth(P, reader, writer, f"soak-client-{idx}", timeout=1.5)
         except (ConnectionError, OSError, TimeoutError):
+            stats.auth_retries += 1
             if writer is not None:
                 writer.close()
             await asyncio.sleep(0.1)
             continue
+        if disconnected_at is not None:
+            stats.recovery_latencies.append(time.monotonic() - disconnected_at)
+            stats.reconnects += 1
+            disconnected_at = None
         reader_task = asyncio.ensure_future(soak_read_frames(P, reader, lambda mp: None, stop))
-        failed = False
         try:
             while not stop.is_set():
                 if reader_task.done():
@@ -6169,15 +6260,29 @@ async def soak_client_loop(P, idx: int, host: str, port: int, rate: float, sent:
                 writer.write(soak_frame(P, 100, np.array([idx, seq], "<u4").tobytes()))
                 await writer.drain()
                 seq += 1
-                sent[idx] = sent.get(idx, 0) + 1
+                stats.client_sent[idx] = stats.client_sent.get(idx, 0) + 1
                 await asyncio.sleep(interval)
         except (ConnectionError, OSError):
-            failed = True
+            stats.disconnects += 1
+            disconnected_at = time.monotonic()
         finally:
             reader_task.cancel()
             writer.close()
-        if not failed:
+        if disconnected_at is None:
             break
+
+
+async def live_listeners(P, host: str) -> tuple:
+    """The SERVER and CLIENT TCP listeners on ephemeral ports of ``host``,
+    and the flush pump's and the unauthenticated-connection reaper's
+    tasks: (server listener, client listener, tasks)."""
+    import asyncio
+
+    CT = P.types.ConnectionType
+    server_srv = await P.server.start_listening(CT.SERVER, "tcp", f"{host}:0")
+    client_srv = await P.server.start_listening(CT.CLIENT, "tcp", f"{host}:0")
+    return server_srv, client_srv, [asyncio.ensure_future(P.server.flush_loop()),
+                                    asyncio.ensure_future(P.ddos.unauth_reaper_loop())]
 
 
 def stage_stats(P, d: dict) -> dict:
@@ -6250,22 +6355,19 @@ async def trace_live(P, dev: torch.device, p: dict, scratch: str, n_dev: int, ta
     before = K.launch_counts() if K is not None else None
     baseline = P.invariants.scrape()
     P.chaos.arm(p["scenario"])
-    CT = P.types.ConnectionType
     host = "127.0.0.1"
-    server_srv = await P.server.start_listening(CT.SERVER, "tcp", f"{host}:0")
-    client_srv = await P.server.start_listening(CT.CLIENT, "tcp", f"{host}:0")
+    server_srv, client_srv, tasks = await live_listeners(P, host)
     client_port = client_srv.sockets[0].getsockname()[1]
     stop, send_stop = asyncio.Event(), asyncio.Event()
-    tasks = [asyncio.ensure_future(P.server.flush_loop()),
-             asyncio.ensure_future(P.ddos.unauth_reaper_loop())]
-    sent: dict = {}
+    stats = SoakStats()
     try:
-        servers = await soak_boot_world(P, host, server_srv.sockets[0].getsockname()[1], stop)
+        servers = await soak_boot_world(P, host, server_srv.sockets[0].getsockname()[1], stats,
+                                        stop)
         tasks += [task for task, _, _ in servers]
         sim = EntitySim(P, ctl, p["entities"], p["storm_size"], Random(p["seed"] ^ 0x7247))
         sim.create_entities()
         tasks += [asyncio.ensure_future(soak_client_loop(
-            P, i, host, client_port, p["msg_rate"], sent, stop, send_stop))
+            P, i, host, client_port, p["msg_rate"], stats, stop, send_stop))
             for i in range(p["clients"])]
         deadline, followers = time.monotonic() + 10.0, 0
         while time.monotonic() < deadline and followers < p["followers"]:
@@ -6309,7 +6411,7 @@ async def trace_live(P, dev: torch.device, p: dict, scratch: str, n_dev: int, ta
             follower_readbacks_total=int(total(d, "follower_readbacks_total")),
             batched_ingest=batched_ingest(P),
             followers=followers, recorder=recorder.stats(), chaos_fires=fires,
-            clients=p["clients"], entities=p["entities"], frames_sent=sum(sent.values()),
+            clients=p["clients"], entities=p["entities"], frames_sent=sum(stats.client_sent.values()),
             engine_ticks=engine_ticks[0],
             launches=({n: c - before[n] for n, c in K.launch_counts().items()}
                       if K is not None else None))
@@ -6606,22 +6708,20 @@ async def obs_live(P, dev: torch.device, p: dict, scratch: str, n_dev: int, tabl
     ops = P.opshttp.serve_ops(0, host="127.0.0.1")
     inv = P.invariants
     baseline = inv.scrape()
-    CT, MT = P.types.ConnectionType, P.types.MessageType
+    MT = P.types.MessageType
     host = "127.0.0.1"
-    server_srv = await P.server.start_listening(CT.SERVER, "tcp", f"{host}:0")
-    client_srv = await P.server.start_listening(CT.CLIENT, "tcp", f"{host}:0")
+    server_srv, client_srv, tasks = await live_listeners(P, host)
     client_port = client_srv.sockets[0].getsockname()[1]
     stop, send_stop = asyncio.Event(), asyncio.Event()
-    tasks = [asyncio.ensure_future(P.server.flush_loop()),
-             asyncio.ensure_future(P.ddos.unauth_reaper_loop())]
-    sent: dict = {}
+    stats = SoakStats()
     try:
-        servers = await soak_boot_world(P, host, server_srv.sockets[0].getsockname()[1], stop)
+        servers = await soak_boot_world(P, host, server_srv.sockets[0].getsockname()[1], stats,
+                                        stop)
         tasks += [task for task, _, _ in servers]
         sim = EntitySim(P, ctl, p["entities"], 20, Random(p["seed"] ^ 0x0b5))
         sim.create_entities()
         tasks += [asyncio.ensure_future(soak_client_loop(
-            P, i, host, client_port, p["msg_rate"], sent, stop, send_stop))
+            P, i, host, client_port, p["msg_rate"], stats, stop, send_stop))
             for i in range(p["clients"])]
         sub_ch = P.channel.create_channel(P.types.ChannelType.SUBWORLD, None)
         sub_ch.init_data(P.sim_pb2.SimSpatialChannelData(), None)
@@ -6724,7 +6824,7 @@ async def obs_live(P, dev: torch.device, p: dict, scratch: str, n_dev: int, tabl
             readyz=readyz["codes"], readyz_flip_ok=readyz["flip_ok"],
             readyz_failed=readyz, healthz_ok=healthz_ok, introspect_ok=introspect_ok,
             metrics_ok=metrics_ok, ops_port=ops.port, chaos_fires=fires, clients=p["clients"],
-            viewers=p["viewers"], frames_sent=sum(sent.values()),
+            viewers=p["viewers"], frames_sent=sum(stats.client_sent.values()),
             guard_state=guard.state.name, device_state=int(P.metrics.device_state._value.get()),
             engine_ticks=engine_ticks[0],
             launches=({n: c - before[n] for n, c in K.launch_counts().items()}
@@ -6988,6 +7088,975 @@ def phase_trace_obs(K, dev) -> tuple:
     return {"trace_soak": launches, "obs_soak": obs["launches"]}, entries
 
 
+# ---- phase 14: the live chaos soak and the overload ladder -------------------
+
+SOAK_SCENARIO_SEED = 20260803  # both scripts' scenarios
+# The gateway's device tables, which phase 14 runs in place of the soaks' 256 / 32.
+GATEWAY_CAPACITIES = dict(entity_capacity=DEFAULT_TABLES["tpu_entity_capacity"],
+                          query_capacity=DEFAULT_TABLES["tpu_query_capacity"])
+
+
+def chaos_scenario() -> dict:
+    """scripts/chaos_soak.py's DEFAULT_SCENARIO: an undersized cells-plane
+    bucket, and transport resets, truncated and corrupt frames, EOF races,
+    fake queue-full bursts, tick-budget and device-dispatch stalls."""
+    return {"name": "cells-soak", "seed": SOAK_SCENARIO_SEED,
+            "config_overrides": {"CellBucket": 6}, "faults": [
+                {"point": "transport.reset", "every_n": 700, "max_fires": 30},
+                {"point": "transport.truncate", "every_n": 1150, "max_fires": 15},
+                {"point": "transport.corrupt", "every_n": 1400, "max_fires": 15},
+                {"point": "connection.eof_race", "every_n": 1800, "max_fires": 10},
+                {"point": "connection.queue_full", "every_n": 900, "burst": 3},
+                {"point": "channel.tick_budget", "every_n": 500, "stall_ms": 15, "max_fires": 60},
+                {"point": "device.dispatch_stall", "every_n": 90, "stall_ms": 40,
+                 "max_fires": 40}]}
+
+
+def chaos_params(**kw) -> dict:
+    """scripts/chaos_soak.py's SoakParams (its paths apart)."""
+    return dict(dict(duration_s=120.0, clients=24, entities=160, msg_rate=25.0,
+                     storm_every_s=10.0, storm_size=48, recovery_deadline_s=8.0,
+                     tick_p99_bound_s=1.5, quiesce_s=10.0, entity_capacity=256,
+                     query_capacity=32, scenario=chaos_scenario()), **kw)
+
+
+def overload_params(**kw) -> dict:
+    """scripts/overload_soak.py's OverloadSoakParams (its paths and scenario
+    apart: ``overload_scenario`` makes that from these)."""
+    return dict(dict(warmup_s=10.0, saturation_s=35.0, recover_deadline_s=15.0, quiesce_s=6.0,
+                     clients=16, observers=4, entities=128, msg_rate=20.0, storm_every_s=6.0,
+                     storm_size=64, handover_batch_cap=4, down_hold_s=1.0, global_tick_ms=50,
+                     tick_p99_bounds=(1.0, 1.5, 2.0, 2.0), entity_capacity=256,
+                     query_capacity=32, require_handover_defer=True,
+                     require_update_priority=True), **kw)
+
+
+def overload_scenario(p: dict) -> dict:
+    """scripts/overload_soak.py's default_scenario(p): the saturation window
+    [warmup, warmup + saturation) of the clock since arming, in which every
+    device dispatch stalls 1.8 GLOBAL budgets and every 6th message handler
+    12 ms, and transport resets from 2 s into it."""
+    t0, t1 = p["warmup_s"], p["warmup_s"] + p["saturation_s"]
+    return {"name": "overload-saturation", "seed": SOAK_SCENARIO_SEED,
+            "config_overrides": {"CellBucket": 6}, "faults": [
+                {"point": "device.dispatch_stall", "every_n": 1,
+                 "stall_ms": round(p["global_tick_ms"] * 1.8), "start_at_s": t0,
+                 "stop_at_s": t1},
+                {"point": "channel.tick_budget", "every_n": 6, "stall_ms": 12,
+                 "start_at_s": t0, "stop_at_s": t1},
+                {"point": "transport.reset", "every_n": 150, "start_at_s": t0 + 2.0,
+                 "stop_at_s": t1}]}
+
+
+def overload_lockstep_params(**kw) -> dict:
+    """14a: the overload soak's widths on a fixed clock: a warmup of 2 s and
+    a saturation window of 12 s of that clock (the stalls move it) with a
+    storm every 3 s, then recovery until L0 (at most ``recover_deadline_s``)
+    and ``quiesce_s`` without traffic; at most ``max_ticks`` GLOBAL ticks."""
+    return overload_params(**dict(dict(warmup_s=2.0, saturation_s=12.0, storm_every_s=3.0,
+                                       quiesce_s=1.0, max_ticks=400), **kw))
+
+
+def ladder_pins(P, dev, p: dict, global_ms: tuple, cell_ms: tuple, queryplane: bool) -> None:
+    """The chaos and overload soaks' pins: development mode; the balancer,
+    partitioning, the device guard, the SLO plane, the flight recorder and
+    federation off; the ladder on; the query plane ``queryplane`` and the
+    sim plane off; GLOBAL ``global_ms`` and SPATIAL and ENTITY ``cell_ms``
+    (tick, fan-out interval in ms); the device tables of ``p``; the engine
+    on ``dev``."""
+    s = P.settings.global_settings
+    s.development = True
+    if P.port:
+        s.spatial_device = dev.type
+    s.balancer_enabled = s.partition_enabled = False
+    s.device_guard_enabled = s.slo_enabled = s.trace_enabled = False
+    P.tracing.recorder.configure(enabled=False)
+    P.federation.reset_federation()
+    s.federation_config = ""
+    s.overload_enabled = True
+    s.queryplane_enabled = queryplane
+    s.sim_enabled = False
+    s.tpu_entity_capacity, s.tpu_query_capacity = p["entity_capacity"], p["query_capacity"]
+    cs, ct = P.settings.ChannelSettings, P.types.ChannelType
+    s.channel_settings = {
+        ct.GLOBAL: cs(tick_interval_ms=global_ms[0], default_fanout_interval_ms=global_ms[1]),
+        ct.SPATIAL: cs(tick_interval_ms=cell_ms[0], default_fanout_interval_ms=cell_ms[1]),
+        ct.ENTITY: cs(tick_interval_ms=cell_ms[0], default_fanout_interval_ms=cell_ms[1])}
+
+
+def overload_pins(P, dev, p: dict) -> None:
+    """scripts/overload_soak.py's pins: ``ladder_pins`` with GLOBAL at the
+    budget ``global_tick_ms`` (fan-out 50 ms), SPATIAL and ENTITY at twice it
+    (fan-out 100 ms), the query plane at its default (on), and the ladder's
+    down-hold and handover batch cap from ``p``."""
+    tick = p["global_tick_ms"]
+    ladder_pins(P, dev, p, (tick, 50), (2 * tick, 100), queryplane=True)
+    s = P.settings.global_settings
+    s.overload_down_hold_s = p["down_hold_s"]
+    s.overload_handover_batch_cap = p["handover_batch_cap"]
+
+
+def soak_census(P, ctl, entity_ids: list) -> dict:
+    """Both soaks' zero-loss books: entities neither in a device slot nor
+    tracked on the host, and entities in no spatial channel's data or in
+    more than one."""
+    s = P.settings.global_settings
+    placement: dict = {}
+    for cid, ch in P.channel.all_channels().items():
+        if not s.spatial_channel_id_start <= cid < s.entity_channel_id_start:
+            continue
+        for eid in getattr(ch.get_data_message(), "entities", None) or ():
+            placement[eid] = placement.get(eid, 0) + 1
+    return dict(
+        lost_tracking=[e for e in entity_ids
+                       if ctl.engine.slot_of_entity(e) is None and e not in ctl._last_positions],
+        missing=[e for e in entity_ids if placement.get(e, 0) == 0],
+        duped=[e for e in entity_ids if placement.get(e, 0) > 1])
+
+
+def metric_sheds(d: dict) -> dict:
+    """{reason: count} of ``overload_sheds_total`` in a scrape delta (a zero
+    delta is a label an earlier run registered: nothing shed)."""
+    return {dict(labels)["reason"]: int(value) for (name, labels), value in d.items()
+            if name == "overload_sheds_total" and value}
+
+
+class LateConn(GatewayConn):
+    """A client stub whose AUTH arrives while the ladder is at L3: keeps the
+    types of the messages it is sent."""
+
+    def __init__(self, P, conn_id: int):
+        super().__init__(P, conn_id, "CLIENT")
+        self.state = P.types.ConnectionState.UNAUTHENTICATED
+        self.msg_types: list = []
+
+    def send(self, ctx) -> None:
+        super().send(ctx)
+        self.msg_types.append(ctx.msg_type)
+
+
+class OverloadWorld(GatewayWorld):
+    """14a: scripts/overload_soak.py's world in-process on a fixed clock
+    (``StallClock``), through one package's modules ``P``: the cells world
+    (``config``, with the scenario's CellBucket 6), the master owning GLOBAL
+    and the 4 servers claiming the cells, the soak's ``EntitySim`` entities
+    (a jitter step a tick; a storm every ``storm_every_s`` inside the
+    saturation window until 6 s before it closes, the last crowd dispersed
+    when it closes), ``clients`` stub clients each sending one
+    sequence-stamped forward to the master a tick (20 msg/s at a 50 ms
+    tick), ``observers`` stub clients subscribed READ at 200 ms to spatial
+    channels ``start + idx % 16`` (priority 2: the first the L2 shed
+    withholds), the overload soak's pins, and ``overload_scenario(p)`` armed
+    at tick 0. Each tick advances the clock one GLOBAL budget and ticks
+    every entity channel, GLOBAL (the controller) and every spatial channel
+    once; on each of the first 3 ticks at L3 a new stub client's AUTH goes
+    through the package's own handler on GLOBAL. Records per tick the
+    ladder, the shed ledger, the overflow, the handovers (the deferred
+    ones too), the tables and every outbound stream."""
+
+    ADMISSIONS = 3
+
+    def __init__(self, P, dev: torch.device, clock, p: dict, config: str, K=None):
+        from random import Random
+
+        self.P, self.dev, self.clock, self.p, self.K = P, dev, clock, p, K
+        reset_gateway(P)
+        overload_pins(P, dev, p)
+        P.message.init_message_map()
+        P.channel.init_channels()
+        P.sim_models.register_sim_types()
+        P.controller.init_spatial_controller(config)
+        ctl = self.ctl = P.controller.get_spatial_controller()
+        self.eng = ctl.engine
+        if P.port:
+            check(self.eng.device.type == dev.type, f"the engine is on {self.eng.device}, not {dev}")
+        self.conns: list = []
+        self._servers()
+        self.gch = P.channel.get_global_channel()
+        self.sim = EntitySim(P, ctl, p["entities"], p["storm_size"],
+                             Random(SOAK_SCENARIO_SEED ^ 0x0F0F))
+        self.sim.create_entities()
+        self.entity_channels = [P.channel.get_channel(e) for e in self.sim.entity_ids]
+        self.clients = [self.conn(1000 + i, "CLIENT") for i in range(p["clients"])]
+        start = P.settings.global_settings.spatial_channel_id_start
+        for idx in range(p["observers"]):
+            P.sub.subscribe_to_channel(
+                self.conn(2000 + idx, "CLIENT"), P.channel.get_channel(start + idx % 16),
+                P.control_pb2.ChannelSubscriptionOptions(
+                    dataAccess=P.types.ChannelDataAccess.READ_ACCESS, fanOutIntervalMs=200))
+        self.seq = [0] * p["clients"]
+        self.late: list = []
+        self.crowd: list = []
+        self.storm_at = p["warmup_s"] + 1.0
+        self.traffic = True
+        self.handovers, self.step_ms = [], []
+        self.transfers = 0
+        self._wrap()
+        self.baseline = P.invariants.scrape()
+        P.chaos.arm(overload_scenario(p))
+        self.armed_at = time.monotonic()
+
+    _wrap = TraceWorld._wrap
+
+    def now(self) -> float:
+        """Seconds of the fixed clock since the scenario was armed."""
+        return time.monotonic() - self.armed_at
+
+    def drive(self, t: int) -> None:
+        P, sim, p = self.P, self.sim, self.p
+        if not self.traffic:
+            return
+        now = self.now()
+        sim.jitter_step()
+        sat_close = p["warmup_s"] + p["saturation_s"]
+        if p["warmup_s"] <= now < sat_close - max(p["storm_every_s"], 6.0) and now >= self.storm_at:
+            if self.crowd:
+                sim.disperse(self.crowd)
+            self.crowd = sim.storm_gather()
+            self.storm_at += p["storm_every_s"]
+        elif now >= sat_close and self.crowd:
+            sim.disperse(self.crowd)
+            self.crowd = []
+        handler = P.message.handle_client_to_server_user_message
+        for i, client in enumerate(self.clients):
+            msg = P.wire_pb2.ServerForwardMessage(
+                clientConnId=client.id, payload=np.array([i, self.seq[i]], "<u4").tobytes())
+            self.gch.put_message(msg, handler, client, P.wire_pb2.MessagePack(channelId=0,
+                                                                              msgType=100))
+            self.seq[i] += 1
+        if P.overload.governor.level >= 3 and len(self.late) < self.ADMISSIONS:
+            late = LateConn(P, 3000 + len(self.late))
+            P.connection._all_connections[late.id] = late
+            self.conns.append(late)
+            self.late.append(late)
+            self.gch.put_message(
+                P.control_pb2.AuthMessage(playerIdentifierToken=f"ov-late-{len(self.late)}",
+                                          loginToken="soak"),
+                P.message.handle_auth, late,
+                P.wire_pb2.MessagePack(channelId=0, msgType=P.types.MessageType.AUTH))
+
+    def tick(self, t: int) -> dict:
+        P, K, ctl = self.P, self.K, self.ctl
+        self.clock.advance(self.p["global_tick_ms"] / 1000.0)
+        self.drive(t)
+        now = time.monotonic_ns()
+        chans = P.channel.all_channels()
+        cuda = self.dev.type == "cuda"
+        crossings, transfers = len(self.handovers), self.transfers
+        fires = P.chaos.chaos.fire_counts()
+        overflow = P.metrics.tpu_cell_overflow_total._value.get()
+        before = K.launch_counts() if K is not None else None
+        sync(self.dev)
+        with (Reads() if cuda else contextlib.nullcontext()) as reads:
+            t0 = time.perf_counter()
+            for ch in self.entity_channels:
+                ch.tick_once(now)
+            self.gch.tick_once(now)
+            for cid in self.spatial:
+                chans[cid].tick_once(now)
+            t1 = time.perf_counter()
+        tables = hashlib.sha256()
+        for cid in self.spatial:
+            tables.update(chans[cid].get_data_message().SerializeToString(deterministic=True))
+        gov = P.overload.governor
+        obs = dict(
+            handovers=[r for rows in self.handovers[crossings:] for r in rows],
+            deferred=sorted(ctl._deferred_crossings),
+            tables=tables.hexdigest(),
+            sent={c.id: (c.count, c.digest.hexdigest()) for c in self.conns},
+            governor=(int(gov.level), gov.pressure, sorted(gov.components.items()),
+                      [(d["from"], d["to"], d["t"], d["pressure"]) for d in gov.transitions]),
+            sheds=dict(sorted(gov.shed_counts.items())),
+            overflow=int(P.metrics.tpu_cell_overflow_total._value.get() - overflow),
+            fires={p: n - fires.get(p, 0) for p, n in P.chaos.chaos.fire_counts().items()
+                   if n != fires.get(p, 0)},
+            transfers=self.transfers - transfers if P.port else None,
+            tick_ms=(t1 - t0) * 1e3, reads=reads.count if cuda else None)
+        if K is not None:
+            obs["launches"] = {n: c - before[n] for n, c in K.launch_counts().items()}
+        return obs
+
+    def close(self) -> None:
+        self.P.chaos.disarm()
+        reset_gateway(self.P)
+
+
+def run_overload_lockstep(P, dev: torch.device, p: dict, config: str, K=None) -> tuple:
+    """One leg of 14a: (per-tick observations, report). The saturation
+    window [warmup, warmup + saturation) of the armed clock, then recovery
+    until L0 (or ``recover_deadline_s`` past the window's close), then
+    ``quiesce_s`` without traffic; at most ``max_ticks`` ticks. With ``K``,
+    K1 and K2 are held against their plain versions on the live tensors
+    after the first tick whose bucket overflows and the first tick at L2 or
+    above inside the window."""
+    t_leg = time.perf_counter()
+    sat_close = p["warmup_s"] + p["saturation_s"]
+    with StallClock() as clock:
+        world = OverloadWorld(P, dev, clock, p, config, K)
+        if K is not None:
+            K.reset_launch_counts()
+        obs: list = []
+        kernels: dict = {}
+        quiet_at = closed_at = recovered_at = None
+        while len(obs) < p["max_ticks"]:
+            o = world.tick(len(obs))
+            obs.append(o)
+            now, level = world.now(), o["governor"][0]
+            if K is not None:
+                if o["overflow"] and "overflow" not in kernels:
+                    kernels["overflow"] = uncounted(
+                        K, lambda: elastic_live_kernels(K, world.eng, (4, 4)))
+                if level >= 2 and now < sat_close and "saturation" not in kernels:
+                    kernels["saturation"] = uncounted(
+                        K, lambda: elastic_live_kernels(K, world.eng, (4, 4)))
+            if closed_at is None and now >= sat_close:
+                closed_at = len(obs) - 1
+            if quiet_at is None and closed_at is not None and (
+                    level == 0 or now - sat_close >= p["recover_deadline_s"]):
+                world.traffic, quiet_at = False, now
+                recovered_at = len(obs) - 1 if level == 0 else None
+            elif quiet_at is not None and now - quiet_at >= p["quiesce_s"]:
+                break
+        inv, gov = P.invariants, P.overload.governor
+        msg_busy = P.types.MessageType.SERVER_BUSY
+        report = dict(
+            census=soak_census(P, world.ctl, world.sim.entity_ids),
+            metric_sheds=metric_sheds(inv.delta(inv.scrape(), world.baseline)),
+            shed_counts=dict(gov.shed_counts),
+            transitions=[(d["from"], d["to"], d["t"]) for d in gov.transitions],
+            admitted=len(world.late),
+            busy_frames=sum(t == msg_busy for c in world.late for t in c.msg_types),
+            late_closed=all(c.is_closing() for c in world.late),
+            fires=P.chaos.chaos.fire_counts(), closed_at=closed_at, recovered_at=recovered_at,
+            seconds=world.now(), kernels=kernels,
+            launches=K.launch_counts() if K is not None else None,
+            n_shards=world.eng._mesh.size if getattr(world.eng, "_mesh", None) else 1)
+        world.close()
+        del world
+    report["secs"] = time.perf_counter() - t_leg
+    return obs, report
+
+
+def overload_lockstep_checks(obs: list, r: dict) -> list:
+    """14a's invariants of one leg, as (name, held, detail): the ladder
+    reached L2 and L3, one step at a time, never rose once it began to
+    descend, and was at L0 by the end; the shed ledger equals
+    ``overload_sheds_total`` per reason; the low-priority update shed and a
+    handover deferral fired; each late client got one ServerBusyMessage,
+    counted as ``admission_connection``, and was closed; no entity lost or
+    duplicated."""
+    levels = [o["governor"][0] for o in obs]
+    steps = [to - frm for frm, to, _ in r["transitions"]]
+    descent = next((i for i, s in enumerate(steps) if s < 0), len(steps))
+    sheds, census = r["shed_counts"], r["census"]
+    return [
+        ("ladder_reached_at_least_L2", max(levels, default=0) >= 2, max(levels, default=0)),
+        ("ladder_reached_L3", max(levels, default=0) == 3, max(levels, default=0)),
+        ("ladder_moves_one_step_at_a_time", all(abs(s) == 1 for s in steps), steps),
+        ("no_rise_after_the_descent_began", all(s < 0 for s in steps[descent:]), steps),
+        ("at_L0_by_the_end", bool(levels) and levels[-1] == 0 and r["recovered_at"] is not None,
+         (levels[-1:], r["recovered_at"])),
+        ("shed_accounting_exact", r["metric_sheds"] == sheds, (r["metric_sheds"], sheds)),
+        ("low_priority_updates_shed", sheds.get("update_priority", 0) > 0, sheds),
+        ("handover_deferred", sheds.get("handover_defer", 0) > 0, sheds),
+        ("l3_admissions_refused_with_server_busy",
+         r["admitted"] == OverloadWorld.ADMISSIONS and r["late_closed"]
+         and r["busy_frames"] == sheds.get("admission_connection", 0) == r["admitted"],
+         (r["admitted"], r["busy_frames"], sheds.get("admission_connection", 0))),
+        ("no_lost_entity_tracking", census["lost_tracking"] == [], census["lost_tracking"]),
+        ("every_entity_in_exactly_one_cell", (census["missing"], census["duped"]) == ([], []),
+         (census["missing"], census["duped"]))]
+
+
+def tick_buckets(samples: dict) -> dict:
+    """scripts/overload_soak.py's _tick_buckets: {le: cumulative count} of
+    the GLOBAL ``channel_tick_duration`` histogram in a scrape."""
+    out = {}
+    for (name, labels), value in samples.items():
+        ld = dict(labels)
+        if name == "channel_tick_duration_bucket" and ld.get("channel_type") == "GLOBAL":
+            le = ld.get("le")
+            out[float("inf") if le == "+Inf" else float(le)] = value
+    return out
+
+
+def bucket_p99(buckets: dict) -> Optional[float]:
+    """scripts/overload_soak.py's _bucket_p99: the p99 of cumulative buckets,
+    interpolated inside the bucket that holds it (None when empty)."""
+    if not buckets:
+        return None
+    items = sorted(buckets.items())
+    total = items[-1][1]
+    if total <= 0:
+        return None
+    target = 0.99 * total
+    prev_le, prev_n = 0.0, 0.0
+    for le, n in items:
+        if n >= target:
+            if le == float("inf"):
+                return prev_le
+            span = n - prev_n
+            return prev_le + (le - prev_le) * ((target - prev_n) / span if span > 0 else 1.0)
+        prev_le, prev_n = le, n
+    return items[-1][0]
+
+
+async def chaos_live(P, dev: torch.device, p: dict, scratch: str, n_dev: int, K=None) -> dict:
+    """14b: scripts/chaos_soak.py's run_soak through one package's gateway,
+    in-process on this asyncio loop: TCP listeners on loopback, the flush
+    pump, the master (its drain counting every routed forward) and 4 spatial
+    servers, ``clients`` clients streaming sequence-stamped forwards and
+    reconnecting through every fault, the soak's entities with a storm every
+    ``storm_every_s`` on the cells world at MeshDevices ``n_dev`` (with the
+    scenario's CellBucket), the engine on ``dev``, the soak's pins (the
+    ladder on), the scenario armed for ``duration_s - quiesce_s``, then
+    ``quiesce_s`` disarmed. Returns the soak's books, plus the ladder's peak,
+    the engine's ticks and (with ``K``) the kernels' launches."""
+    import asyncio
+    from random import Random
+
+    reset_gateway(P)
+    ladder_pins(P, dev, p, (33, 50), (50, 100), queryplane=False)
+    P.sim_models.register_sim_types()
+    P.connection.init_connections(SERVER_FSM, CLIENT_FSM)
+    P.channel.init_channels()
+    P.ddos.init_anti_ddos()
+    scn = p["scenario"]
+    P.controller.init_spatial_controller(cells_config(n_dev, scratch, scn.get("config_overrides")))
+    ctl = P.controller.get_spatial_controller()
+    engine_ticks = engine_tick_counter(ctl.engine)
+    before = K.launch_counts() if K is not None else None
+    inv = P.invariants
+    baseline = inv.scrape()
+    P.chaos.arm(scn)
+    host = "127.0.0.1"
+    stop, send_stop = asyncio.Event(), asyncio.Event()
+    server_srv, client_srv, tasks = await live_listeners(P, host)
+    stats = SoakStats()
+    try:
+        servers = await soak_boot_world(P, host, server_srv.sockets[0].getsockname()[1], stats,
+                                        stop)
+        tasks += [task for task, _, _ in servers]
+        sim = EntitySim(P, ctl, p["entities"], p["storm_size"],
+                        Random(scn.get("seed", 0) ^ 0x50AC))
+        sim.create_entities()
+        client_port = client_srv.sockets[0].getsockname()[1]
+        tasks += [asyncio.ensure_future(soak_client_loop(
+            P, i, host, client_port, p["msg_rate"], stats, stop, send_stop))
+            for i in range(p["clients"])]
+        traffic_s = max(p["duration_s"] - p["quiesce_s"], 1.0)
+        storm_at, crowd = p["storm_every_s"], []
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < traffic_s:
+            sim.jitter_step()
+            now = time.monotonic() - t0
+            if now >= storm_at:
+                if crowd:
+                    sim.disperse(crowd)
+                    crowd = []
+                # No storm in the final stretch: crossings settle before the books.
+                if now < traffic_s - max(p["storm_every_s"] * 0.8, 6.0):
+                    crowd = sim.storm_gather()
+                storm_at += p["storm_every_s"]
+            await asyncio.sleep(0.1)
+        if crowd:
+            sim.disperse(crowd)
+        send_stop.set()
+        fires = dict(P.chaos.chaos.fire_counts())
+        P.chaos.disarm()
+        await asyncio.sleep(p["quiesce_s"])
+        d = inv.delta(inv.scrape(), baseline)
+        gov = P.overload.governor
+        return dict(
+            soak_census(P, ctl, sim.entity_ids),
+            received=int(inv.sample_total(d, "messages_in_total", conn_type="CLIENT",
+                                          msg_type="100")),
+            drained=sum(len(v) for v in stats.drained.values()),
+            sent=sum(stats.client_sent.values()),
+            disordered=[cid for cid, seqs in stats.drained.items()
+                        if any(b <= a for a, b in zip(seqs, seqs[1:]))],
+            recovery_latencies=list(stats.recovery_latencies), disconnects=stats.disconnects,
+            reconnects=stats.reconnects, auth_retries=stats.auth_retries,
+            global_tick_p99_s=inv.histogram_quantile(d, "channel_tick_duration", 0.99,
+                                                     channel_type="GLOBAL"),
+            device_step_p99_s=inv.histogram_quantile(d, "tpu_spatial_step_seconds", 0.99),
+            overflow=int(inv.sample_total(d, "tpu_cell_overflow_entities_total")),
+            handovers=int(inv.sample_total(d, "handovers_total")),
+            fires=fires, points=[r["point"] for r in scn["faults"]],
+            peak_level=max((t["to"] for t in gov.transitions), default=0),
+            transitions=len(gov.transitions), sheds=dict(gov.shed_counts),
+            engine=str(ctl.engine.device) if P.port else None, engine_ticks=engine_ticks[0],
+            launches=({n: c - before[n] for n, c in K.launch_counts().items()}
+                      if K is not None else None))
+    finally:
+        stop.set()
+        send_stop.set()
+        P.chaos.disarm()
+        for t in tasks:
+            t.cancel()
+        await asyncio.gather(*tasks, return_exceptions=True)
+        server_srv.close()
+        client_srv.close()
+        reset_gateway(P)
+
+
+def chaos_live_checks(r: dict, p: dict) -> list:
+    """scripts/chaos_soak.py's invariants, under its names, as (name, held,
+    detail)."""
+    worst = max(r["recovery_latencies"], default=0.0)
+    silent = [point for point in r["points"] if r["fires"].get(point, 0) == 0]
+    p99 = r["global_tick_p99_s"]
+    return [
+        ("no_lost_entity_tracking", r["lost_tracking"] == [], r["lost_tracking"]),
+        ("every_entity_in_exactly_one_cell", (r["missing"], r["duped"]) == ([], []),
+         (r["missing"], r["duped"])),
+        ("received_equals_owner_drained", r["received"] == r["drained"],
+         (r["received"], r["drained"])),
+        ("received_le_sent", r["received"] <= r["sent"], (r["received"], r["sent"])),
+        ("per_client_order_no_dup", r["disordered"] == [], r["disordered"]),
+        ("reconnect_within_deadline", worst <= p["recovery_deadline_s"],
+         f"worst {worst} s of {len(r['recovery_latencies'])} recoveries"),
+        ("all_disconnects_recovered", r["disconnects"] - r["reconnects"] == 0,
+         (r["disconnects"], r["reconnects"])),
+        ("global_tick_p99_bounded", p99 is not None and p99 <= p["tick_p99_bound_s"], p99),
+        ("cells_overflow_shed_fired", r["overflow"] > 0, r["overflow"]),
+        ("handovers_orchestrated", r["handovers"] > 0, r["handovers"]),
+        ("every_fault_point_fired", silent == [], silent)]
+
+
+async def overload_live(P, dev: torch.device, p: dict, scratch: str, n_dev: int,
+                        K=None, settle_max_s: float = 30.0) -> dict:
+    """14c: scripts/overload_soak.py's run_overload_soak through one
+    package's gateway, in-process on this asyncio loop: the chaos soak's
+    world (its servers, entities and storms) with busy-aware clients that
+    back off for a ServerBusyMessage's retryAfterMs, ``observers``
+    low-priority READ subscribers at 200 ms, the overload soak's pins and a
+    poller attributing GLOBAL tick-histogram deltas to the level each 250 ms
+    window began at; a settle to L0 (at least 3 s, at most ``settle_max_s``:
+    the script's 30 s), the governor re-zeroed, then warmup, the saturation
+    window (``overload_scenario``), recovery until L0 or
+    ``recover_deadline_s``, and ``quiesce_s``. Returns the soak's books,
+    plus the engine's ticks and (with ``K``) the kernels' launches."""
+    import asyncio
+    from random import Random
+
+    reset_gateway(P)
+    overload_pins(P, dev, p)
+    P.sim_models.register_sim_types()
+    P.connection.init_connections(SERVER_FSM, CLIENT_FSM)
+    P.channel.init_channels()
+    P.ddos.init_anti_ddos()
+    scn = overload_scenario(p)
+    P.controller.init_spatial_controller(cells_config(n_dev, scratch, scn["config_overrides"]))
+    ctl = P.controller.get_spatial_controller()
+    engine_ticks = engine_tick_counter(ctl.engine)
+    before = K.launch_counts() if K is not None else None
+    inv, gov = P.invariants, P.overload.governor
+    MT, s = P.types.MessageType, P.settings.global_settings
+    host = "127.0.0.1"
+    stop, send_stop = asyncio.Event(), asyncio.Event()
+    server_srv, client_srv, tasks = await live_listeners(P, host)
+    client_port = client_srv.sockets[0].getsockname()[1]
+    stats = SoakStats()
+    busy = dict(seen=0, open=False)
+    level_buckets: dict = {}
+    timeline: list = []
+    t_start = time.monotonic()
+
+    async def poller() -> None:
+        prev = tick_buckets(inv.scrape())
+        while not stop.is_set():
+            level_at_start = int(gov.level)
+            await asyncio.sleep(0.25)
+            cur = tick_buckets(inv.scrape())
+            acc = level_buckets.setdefault(level_at_start, {})
+            for le, v in cur.items():
+                acc[le] = acc.get(le, 0.0) + (v - prev.get(le, 0.0))
+            prev = cur
+            timeline.append(dict(t=round(time.monotonic() - t_start, 2), level=int(gov.level),
+                                 pressure=round(gov.pressure, 3)))
+
+    async def busy_aware_client(idx: int) -> None:
+        """The soak's _busy_aware_client: a ServerBusyMessage during auth
+        backs it off for the advertised retryAfterMs."""
+        seq, interval = 0, 1.0 / p["msg_rate"]
+        await asyncio.sleep(idx * 0.15)  # staggered: no thundering herd in the warmup
+        while not stop.is_set():
+            writer = None
+            try:
+                reader, writer = await asyncio.open_connection(host, client_port)
+                writer.write(soak_frame(P, MT.AUTH, P.control_pb2.AuthMessage(
+                    playerIdentifierToken=f"ov-client-{idx}",
+                    loginToken="soak").SerializeToString()))
+                await writer.drain()
+                dec = P.protocol.FrameDecoder()
+                deadline = time.monotonic() + 2.0
+                busy_ms, authed = None, False
+                while not authed and busy_ms is None:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        raise TimeoutError("auth timeout")
+                    data = await asyncio.wait_for(reader.read(65536), timeout=remaining)
+                    if not data:
+                        raise ConnectionError("closed during auth")
+                    for packet in dec.decode_packets(data):
+                        for mp in packet.messages:
+                            if mp.msgType == MT.SERVER_BUSY:
+                                refusal = P.control_pb2.ServerBusyMessage()
+                                refusal.ParseFromString(mp.msgBody)
+                                busy_ms = refusal.retryAfterMs or 500
+                            elif mp.msgType == MT.AUTH:
+                                authed = True
+                if busy_ms is not None:
+                    if busy["open"]:  # refusals in the settle are not in the books
+                        busy["seen"] += 1
+                    writer.close()
+                    await asyncio.sleep(min(busy_ms / 1000.0, 3.0))
+                    continue
+            except (ConnectionError, OSError, TimeoutError):
+                stats.auth_retries += 1
+                if writer is not None:
+                    writer.close()
+                await asyncio.sleep(0.25)
+                continue
+            reader_task = asyncio.ensure_future(soak_read_frames(P, reader, lambda mp: None, stop))
+            try:
+                while not stop.is_set():
+                    if reader_task.done():
+                        raise ConnectionError("gateway closed the socket")
+                    if send_stop.is_set():
+                        await asyncio.sleep(0.2)
+                        continue
+                    writer.write(soak_frame(P, 100, np.array([idx, seq], "<u4").tobytes()))
+                    await writer.drain()
+                    seq += 1
+                    stats.client_sent[idx] = stats.client_sent.get(idx, 0) + 1
+                    await asyncio.sleep(interval)
+            except (ConnectionError, OSError):
+                stats.disconnects += 1
+            finally:
+                reader_task.cancel()
+                writer.close()
+
+    async def observer_client(idx: int) -> None:
+        """The soak's _observer_client: READ on spatial channel ``start + idx
+        % 16`` at 200 ms (priority 2), retried through refusals and kills."""
+        await asyncio.sleep(0.5 + idx * 0.2)  # behind the clients' stagger
+        while not stop.is_set():
+            try:
+                reader, writer = await asyncio.open_connection(host, client_port)
+                try:
+                    await soak_auth(P, reader, writer, f"ov-observer-{idx}")
+                    writer.write(soak_frame(P, MT.SUB_TO_CHANNEL,
+                                            P.control_pb2.SubscribedToChannelMessage(
+                        subOptions=P.control_pb2.ChannelSubscriptionOptions(
+                            dataAccess=P.types.ChannelDataAccess.READ_ACCESS,
+                            fanOutIntervalMs=200)).SerializeToString(),
+                        channel_id=s.spatial_channel_id_start + idx % 16))
+                    await writer.drain()
+                    await soak_read_frames(P, reader, lambda mp: None, stop)
+                finally:
+                    writer.close()
+            except (ConnectionError, OSError, TimeoutError):
+                pass
+            await asyncio.sleep(1.0)
+
+    try:
+        servers = await soak_boot_world(P, host, server_srv.sockets[0].getsockname()[1], stats,
+                                        stop)
+        tasks += [task for task, _, _ in servers]
+        sim = EntitySim(P, ctl, p["entities"], p["storm_size"],
+                        Random(scn["seed"] ^ 0x0F0F))
+        sim.create_entities()
+        tasks += [asyncio.ensure_future(busy_aware_client(i)) for i in range(p["clients"])]
+        tasks += [asyncio.ensure_future(observer_client(i)) for i in range(p["observers"])]
+        # Settle until the governor reads healthy (bounded): the timeline starts at L0.
+        settle_from = time.monotonic()
+        while time.monotonic() - settle_from < settle_max_s:
+            sim.jitter_step()
+            await asyncio.sleep(0.5)
+            if time.monotonic() - settle_from > 3.0 and gov.level == 0 and gov.pressure < 0.5:
+                break
+        settle_s = time.monotonic() - t_start
+        P.overload.reset_overload()
+        baseline = inv.scrape()
+        busy["open"] = True
+        P.chaos.arm(scn)
+        tasks.append(asyncio.ensure_future(poller()))
+        t0 = time.monotonic()
+        sat_open, sat_close = p["warmup_s"], p["warmup_s"] + p["saturation_s"]
+        storm_at, storm_stop = sat_open + 1.0, sat_close - max(p["storm_every_s"], 6.0)
+        crowd: list = []
+        max_level = observer_subs = 0
+        while time.monotonic() - t0 < sat_close:
+            now = time.monotonic() - t0
+            sim.jitter_step()
+            if sat_open <= now < storm_stop and now >= storm_at:
+                if crowd:
+                    sim.disperse(crowd)
+                crowd = sim.storm_gather()
+                storm_at += p["storm_every_s"]
+            max_level = max(max_level, int(gov.level))
+            if not observer_subs:
+                observer_subs = sum(
+                    1 for cid, ch in P.channel.all_channels().items()
+                    if s.spatial_channel_id_start <= cid < s.entity_channel_id_start
+                    for c in ch.subscribed_connections
+                    if c.connection_type == P.types.ConnectionType.CLIENT)
+            await asyncio.sleep(0.1)
+        if crowd:
+            sim.disperse(crowd)
+        closed_at, peak_at_close = time.monotonic(), max_level
+        recovered_at = None
+        while time.monotonic() - closed_at < p["recover_deadline_s"]:
+            sim.jitter_step()
+            max_level = max(max_level, int(gov.level))
+            if gov.level == 0:
+                recovered_at = time.monotonic()
+                break
+            await asyncio.sleep(0.2)
+        send_stop.set()
+        fires = dict(P.chaos.chaos.fire_counts())
+        P.chaos.disarm()
+        await asyncio.sleep(p["quiesce_s"])
+        d = inv.delta(inv.scrape(), baseline)
+        rep = gov.report()
+        return dict(
+            soak_census(P, ctl, sim.entity_ids),
+            max_level=max_level, peak_at_close=peak_at_close, sat_close=sat_close,
+            transitions=rep["transitions"],
+            recovered_in_s=(round(recovered_at - closed_at, 2)
+                            if recovered_at is not None else None),
+            final_level=int(gov.level),
+            per_level_p99={lvl: bucket_p99(b) for lvl, b in sorted(level_buckets.items())},
+            metric_sheds=metric_sheds(d), shed_counts=rep["shed_counts"],
+            busy_seen=busy["seen"], handovers=int(inv.sample_total(d, "handovers_total")),
+            overflow=int(inv.sample_total(d, "tpu_cell_overflow_entities_total")),
+            timeline=timeline, fires=fires, observer_subs=observer_subs,
+            sent=sum(stats.client_sent.values()), disconnects=stats.disconnects,
+            auth_retries=stats.auth_retries, settle_s=settle_s,
+            global_tick_p99_s=inv.histogram_quantile(d, "channel_tick_duration", 0.99,
+                                                     channel_type="GLOBAL"),
+            engine=str(ctl.engine.device) if P.port else None, engine_ticks=engine_ticks[0],
+            launches=({n: c - before[n] for n, c in K.launch_counts().items()}
+                      if K is not None else None))
+    finally:
+        stop.set()
+        send_stop.set()
+        P.chaos.disarm()
+        for t in tasks:
+            t.cancel()
+        await asyncio.gather(*tasks, return_exceptions=True)
+        server_srv.close()
+        client_srv.close()
+        reset_gateway(P)
+
+
+def overload_live_checks(r: dict, p: dict) -> list:
+    """scripts/overload_soak.py's invariants, under its names, as (name,
+    held, detail): one ``tick_p99_bounded_at_L<n>`` per level the poller
+    saw GLOBAL ticks at."""
+    steps = [t["to"] - t["from"] for t in r["transitions"]]
+    # After the window closed (and a grace for the EWMA) the ladder may
+    # re-brake, but never above the peak the overload itself reached.
+    ups = [t for t in r["transitions"]
+           if t["to"] > r["peak_at_close"] and t["t"] > r["sat_close"] + 2.0]
+    sheds = r["shed_counts"]
+    admission = sheds.get("admission_connection", 0)
+    checks = [
+        ("ladder_reached_at_least_L2", r["max_level"] > 1, r["max_level"]),
+        ("ladder_moves_one_step_at_a_time", [s for s in steps if abs(s) != 1] == [], steps),
+        ("release_never_exceeds_overload_peak", ups == [], ups),
+        ("returned_to_L0_within_deadline",
+         r["recovered_in_s"] is not None and r["final_level"] <= 1,
+         (r["recovered_in_s"], r["final_level"])),
+        *[(f"tick_p99_bounded_at_L{lvl}", p99 <= p["tick_p99_bounds"][lvl], p99)
+          for lvl, p99 in r["per_level_p99"].items() if p99 is not None],
+        ("no_lost_entity_tracking", r["lost_tracking"] == [], r["lost_tracking"]),
+        ("every_entity_in_exactly_one_cell", (r["missing"], r["duped"]) == ([], []),
+         (r["missing"], r["duped"])),
+        ("shed_accounting_exact", r["metric_sheds"] == sheds, (r["metric_sheds"], sheds)),
+        ("sheds_fired", sum(sheds.values()) > 0, sheds)]
+    if p["require_update_priority"]:
+        checks.append(("low_priority_updates_shed", sheds.get("update_priority", 0) > 0, sheds))
+    if p["require_handover_defer"]:
+        checks.append(("handover_deferred", sheds.get("handover_defer", 0) > 0, sheds))
+    return checks + [
+        ("busy_frames_le_admission_sheds", r["busy_seen"] <= admission,
+         (r["busy_seen"], admission)),
+        ("handovers_orchestrated", r["handovers"] > 0, r["handovers"])]
+
+
+def ladder_line(transitions) -> str:
+    """A transition list as ``L0->L1 @t s, ...``."""
+    return ", ".join(f"L{frm}->L{to} @{t:g} s" for frm, to, t in transitions) or "no move"
+
+
+def phase_overload_lockstep(K, dev, p: dict, n_dev: int) -> tuple:
+    """14a: ``OverloadWorld`` on the card against a lockstep CPU leg, tick for
+    tick, both held to the ladder's invariants. Returns (K1/K2 launches,
+    the kernels' entries on the overflow tick and the saturation tick)."""
+    import shutil
+    import tempfile
+
+    P = gateway_modules()
+    scratch = tempfile.mkdtemp(prefix="overload-lockstep-")
+    t_phase = time.perf_counter()
+    try:
+        config = cells_config(n_dev, scratch, overload_scenario(p)["config_overrides"])
+        card, rc = run_overload_lockstep(P, dev, p, config, K)
+        cpu, rp = run_overload_lockstep(P, torch.device("cpu"), p, config)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    check(len(card) == len(cpu), f"14a: {len(card)} card and {len(cpu)} cpu ticks")
+    for t in range(len(card)):
+        where = first_gateway_diff(card[t], cpu[t])
+        check(where is None, f"14a tick {t}: cuda and cpu differ: {where}")
+    for leg, obs, r in (("cuda", card, rc), ("cpu", cpu, rp)):
+        for name, ok, detail in overload_lockstep_checks(obs, r):
+            check(ok, f"14a {leg}: {name}: {str(detail)[:300]}")
+        check({o["transfers"] for o in obs} == {2}, f"14a {leg}: engine transfers a tick "
+                                                    f"{sorted({o['transfers'] for o in obs})}")
+    n = rc["n_shards"]
+    for t, o in enumerate(card):
+        check(o["launches"] == {name: n for name in o["launches"]},
+              f"14a tick {t}: launches {o['launches']}, not {n} each (one per shard)")
+        check(o["reads"] == 2, f"14a tick {t}: {o['reads']} device reads, not 2 (the consume "
+                               f"blob and the query plane's changed rows)")
+    check(set(rc["kernels"]) == {"overflow", "saturation"},
+          f"14a: K1/K2 held on the live tensors of {sorted(rc['kernels'])} ticks only")
+    sheds, ticks = rc["shed_counts"], len(card)
+    levels = [o["governor"][0] for o in card]
+    print(f"14a overload lockstep: {ticks} GLOBAL ticks ({rc['seconds']:.3f} s of the fixed "
+          f"clock: warmup {p['warmup_s']:g} s, saturation {p['saturation_s']:g} s, the window "
+          f"closed at tick {rc['closed_at']}, L0 at tick {rc['recovered_at']}) of "
+          f"config/spatial_tpu_cells_2x2.json at MeshDevices {n_dev} with CellBucket 6 "
+          f"({p['entity_capacity']} slots, {p['query_capacity']} query rows), "
+          f"{p['entities']} entities (storms of {p['storm_size']}), {p['clients']} clients' "
+          f"forwards, {p['observers']} observers at 200 ms, the query plane on; the ladder "
+          f"{ladder_line(rc['transitions'])}; ticks at L0-L3 "
+          f"{[levels.count(lvl) for lvl in range(4)]}; sheds {sheds} (= overload_sheds_total); "
+          f"{rc['busy_frames']} ServerBusyMessage to {rc['admitted']} late clients; overflow "
+          f"{sum(o['overflow'] for o in card)} entities on "
+          f"{sum(1 for o in card if o['overflow'])} ticks; handovers "
+          f"{sum(len(o['handovers']) for o in card)}, deferred on "
+          f"{sum(1 for o in card if o['deferred'])} ticks; chaos fires {rc['fires']}: cuda "
+          f"equals the CPU leg on every tick (level, pressure, components, transitions, shed "
+          f"ledger, overflow, handovers and the deferred, tables, every outbound stream); 2 "
+          f"device reads and 2 engine transfers a tick; launches {rc['launches']}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s (card leg {rc['secs']:.1f} s, cpu leg "
+          f"{rp['secs']:.1f} s)")
+    for leg, obs in (("cuda", card), ("cpu", cpu)):
+        print(f"14a on {leg}: tick (host clock) {tick_stats([o['tick_ms'] for o in obs[1:]])}")
+    entries: dict = {}
+    for case, ks in sorted(rc["kernels"].items()):
+        for name, k in ks.items():
+            entries.setdefault(name, {})[f"14a_{case}_tick"] = k
+            print(f"14a {name} on the {case} tick's live tensors ({k['shape']}): exact; alone "
+                  f"{k['ms']:.4f} ms (events, bare launches), plain {k['plain_ms']:.4f} ms, "
+                  f"bound {k['bound_ms']:.6f} ms ({k['bound_by']})")
+    return rc["launches"], entries
+
+
+def phase_live_launches(r: dict, n_dev: int, what: str) -> None:
+    """The engine ticked on ``cuda``, and K1 and K2 launched once per shard on
+    every engine tick of a live phase."""
+    check(r["engine"].startswith("cuda"), f"{what}: the engine ran on {r['engine']}")
+    want = {name: n_dev * r["engine_ticks"] for name in r["launches"]}
+    check(r["engine_ticks"] > 0 and r["launches"] == want,
+          f"{what}: launches {r['launches']} in {r['engine_ticks']} engine ticks")
+
+
+def phase_chaos_live(K, dev, n_dev: int, p: dict) -> dict:
+    """14b: ``chaos_live`` on the card, held to scripts/chaos_soak.py's
+    invariants and to K1/K2 once per shard on every engine tick."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    P = gateway_modules()
+    scratch = tempfile.mkdtemp(prefix="chaos-live-")
+    t_phase = time.perf_counter()
+    try:
+        r = asyncio.run(chaos_live(P, dev, p, scratch, n_dev, K))
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    for name, ok, detail in chaos_live_checks(r, p):
+        check(ok, f"14b: {name}: {str(detail)[:300]}")
+    phase_live_launches(r, n_dev, "14b")
+    lat = r["recovery_latencies"]
+    print(f"14b chaos live: {p['duration_s'] - p['quiesce_s']:g} s of traffic and "
+          f"{p['quiesce_s']:g} s quiesced, {p['clients']} clients at {p['msg_rate']:g} msg/s, "
+          f"{p['entities']} entities (storms of {p['storm_size']} every "
+          f"{p['storm_every_s']:g} s), MeshDevices {n_dev} with CellBucket 6, "
+          f"{p['entity_capacity']} slots / {p['query_capacity']} query rows, the ladder on; "
+          f"every invariant of the soak held; chaos fires {r['fires']}; forwards sent "
+          f"{r['sent']}, received {r['received']} = drained {r['drained']}; disconnects "
+          f"{r['disconnects']}, reconnects {r['reconnects']}, auth retries "
+          f"{r['auth_retries']}, recovery latency max {max(lat, default=0.0):.4f} s, mean "
+          f"{sum(lat) / max(len(lat), 1):.4f} s; handovers {r['handovers']}; overflow "
+          f"{r['overflow']} entities; GLOBAL tick p99 {r['global_tick_p99_s']:.4f} s, "
+          f"tpu_spatial_step_seconds p99 {r['device_step_p99_s']:.4f} s; the ladder's peak "
+          f"L{r['peak_level']} ({r['transitions']} moves, sheds {r['sheds']}); launches "
+          f"{r['launches']} in {r['engine_ticks']} engine ticks; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return r
+
+
+def phase_overload_live(K, dev, n_dev: int, p: dict) -> dict:
+    """14c: ``overload_live`` on the card, held to scripts/overload_soak.py's
+    invariants and to K1/K2 once per shard on every engine tick."""
+    import asyncio
+    import itertools
+    import shutil
+    import tempfile
+
+    P = gateway_modules()
+    scratch = tempfile.mkdtemp(prefix="overload-live-")
+    t_phase = time.perf_counter()
+    try:
+        r = asyncio.run(overload_live(P, dev, p, scratch, n_dev, K))
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    for name, ok, detail in overload_live_checks(r, p):
+        check(ok, f"14c: {name}: {str(detail)[:300]}")
+    phase_live_launches(r, n_dev, "14c")
+    levels = [e["level"] for e in r["timeline"]]
+    runs = [(lvl, len(list(g))) for lvl, g in itertools.groupby(levels)]
+    print(f"14c overload live: settle {r['settle_s']:.1f} s, warmup {p['warmup_s']:g} s, "
+          f"saturation {p['saturation_s']:g} s, recovery deadline {p['recover_deadline_s']:g} "
+          f"s, quiesce {p['quiesce_s']:g} s; {p['clients']} busy-aware clients at "
+          f"{p['msg_rate']:g} msg/s, {p['observers']} observers ({r['observer_subs']} client "
+          f"subscriptions seen), {p['entities']} entities (storms of {p['storm_size']}), "
+          f"MeshDevices {n_dev}, {p['entity_capacity']} slots; every invariant of the soak "
+          f"held; the ladder "
+          f"{ladder_line([(t['from'], t['to'], t['t']) for t in r['transitions']])}, peak "
+          f"L{r['max_level']}, back to L0 {r['recovered_in_s']} s after the window closed; "
+          f"level timeline (level, 250 ms samples) {runs}; GLOBAL tick p99 per level "
+          + ", ".join(f"L{lvl} {v:.4f} s" if v is not None else f"L{lvl} none"
+                      for lvl, v in r["per_level_p99"].items())
+          + f"; sheds {r['shed_counts']} (= overload_sheds_total); ServerBusyMessage seen "
+          f"{r['busy_seen']}; handovers {r['handovers']}; overflow {r['overflow']} entities; "
+          f"chaos fires {r['fires']}; launches {r['launches']} in {r['engine_ticks']} engine "
+          f"ticks; phase {time.perf_counter() - t_phase:.1f} s")
+    return r
+
+
+def phase_chaos_overload(K, dev) -> tuple:
+    """14a-14c on the cells world at MeshDevices = min(cards, 8) and the
+    gateway's tables. Returns ({path: launches}, {kernel: {case: entry}})."""
+    n_dev = min(torch.cuda.device_count(), MESH_SHARDS)
+    t_phase = time.perf_counter()
+    launches, entries = phase_overload_lockstep(
+        K, dev, overload_lockstep_params(**GATEWAY_CAPACITIES), n_dev)
+    chaos = phase_chaos_live(K, dev, n_dev, chaos_params(duration_s=60.0, **GATEWAY_CAPACITIES))
+    overload = phase_overload_live(K, dev, n_dev, overload_params(
+        warmup_s=6.0, saturation_s=20.0, quiesce_s=4.0, **GATEWAY_CAPACITIES))
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return ({"overload_lockstep": launches, "chaos_live": chaos["launches"],
+             "overload_live": overload["launches"]}, entries)
+
+
 def main_soaks(agents: int, entities: int) -> int:
     """Phase 12 alone (after the device and build phases):
     ``python3 chip_smoke.py --soaks 1000 4096``."""
@@ -7000,7 +8069,7 @@ def main_soaks(agents: int, entities: int) -> int:
         phase_build(K)
         phase_soaks(K, dev, agents, entities)
     except PhaseFailed as e:
-        print(f"FAILED: {e}")
+        report_failure(e)
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
@@ -7021,9 +8090,32 @@ def main_trace_obs() -> int:
         phase_kernels(K, ops, dev)
         phase_trace_obs(K, dev)
     except PhaseFailed as e:
-        print(f"FAILED: {e}")
+        report_failure(e)
         return 1
     print(f"chip_smoke --trace-obs: every phase passed in {time.perf_counter() - t_run:.1f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main_chaos_overload() -> int:
+    """Phases 1-3 and then phase 14 alone: ``python3 chip_smoke.py --chaos-overload``."""
+    from channeld_tpu_torch.ops import cuda_kernels as K
+    from channeld_tpu_torch.ops import spatial_ops as ops
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t_run = time.perf_counter()
+    try:
+        name, _ = phase_device()
+        phase_build(K)
+        phase_kernels(K, ops, dev)
+        phase_chaos_overload(K, dev)
+    except PhaseFailed as e:
+        report_failure(e)
+        return 1
+    print(f"chip_smoke --chaos-overload: every phase passed in "
+          f"{time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
@@ -7041,7 +8133,7 @@ def main_gateway(entities: int, ticks: int) -> int:
         phase_build(K)
         phase_gateway_lockstep(K, dev, gateway_size(entities, ticks))
     except PhaseFailed as e:
-        print(f"FAILED: {e}")
+        report_failure(e)
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
@@ -7064,7 +8156,7 @@ def main_mesh() -> int:
         phase_mesh_engine(K, engine_mod, ops)
         phase_mesh_gateway(K)
     except PhaseFailed as e:
-        print(f"FAILED: {e}")
+        report_failure(e)
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
@@ -7082,7 +8174,7 @@ def main_engine_adapter(objects: int, ticks: int) -> int:
         phase_build(K)
         phase_engine_adapter(K, engine_size(objects, ticks))
     except PhaseFailed as e:
-        print(f"FAILED: {e}")
+        report_failure(e)
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
@@ -7101,7 +8193,7 @@ def main_recovery(entities: int, ticks: int) -> int:
         phase_build(K)
         phase_recovery_lockstep(K, dev, recovery_size(entities, ticks))
     except PhaseFailed as e:
-        print(f"FAILED: {e}")
+        report_failure(e)
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
@@ -7121,7 +8213,7 @@ def main_elastic(entities: int, ticks: int) -> int:
         phase_elastic_lockstep(K, dev, elastic_size(entities, ticks))
         phase_elastic_mesh(K, entities // 2, ticks)
     except PhaseFailed as e:
-        print(f"FAILED: {e}")
+        report_failure(e)
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
@@ -7148,6 +8240,8 @@ def main() -> int:
         return main_soaks(int(sys.argv[2]), int(sys.argv[3]))
     if sys.argv[1:2] == ["--trace-obs"]:
         return main_trace_obs()
+    if sys.argv[1:2] == ["--chaos-overload"]:
+        return main_chaos_overload()
     if sys.argv[1:2] == ["--sim-child"]:
         return sim_child(sys.argv[2], *map(int, sys.argv[3:5]), *sys.argv[5:6])
     t_run = time.perf_counter()
@@ -7184,8 +8278,9 @@ def main() -> int:
         phase_elastic_live()
         soak_launches, soak_entries = phase_soaks(K, dev)
         trace_obs_launches, trace_obs_entries = phase_trace_obs(K, dev)
+        chaos_launches, chaos_entries = phase_chaos_overload(K, dev)
     except PhaseFailed as e:
-        print(f"FAILED: {e}")
+        report_failure(e)
         return 1
     kernels = []
     for spec in K.KERNEL_SPECS:
@@ -7205,7 +8300,8 @@ def main() -> int:
                               "elastic": elastic_launches[spec.name],
                               "elastic_mesh": elastic_mesh_launches[spec.name],
                               **{path: n[spec.name] for path, n in soak_launches.items()},
-                              **{path: n[spec.name] for path, n in trace_obs_launches.items()}},
+                              **{path: n[spec.name] for path, n in trace_obs_launches.items()},
+                              **{path: n[spec.name] for path, n in chaos_launches.items()}},
             library_ms=None, **entries[spec.name],
             sim_path=dict(sim_entries[spec.name], library_ms=None),
             mesh_path=dict(mesh_entries[spec.name], launches_per_mesh_tick={
@@ -7216,6 +8312,7 @@ def main() -> int:
             soak_path={path: {case: e[spec.name] for case, e in cases.items() if spec.name in e}
                        for path, cases in soak_entries.items()},
             trace_obs_path=trace_obs_entries[spec.name],
+            chaos_overload_path=chaos_entries[spec.name],
         ))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": kernels}))
