@@ -10,6 +10,8 @@
     python3 chip_smoke.py --soaks 1000 4096    # phase 12 alone: sim agents, sensor-soak entities
     python3 chip_smoke.py --trace-obs          # phases 1-3, then phase 13 alone
     python3 chip_smoke.py --chaos-overload     # phases 1-3, then phase 14 alone
+    python3 chip_smoke.py --fleet              # phases 1-3, then phase 15 alone
+    python3 chip_smoke.py --fed-child CONFIG REPORT   # 15b's gateway "b" (started by 15b)
 
 Needs one CUDA card, nvcc, and the ``channeld_tpu_torch`` package beside
 this file; imports nothing of JAX or of ``channeld_tpu``. Phases (each
@@ -310,6 +312,47 @@ prints one line; any failure exits non-zero before the final line):
       invariant of the soak under its own name, the tick p99 bounded at
       each level, the return to L0 within the deadline; K1 and K2 once
       per shard on every engine tick.
+15. the fleet: the federation plane and the global control plane over the
+    device controller, and scripts/federation_soak.py's live fleet:
+   a. lockstep: gateway "a" of scripts/global_soak.py's three-gateway
+      world (WORLD_3: 6x4 cells of 50 m in three 2x4 blocks, the soak's
+      directory and control-plane settings, "a" the leader) on the device
+      controller at the gateway's tables (1<<17 entity slots, 4,096 query
+      rows) with the sim plane (64 agents) and the query plane on, the
+      guard on, 150 GLOBAL ticks of a fixed 50 ms clock (the control epoch
+      every 5 ticks, the plane's timeout sweep every 2), in-process with
+      stub connections; the peers b and c are scripted stubs behind tapped
+      trunk links, answering through a's own trunk dispatch: 96 entities,
+      8 sensors of every kind and 4 followers in a's block; an outbound
+      burst of 24 (8 agents) east across x = -50 committed by b (the
+      channels and slots gone, the agents left the population); a burst of
+      10 b refuses at L3 (restored at the source, parked, re-offered, then
+      committed); b's inbound herd of 16 (6 in the agent range: tracked at
+      their cells' centres, the agents re-flagged); a burst of 24 whose
+      trunk is cut mid-flight (every batch aborted and restored, re-offered
+      on trunk up, b's applied copies purged by the abort notices); c's
+      shard epochs (14 entities in its cells, 2 in-flight txns, 4 sensor
+      rows), its silence, a's death declaration after the miss window, b's
+      census claims (2) and a's adoption (c's cells created, its entities
+      tracked on the card, its sensor rows on a's query plane, the claimed
+      ids not recreated). Card leg against CPU leg, every tick equal
+      (handovers, the trunk messages a sent as bytes in order, tables, the
+      placement ledger, the engine's slots, cells and counts, the agents
+      and sim columns, changed query rows, every ledger, the peers'
+      holdings, every outbound stream); on both legs the six events, the
+      census across a, b and c (zero lost, zero duplicated), each ledger
+      equal to its metric, the journal balanced; 2 device reads a steady
+      tick; K1 and K2 once per engine tick, exact on the live tensors after
+      the inbound herd and after the adoption;
+   b. live: scripts/federation_soak.py's run_fed_soak at
+      tests/test_federation.py::test_federation_smoke_soak's parameters
+      (32 entities, bursts 8 / 4 / 8 / 6, phase timeout 15 s, quiesce 1.5
+      s): gateway "a" in-process on this asyncio loop and gateway "b" a
+      ``--fed-child`` process of this script (it loads neither JAX nor the
+      JAX package), both on the script's Static2DSpatialController, which
+      touches no device by the script's design: every invariant of the
+      script under its own name, at least 8 committed and 1 refused,
+      exactly 1 redirect, the census with nothing missing or duplicated.
 
 The line before the last is a JSON object with one entry per kernel
 (times measured in this run at the sidecar path's shapes; bound from
@@ -324,15 +367,19 @@ each re-grid of 11a and 11b, ``soak_path`` each at the live tensors of
 12a's stampede crowd, rotted rows and last tick and 12b's last tick,
 ``trace_obs_path`` at 13a's cells shard and 13c's two tables,
 ``chaos_overload_path`` at 14a's live tensors on its first overflowing
-tick and its first tick at L2 or above in the saturation window);
+tick and its first tick at L2 or above in the saturation window,
+``fleet_path`` at 15a's live tensors after the inbound herd and after the
+adoption);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import hashlib
 import importlib.util
+import itertools
 import json
 import statistics
 import subprocess
@@ -1455,6 +1502,7 @@ def gateway_modules(pkg: str = "channeld_tpu_torch") -> NS:
                  balancer="spatial.balancer", partition="spatial.partition",
                  metrics="core.metrics",
                  sim_plane="sim.plane", ops="ops.spatial_ops", logger="utils.logger",
+                 queryplane="spatial.queryplane",
                  snapshot="core.snapshot", chaos="chaos", invariants="chaos.invariants",
                  opshttp="core.opshttp", failover="core.failover",
                  spatial_pb2="protocol.spatial_pb2", spatial_messages="spatial.messages",
@@ -1827,7 +1875,8 @@ def first_gateway_diff(a: dict, b: dict) -> Optional[str]:
     for key in ("handovers", "tables", "q", "sim", "census", "guard", "served", "ladder",
                 "overflow", "undelivered", "recovery", "elastic", "cell_msgs", "ledgers",
                 "subs", "callbacks", "standing", "ran", "spans", "stages", "readbacks",
-                "anomalies", "fires", "transfers", "governor", "sheds", "deferred"):
+                "anomalies", "fires", "transfers", "governor", "sheds", "deferred", "counts",
+                "engine", "placement", "agents", "trunk", "peers"):
         if a.get(key) != b.get(key):
             if key == "handovers":
                 i = next((i for i, (x, y) in enumerate(zip(a[key], b[key])) if x != y),
@@ -8057,6 +8106,1662 @@ def phase_chaos_overload(K, dev) -> tuple:
              "overload_live": overload["launches"]}, entries)
 
 
+# ---- phase 15: the fleet's device side, and the federation soak's live fleet ----
+
+FLEET_SEED = 20260803  # scripts/federation_soak.py's and scripts/global_soak.py's seed
+
+# scripts/federation_soak.py's world: 4x4 cells of 50 m, two server blocks
+# (index 0 = columns 0-1, x < 0, gateway a; index 1 = columns 2-3, gateway b).
+WORLD_SPATIAL = {
+    "SpatialControllerType": "Static2DSpatialController",
+    "Config": {"WorldOffsetX": -100, "WorldOffsetZ": -100, "GridWidth": 50, "GridHeight": 50,
+               "GridCols": 4, "GridRows": 4, "ServerCols": 2, "ServerRows": 1,
+               "ServerInterestBorderSize": 0},
+}
+
+# scripts/global_soak.py's world: 6x4 cells of 50 m, three 2x4 shard blocks
+# (a = columns 0-1, x in [-150, -50); b = columns 2-3; c = columns 4-5).
+WORLD_3 = {
+    "SpatialControllerType": "Static2DSpatialController",
+    "Config": {"WorldOffsetX": -150, "WorldOffsetZ": -100, "GridWidth": 50, "GridHeight": 50,
+               "GridCols": 6, "GridRows": 4, "ServerCols": 3, "ServerRows": 1,
+               "ServerInterestBorderSize": 0},
+}
+# scripts/global_soak.py's per-gateway x ranges (strictly inside each shard), z
+# range and entity-id bases.
+GLOBAL_XR = {"a": (-148.0, -52.0), "b": (-48.0, 48.0), "c": (52.0, 148.0)}
+GLOBAL_ZR = (-98.0, 98.0)
+GLOBAL_BASE = {"a": 0, "b": 1000, "c": 2000}
+
+
+@dataclasses.dataclass
+class FedSoakParams:
+    """scripts/federation_soak.py's FedSoakParams."""
+    entities: int = 48
+    burst: int = 12
+    refusal_burst: int = 6
+    sever_burst: int = 12
+    herd_back: int = 8
+    phase_timeout_s: float = 20.0
+    quiesce_s: float = 3.0
+    child_boot_timeout_s: float = 60.0
+    retry_after_ms: int = 300
+    heartbeat_ms: int = 200
+    trunk_timeout_ms: int = 1200
+    handover_timeout_ms: int = 1500
+    global_tick_ms: int = 20
+    seed: int = 20260803
+    out_path: str = ""
+
+
+@dataclasses.dataclass
+class GlobalSoakParams:
+    """scripts/global_soak.py's GlobalSoakParams."""
+    seed: int = 20260803
+    base_entities: int = 10
+    hotspot: int = 36
+    kill_burst: int = 10
+    committed_to_c: int = 4
+    epoch_ms: int = 250
+    heartbeat_ms: int = 150
+    trunk_timeout_ms: int = 900
+    handover_timeout_ms: int = 1500
+    death_miss_epochs: int = 4
+    imbalance_enter: float = 1.25
+    phase_timeout_s: float = 25.0
+    quiesce_s: float = 2.0
+    child_boot_timeout_s: float = 60.0
+    global_tick_ms: int = 20
+    out_path: str = ""
+
+
+def fed_config(ports: dict) -> dict:
+    """scripts/federation_soak.py's ``_fed_config``: the two-gateway directory."""
+    return {"secret": "fed-soak-secret", "gateways": {
+        "a": {"trunk": f"127.0.0.1:{ports['a_trunk']}",
+              "client": f"127.0.0.1:{ports['a_client']}", "servers": [0]},
+        "b": {"trunk": f"127.0.0.1:{ports['b_trunk']}",
+              "client": f"127.0.0.1:{ports['b_client']}", "servers": [1]}}}
+
+
+def fed_config3(ports: dict) -> dict:
+    """scripts/global_soak.py's ``_fed_config3``: the three-gateway directory."""
+    return {"secret": "global-soak-secret", "gateways": {
+        gw: {"trunk": f"127.0.0.1:{ports[gw + '_trunk']}",
+             "client": f"127.0.0.1:{ports[gw + '_client']}", "servers": [i]}
+        for i, gw in enumerate(("a", "b", "c"))}}
+
+
+def global_settings_hook(p: GlobalSoakParams):
+    """scripts/global_soak.py's ``_settings_hook``: the control plane armed."""
+    def hook(gs) -> None:
+        gs.global_control_enabled = True
+        gs.global_epoch_ms = p.epoch_ms
+        gs.global_imbalance_enter = p.imbalance_enter
+        gs.global_imbalance_exit = p.imbalance_enter * 0.85
+        gs.global_hold_epochs = 2
+        gs.global_min_entity_delta = 8
+        gs.global_death_miss_epochs = p.death_miss_epochs
+        gs.global_budget_per_window = 8
+        gs.global_budget_window_epochs = 120
+        gs.global_cooldown_epochs = 8
+        gs.global_migrate_timeout_ms = 8000
+        gs.global_adopt_claims_timeout_ms = 800
+        gs.failover_enabled = True
+        gs.partition_enabled = False
+
+    return hook
+
+
+def fed_pins(P, p: FedSoakParams) -> None:
+    """scripts/federation_soak.py's ``boot_gateway`` settings (balancer,
+    partitioning, guard, SLO plane, control plane, recorder and WAL pinned
+    off; the ladder on with unreachable thresholds; its trunk and channel
+    timings)."""
+    gs = P.settings.global_settings
+    gs.development = True
+    gs.balancer_enabled = False
+    gs.partition_enabled = False
+    gs.device_guard_enabled = False
+    gs.slo_enabled = False
+    gs.global_control_enabled = False
+    gs.trace_enabled = False
+    gs.wal_path = ""
+    P.tracing.recorder.configure(enabled=False)
+    gs.overload_enabled = True
+    gs.overload_enter_thresholds = (99.0, 99.0, 99.0)
+    gs.overload_down_hold_s = 9999.0
+    gs.overload_retry_after_ms = p.retry_after_ms
+    gs.federation_heartbeat_ms = p.heartbeat_ms
+    gs.federation_trunk_timeout_ms = p.trunk_timeout_ms
+    gs.federation_handover_timeout_ms = p.handover_timeout_ms
+    gs.federation_reconnect_base_ms = 50
+    gs.federation_reconnect_max_ms = 500
+    CT = P.types.ChannelType
+    gs.channel_settings = {
+        CT.GLOBAL: P.settings.ChannelSettings(tick_interval_ms=p.global_tick_ms,
+                                              default_fanout_interval_ms=50),
+        CT.SPATIAL: P.settings.ChannelSettings(tick_interval_ms=50,
+                                               default_fanout_interval_ms=100),
+        CT.ENTITY: P.settings.ChannelSettings(tick_interval_ms=50,
+                                              default_fanout_interval_ms=100)}
+
+
+# 15a's ticks of a fixed 50 ms clock: one control epoch (250 ms) is 5 ticks, the
+# plane's timeout sweep (100 ms) 2.
+FLEET_TICK_S = 0.05
+FLEET_EPOCH_TICKS = 5
+FLEET_SWEEP_TICKS = 2
+# The stub trunks' directory ports: written into the shard directory, never opened.
+FLEET_PORTS = dict(a_trunk=17001, a_client=17002, b_trunk=17003, b_client=17004,
+                   c_trunk=17005, c_client=17006)
+# The ticks each event of 15a's script starts on.
+FLEET_AT = dict(burst=10, refusal=25, herd=40, sever=50, trunk_up=56, silent=70)
+FLEET_RETRY_AFTER_MS = 300  # stub b's busy refusal: FedSoakParams.retry_after_ms
+FLEET_CELLS = {"a": (0, 1, 6, 7, 12, 13, 18, 19), "b": (2, 3, 8, 9, 14, 15, 20, 21),
+               "c": (4, 5, 10, 11, 16, 17, 22, 23)}  # WORLD_3's blocks, cell indices
+FLEET_SENSOR_KEY = 1 << 20  # stub c's sensor rows: keys apart from a's own
+
+
+def fleet_size(**kw) -> dict:
+    """15a's sizes: the gateway's tables (1<<17 entity slots, 4,096 query
+    rows), scripts/federation_soak.py's acceptance run (FedSoakParams
+    96 / 24 / 10 / 24 / 16) for the entities and bursts, 64 sim agents."""
+    size = dict(entity_capacity=1 << 17, query_capacity=4096, entities=96, agents=64,
+                sensors=8, followers=4, burst=24, burst_agents=8, refusal=10, herd=16,
+                herd_agents=6, sever=24, adopt=14, adopt_sensors=4, claimed=2, ticks=150,
+                deadline_s=GATEWAY_DEADLINE_S)
+    size.update(kw)
+    return size
+
+
+class TrunkTap:
+    """A stub trunk link to one scripted peer (the surface the federation and
+    control planes touch): ``alive`` while the peer's trunk is up, every
+    send kept as (msg_type, bytes, message class)."""
+
+    def __init__(self, peer: str):
+        self.peer_id = peer
+        self.alive = True
+        self.rtt_ms = 1.0
+        self.sent: list = []
+
+    def send(self, msg_type, msg) -> bool:
+        if not self.alive:
+            return False
+        self.sent.append((int(msg_type), msg.SerializeToString(deterministic=True), type(msg)))
+        return True
+
+
+class StubPeer:
+    """A scripted peer gateway of 15a behind a ``TrunkTap``, the same for
+    both packages (it builds its messages from the leg's ``control_pb2``):
+    it reads what gateway a sent it and answers through a's own trunk
+    dispatch (``plane._on_trunk_message``), keeping the census of the
+    entities it holds. ``mode``: ``ack`` commits every prepare, ``busy``
+    refuses with the L3 ServerBusyMessage, ``cut`` applies without acking
+    (the trunk is about to be cut)."""
+
+    def __init__(self, world, gw: str):
+        self.w, self.P, self.gw = world, world.P, gw
+        self.link = world.taps.links[gw]
+        self.census: set = set()
+        self.applied: dict = {}   # (initiator, batch id) -> ids applied here
+        self.outbound: dict = {}  # our prepares' batch id -> ids
+        self.read = 0
+        self.mode = "ack"
+        self.busy = 0
+        self.claims: list = []
+        self.directory_version = 0
+        self.batch = 0
+
+    def deliver(self, msg_type, msg) -> None:
+        self.w.plane._on_trunk_message(self.gw, int(msg_type), msg)
+
+    def inbox(self) -> list:
+        new = self.link.sent[self.read:]
+        self.read = len(self.link.sent)
+        return [(t, cls.FromString(b)) for t, b, cls in new]
+
+    def answer(self) -> None:
+        """Read and answer everything gateway a sent since the last call."""
+        P = self.P
+        MT, pb = P.types.MessageType, P.control_pb2
+        for t, msg in self.inbox():
+            if t == MT.TRUNK_HANDOVER_PREPARE:
+                ids = [e.entityId for e in msg.entities]
+                if self.mode == "busy":
+                    self.busy += 1
+                    ack = pb.TrunkHandoverAckMessage(batchId=msg.batchId, committed=False,
+                                                     reason="overload", traceId=msg.traceId)
+                    ack.busy.CopyFrom(pb.ServerBusyMessage(
+                        reason="federation", retryAfterMs=FLEET_RETRY_AFTER_MS, overloadLevel=3))
+                    self.deliver(MT.TRUNK_HANDOVER_ACK, ack)
+                    continue
+                self.census.update(ids)
+                self.applied[("a", msg.batchId)] = ids
+                if self.mode == "ack":
+                    self.deliver(MT.TRUNK_HANDOVER_ACK, pb.TrunkHandoverAckMessage(
+                        batchId=msg.batchId, committed=True, traceId=msg.traceId))
+            elif t == MT.TRUNK_HANDOVER_ACK:
+                ids = self.outbound.pop(msg.batchId, [])
+                if msg.committed:
+                    self.census.difference_update(ids)
+            elif t == MT.TRUNK_ABORT_NOTICE:
+                for bid in msg.batchIds:
+                    self.census.difference_update(
+                        self.applied.pop((msg.initiator or "a", bid), []))
+            elif t == MT.TRUNK_DIRECTORY_UPDATE:
+                self.directory_version = max(self.directory_version, msg.version)
+            elif t == MT.TRUNK_ADOPT_QUERY:
+                self.claims = sorted(e for e in msg.entityIds if e in self.census)
+                self.deliver(MT.TRUNK_ADOPT_CLAIMS, pb.TrunkAdoptClaimsMessage(
+                    deadGateway=msg.deadGateway, gatewayId=self.gw, entityIds=self.claims,
+                    seq=msg.seq))
+
+    def load_report(self, epoch: int, entities: int) -> None:
+        self.deliver(self.P.types.MessageType.TRUNK_LOAD_REPORT,
+                     self.P.control_pb2.TrunkLoadReportMessage(
+                         gatewayId=self.gw, epoch=epoch, entities=entities, cells=8,
+                         trunkRttMs=1.0, directoryVersion=self.directory_version))
+
+    def prepare(self, src: int, dst: int, rows: list) -> None:
+        """One trunked handover batch from this peer into gateway a's cell
+        ``dst``: ``rows`` are (entity id, x, z)."""
+        P = self.P
+        self.batch += 1
+        bid = 9000 + self.batch
+        msg = P.control_pb2.TrunkHandoverPrepareMessage(
+            batchId=bid, srcChannelId=src, dstChannelId=dst, traceId=f"{self.gw}-herd-{self.batch}")
+        for i, (eid, x, z) in enumerate(rows):
+            e = msg.entities.add(entityId=eid, txnId=bid + i)
+            e.data.CopyFrom(P.anyutil.pack_any(sim_entity_data(P, eid, x, z)))
+        self.outbound[bid] = [eid for eid, _, _ in rows]
+        self.deliver(P.types.MessageType.TRUNK_HANDOVER_PREPARE, msg)
+
+
+def sim_entity_data(P, eid: int, x: float, z: float):
+    """An entity channel's SimEntityChannelData at (x, z)."""
+    d = P.sim_pb2.SimEntityChannelData()
+    d.state.entityId = eid
+    d.state.transform.position.x = x
+    d.state.transform.position.z = z
+    return d
+
+
+def fleet_replica(P, seq: int, cells: dict, txns: list, sensors: list):
+    """Stub c's TrunkShardEpochMessage: ``cells`` {cell channel: [(id, x, z)]},
+    ``txns`` [(batch id, src, dst, peer, [(id, x, z)])], ``sensors`` the
+    query plane's (key, scope, name, kind, params, spot dists) rows."""
+    pb = P.control_pb2
+    msg = pb.TrunkShardEpochMessage(epochSeq=seq)
+    for cid, rows in sorted(cells.items()):
+        data = P.sim_pb2.SimSpatialChannelData()
+        for eid, x, z in rows:
+            st = data.entities[eid]
+            st.entityId = eid
+            st.transform.position.x = x
+            st.transform.position.z = z
+        rc = msg.cells.add(channelId=cid)
+        rc.data.CopyFrom(P.anyutil.pack_any(data))
+        rc.entityIds.extend(sorted(eid for eid, _, _ in rows))
+    for bid, src, dst, peer, rows in txns:
+        txn = msg.txns.add(batchId=bid, srcChannelId=src, dstChannelId=dst, peer=peer)
+        for i, (eid, x, z) in enumerate(rows):
+            e = txn.entities.add(entityId=eid, txnId=bid + i)
+            e.data.CopyFrom(P.anyutil.pack_any(sim_entity_data(P, eid, x, z)))
+    for key, scope, name, kind, params, spots in sensors:
+        msg.queries.add(key=key, scope=scope, name=name, kind=kind, params=params,
+                        spotDists=spots)
+    return msg
+
+
+def fed_timeouts(plane) -> None:
+    """One pass of the federation plane's ``_timeout_loop`` body (its
+    100 ms sweep: expired batches abort, parked crossings re-offer, abort
+    notices re-flush, unacked stagings redirect), driven on the fixed
+    clock instead of by the loop's sleep."""
+    now = time.monotonic()
+    expired = [b for b in plane._pending.values() if now > b.deadline]
+    if expired:
+        def expire(batches=expired):
+            for b in batches:
+                if b.batch_id in plane._pending:
+                    plane._abort_batch(b, "ack timeout")
+
+        plane._in_global_tick(expire)
+    if plane._parked:
+        plane._in_global_tick(lambda: plane._reoffer_parked())
+    resend = sys.modules[type(plane).__module__].ABORT_NOTICE_RESEND_S
+    for peer, notices in list(plane._abort_notices.items()):
+        if not notices or now - plane._notices_flushed_at.get(peer, 0.0) < resend:
+            continue
+        link = plane.link_to(peer)
+        if link is not None:
+            plane._flush_abort_notices(peer, link)
+    for pit, pending in list(plane._pending_redirects.items()):
+        if now <= pending[5]:
+            continue
+        del plane._pending_redirects[pit]
+        conn, entity_id, dst_cid, peer, token, _d, trace = pending
+        plane._send_redirect(conn, peer, entity_id, dst_cid, token, staged=False, trace=trace)
+
+
+
+class FleetWorld(GatewayWorld):
+    """15a: gateway "a" of scripts/global_soak.py's three-gateway world
+    in-process on a fixed clock, through one package's modules ``P``:
+    WORLD_3's geometry on the device controller (``TPUSpatialController``,
+    the port's alias of ``GPUSpatialController``) with the sim plane and the
+    query plane on, the global soak's directory (``fed_config3``), boot pins
+    and control-plane settings, the device guard on; "a" is the leader. The
+    peers b and c are ``StubPeer``s behind ``TrunkTap`` links; the plane's
+    timeout sweep and the control epoch run on the fixed clock
+    (``fed_timeouts``, ``_epoch_tick``). The script (``FLEET_AT``): boot (the
+    entities in a's block, the agents, sensors of every kind, followers);
+    an outbound burst east across x = -50 committed by b; a burst b refuses
+    at L3; b's inbound herd (agents among them); a burst whose trunk is cut
+    mid-flight and re-offered on trunk up; c's shard epochs (its cells'
+    entities, two in-flight txns, sensor rows), its silence, a's death
+    declaration, b's census claims and a's adoption. Records per tick the
+    handovers, the trunk messages a sent, the tables, the placement ledger,
+    the engine's slots, cells and counts, the agents and sim columns, the
+    changed query rows, every ledger and every outbound stream."""
+
+    def __init__(self, P, dev: torch.device, clock, size: dict, config: str, K=None):
+        from random import Random
+
+        self.P, self.dev, self.clock, self.size, self.K = P, dev, clock, size, K
+        reset_gateway(P)
+        P.federation.reset_federation()
+        P.failover.reset_failover()
+        P.tracing._trace_counter = itertools.count(1)  # trace ids ride the trunk messages
+        gp = GlobalSoakParams()
+        fed_pins(P, FedSoakParams(heartbeat_ms=gp.heartbeat_ms,
+                                  trunk_timeout_ms=gp.trunk_timeout_ms,
+                                  handover_timeout_ms=gp.handover_timeout_ms,
+                                  global_tick_ms=gp.global_tick_ms))
+        global_settings_hook(gp)(P.settings.global_settings)
+        s = P.settings.global_settings
+        if P.port:
+            s.spatial_device = dev.type
+        s.tpu_entity_capacity = size["entity_capacity"]
+        s.tpu_query_capacity = size["query_capacity"]
+        s.sim_enabled = True
+        s.sim_agents = size["agents"]
+        s.device_guard_enabled = True
+        s.device_step_deadline_s = size["deadline_s"]
+        P.message.init_message_map()
+        P.channel.init_channels()
+        P.sim_models.register_sim_types()
+        P.controller.init_spatial_controller(config)
+        ctl = self.ctl = P.controller.get_spatial_controller()
+        self.eng = ctl.engine
+        if P.port:
+            check(self.eng.device.type == dev.type, f"the engine is on {self.eng.device}, not {dev}")
+        fed = P.federation
+        fed.init_federation(fed_config3(FLEET_PORTS), "a", ctl)
+        self.plane, self.control, self.directory = fed.plane, fed.control, fed.directory
+        # The stub trunk manager: ``plane.link_to`` reads its ``links``.
+        self.taps = NS(links={p: TrunkTap(p) for p in ("b", "c")}, stop=lambda: None)
+        self.plane.manager = self.taps
+        self.plane.active = True
+        self.control.plane, self.control.active = self.plane, True  # the epoch runs on the clock
+        self.conns: list = []
+        self.handovers, self.step_ms, self.rebuild_ms = [], [], []
+        self.engine_ticks = 0
+        self._wrap()
+        self._servers()
+        self.gch = P.channel.get_global_channel()
+        self.peers = {gw: StubPeer(self, gw) for gw in ("b", "c")}
+        for gw in ("b", "c"):
+            self.plane._on_trunk_up(gw, self.taps.links[gw])
+        self.rng = Random(FLEET_SEED ^ 0xF1)
+        self.start = s.spatial_channel_id_start
+        self.estart = s.entity_channel_id_start
+        self.agent_base = self.estart + P.sim_plane.AGENT_ID_OFFSET
+        self._entities()
+        self._queries()
+        self._peer_worlds()
+        self.events: list = []   # (name, held, detail)
+        self.kernels: dict = {}
+        self.adopted_at = None
+        self.columns: list = []  # with size["columns"]: each tick's agent rows
+        self.metrics0 = P.invariants.scrape()
+
+    _wrap = SoakWorld._wrap
+
+    # ---- boot ------------------------------------------------------------
+
+    def _servers(self) -> None:
+        P, ctl = self.P, self.ctl
+        master = self.conn(1, "SERVER")
+        gch = P.channel.get_global_channel()
+        gch.set_owner(master)
+        P.sub.subscribe_to_channel(master, gch, None)
+        server = self.conn(2, "SERVER")
+        ctx = P.message.MessageContext(msg_type=P.types.MessageType.CREATE_CHANNEL,
+                                       msg=P.control_pb2.CreateChannelMessage(), connection=server)
+        for ch in ctl.create_channels(ctx):
+            P.sub.subscribe_to_channel(server, ch, None)
+        self.local_cells = sorted(c for c, ch in P.channel.all_channels().items()
+                                  if ch.channel_type == P.types.ChannelType.SPATIAL)
+        want = [self.P.settings.global_settings.spatial_channel_id_start + i
+                for i in FLEET_CELLS["a"]]
+        check(self.local_cells == want, f"a's local cells {[hex(c) for c in self.local_cells]}")
+
+    def cell_of(self, x: float, z: float) -> int:
+        return self.ctl.get_channel_id(self.P.controller.SpatialInfo(x, 0, z))
+
+    def _entities(self) -> None:
+        """The global soak's entities in a's block (``FedSim``), tracked on
+        the device from birth."""
+        P, ctl = self.P, self.ctl
+        sim = FedSim(P, ctl, self.rng)
+        sim.create_entities(self.size["entities"], *GLOBAL_XR["a"], *GLOBAL_ZR,
+                            base=GLOBAL_BASE["a"])
+        self.entity_ids = sim.entity_ids
+        self.positions: dict = {}
+        for eid in self.entity_ids:
+            pos = P.channel.get_channel(eid).get_data_message().state.transform.position
+            ctl.track_entity(eid, P.controller.SpatialInfo(pos.x, 0, pos.z))
+
+    def _queries(self) -> None:
+        """Sensors of every kind over a's block, followers on its entities,
+        and clients subscribed to its cells."""
+        P, ctl, ops, rng = self.P, self.ctl, self.P.ops, self.rng
+        (x0, x1), (z0, z1) = GLOBAL_XR["a"], GLOBAL_ZR
+        kinds = (ops.AOI_BOX, ops.AOI_SPHERE, ops.AOI_CONE, ops.AOI_SPOTS)
+        for i in range(self.size["sensors"]):
+            kind = kinds[i % 4]
+            cx, cz = rng.uniform(x0, x1), rng.uniform(z0, z1)
+            if kind == ops.AOI_SPOTS:
+                ctl.register_sensor(f"a-sensor{i}", kind=kind, spots=[
+                    (cx, cz), (rng.uniform(x0, x1), rng.uniform(z0, z1))], dists=[0, 1])
+            else:
+                ctl.register_sensor(f"a-sensor{i}", kind=kind, center=(cx, cz),
+                                    extent=(rng.uniform(40, 90), rng.uniform(40, 90)),
+                                    direction=(1.0, 0.0), angle=0.7)
+        for i in range(self.size["followers"]):
+            client = self.conn(1000 + i, "CLIENT")
+            eid = self.entity_ids[(7 * i + 3) % len(self.entity_ids)]
+            ctl.register_follow_interest(client, eid, ops.AOI_SPHERE, extent=(60.0, 0.0))
+        for i in range(4):
+            client = self.conn(2000 + i, "CLIENT")
+            for cid in self.local_cells[2 * i:2 * i + 2]:
+                P.sub.subscribe_to_channel(client, P.channel.get_channel(cid),
+                                           P.control_pb2.ChannelSubscriptionOptions(
+                                               fanOutIntervalMs=50))
+
+    def _peer_worlds(self) -> None:
+        """Stub b's and stub c's holdings: b's herd (humans and agents in the
+        agent range), c's cells' entities (the first ``claimed`` of them
+        already on b: b claims them in the census), two in-flight txns of
+        c's (one toward b, one a local hop), and c's sensor rows."""
+        P, rng, size = self.P, self.rng, self.size
+        start, estart = self.start, self.estart
+        b, c = self.peers["b"], self.peers["c"]
+        n_agents = size["herd_agents"]
+        self.herd_ids = ([estart + 1 + GLOBAL_BASE["b"] + i for i in range(size["herd"] - n_agents)]
+                         + [self.agent_base + GLOBAL_BASE["b"] + i for i in range(n_agents)])
+        b.census.update(self.herd_ids)
+        (x0, x1), (z0, z1) = GLOBAL_XR["c"], GLOBAL_ZR
+        self.c_cells: dict = {}
+        c_ids = [estart + 1 + GLOBAL_BASE["c"] + i for i in range(size["adopt"] + 2)]
+        rows = [(eid, rng.uniform(x0, x1), rng.uniform(z0, z1)) for eid in c_ids]
+        for eid, x, z in rows[: size["adopt"]]:
+            self.c_cells.setdefault(self.cell_of(x, z), []).append((eid, x, z))
+        self.claimed = c_ids[: size["claimed"]]
+        b.census.update(self.claimed)
+        tx_b, tx_local = rows[size["adopt"]], rows[size["adopt"] + 1]
+        b_cell = start + FLEET_CELLS["b"][0]
+        c_src = self.cell_of(tx_local[1], tx_local[2])
+        c_dst = next(start + i for i in FLEET_CELLS["c"] if start + i != c_src)
+        self.c_txns = [(5001, self.cell_of(tx_b[1], tx_b[2]), b_cell, "b", [tx_b]),
+                       (5002, c_src, c_dst, "c", [tx_local])]
+        self.c_ids = c_ids
+        ops, qp = P.ops, P.queryplane
+        kinds = (ops.AOI_BOX, ops.AOI_SPHERE, ops.AOI_CONE, ops.AOI_SPOTS)
+        self.c_sensors = []
+        for i in range(size["adopt_sensors"]):
+            kind = kinds[i % 4]
+            cx, cz = rng.uniform(x0, x1), rng.uniform(z0, z1)
+            spots = [(cx, cz), (rng.uniform(x0, x1), rng.uniform(z0, z1))] \
+                if kind == ops.AOI_SPOTS else None
+            self.c_sensors.append((FLEET_SENSOR_KEY + i, "sensor", f"c-sensor{i}", int(kind),
+                                   qp.pack_params((cx, cz), (70.0, 50.0), (0.0, 1.0), 0.6, spots),
+                                   [0, 2] if spots else []))
+        c.census.update(c_ids[size["claimed"]:])
+
+    # ---- the script ------------------------------------------------------
+
+    def backed_agents(self) -> list:
+        """Channel-backed agents in a's block, by id."""
+        P, ctl = self.P, self.ctl
+        out = []
+        for eid in sorted(ctl.simplane.authority._backed):
+            ch = P.channel.get_channel(eid)
+            if ch is not None and self.ctl._data_cell.get(eid) in self.local_cells:
+                out.append(eid)
+        return out
+
+    def east(self, n: int, n_agents: int) -> list:
+        """``n`` of a's live entities (``n_agents`` of them agents) moved just
+        east of x = -50, into b's block."""
+        P = self.P
+        humans = [e for e in self.entity_ids if P.channel.get_channel(e) is not None
+                  and e not in self.plane._parked][: n - n_agents]
+        agents = self.backed_agents()[:n_agents]
+        check(len(humans) + len(agents) == n, f"15a: {len(humans)} + {len(agents)} of {n} to move")
+        for eid in humans + agents:
+            self.move(eid, -50.0 + self.rng.uniform(1.0, 6.0), self.rng.uniform(*GLOBAL_ZR))
+        return humans + agents
+
+    def expect(self, name: str, ok, detail="") -> None:
+        self.events.append((name, bool(ok), str(detail)[:300]))
+
+    def drive(self, t: int) -> None:
+        at, size = FLEET_AT, self.size
+        b, c = self.peers["b"], self.peers["c"]
+        tap_b, tap_c = self.taps.links["b"], self.taps.links["c"]
+        MT = self.P.types.MessageType
+        b.answer()
+        if tap_c.alive:
+            c.answer()
+        if t == at["sever"] + 1:  # the cut: b applied the burst, its acks are lost
+            tap_b.alive = False
+            self.plane._on_trunk_down("b", tap_b)
+        if t == at["trunk_up"]:
+            tap_b.alive, b.mode = True, "ack"
+            self.plane._on_trunk_up("b", tap_b)
+        if t == at["silent"]:  # c's process dies: what it held lives on only in its replicas
+            tap_c.alive = False
+            c.census.clear()
+            self.plane._on_trunk_down("c", tap_c)
+        if t % FLEET_EPOCH_TICKS == 0:
+            # The peers report a's own last load (b one more): the fleet stays
+            # balanced, so the leader plans no migration, and a, the least
+            # loaded survivor, adopts c's shard.
+            epoch = t // FLEET_EPOCH_TICKS + 1
+            load = self.control.vectors.get("a", {}).get("entities", 0)
+            if tap_b.alive:
+                b.load_report(epoch, load + 1)
+            if tap_c.alive:
+                c.load_report(epoch, load)
+                c.deliver(MT.TRUNK_SHARD_EPOCH, fleet_replica(self.P, epoch, self.c_cells,
+                                                              self.c_txns, self.c_sensors))
+            self.plane._in_global_tick(self.control._epoch_tick)
+        if t % FLEET_SWEEP_TICKS == 0:
+            fed_timeouts(self.plane)
+        if t == at["burst"]:
+            self.burst = self.east(size["burst"], size["burst_agents"])
+        elif t == at["refusal"]:
+            b.mode = "busy"
+            self.refused = self.east(size["refusal"], 0)
+        elif t == at["refusal"] + 2:
+            b.mode = "ack"
+        elif t == at["herd"]:
+            half = len(self.herd_ids) // 2
+            for k, ids in enumerate((self.herd_ids[:half], self.herd_ids[half:])):
+                dst = self.local_cells[1 + 2 * k]
+                src = self.start + FLEET_CELLS["b"][2 * k]
+                cx, cz = self.centre(dst)
+                b.prepare(src, dst, [(e, cx + 3.0, cz - 2.0) for e in ids])
+        elif t == at["sever"]:
+            b.mode = "cut"
+            self.severed = self.east(size["sever"], 0)
+
+    def centre(self, cid: int) -> tuple:
+        info = self.ctl._cell_center(cid - self.start)
+        return info.x, info.z
+
+    # ---- the six events --------------------------------------------------
+
+    def check_events(self, t: int) -> None:
+        at, P, eng, ctl = FLEET_AT, self.P, self.eng, self.ctl
+        b = self.peers["b"]
+        plane, sim = self.plane, ctl.simplane
+        if t == at["burst"] + 3:
+            gone = [e for e in self.burst if eng.slot_of_entity(e) is None
+                    and P.channel.get_channel(e) is None and e in b.census]
+            self.expect("outbound_burst_untracked_after_commit", gone == self.burst,
+                        (len(gone), len(self.burst)))
+            self.expect("agents_departed_with_the_burst",
+                        sim.ledgers.get("agents_departed", 0) == self.size["burst_agents"],
+                        sim.ledgers)
+        if t == at["refusal"] + 2:
+            back = [e for e in self.refused if eng.slot_of_entity(e) is not None
+                    and e in plane._parked and self.in_cell(e, ctl._data_cell.get(e))]
+            self.expect("refused_burst_back_at_its_source", back == self.refused
+                        and plane.busy_frames == b.busy > 0
+                        and plane.ledger.get("refused", 0) == b.busy,
+                        (len(back), plane.busy_frames, b.busy, plane.ledger))
+        if t == at["herd"] + 2:
+            centred = [e for e in self.herd_ids if eng.slot_of_entity(e) is not None
+                       and tuple(eng._positions[eng.slot_of_entity(e)][[0, 2]])
+                       == self.centre(ctl._data_cell.get(e))
+                       and self.in_cell(e, ctl._data_cell.get(e))]
+            agents = [e for e in self.herd_ids if e >= self.agent_base]
+            self.expect("inbound_herd_tracked_at_cell_centres", centred == self.herd_ids,
+                        (len(centred), len(self.herd_ids)))
+            self.expect("inbound_agents_reflagged",
+                        all(eng.is_agent(e) for e in agents)
+                        and sim.ledgers.get("agents_adopted", 0) == len(agents), sim.ledgers)
+            self.kernels_at("herd")
+        if t == at["trunk_up"] - 1:
+            back = [e for e in self.severed if e in plane._parked
+                    and self.in_cell(e, ctl._data_cell.get(e))]
+            to_b = [b.batch_id for b in plane._pending.values() if b.peer == "b"]
+            self.expect("severed_burst_aborted_and_restored", back == self.severed and not to_b,
+                        (len(back), len(self.severed), to_b))
+        if t == at["trunk_up"] + 4:
+            done = [e for e in self.severed + self.refused if e in b.census
+                    and P.channel.get_channel(e) is None]
+            self.expect("parked_crossings_reoffered_and_committed",
+                        done == self.severed + self.refused
+                        and plane.ledger.get("reconciled", 0) == 0
+                        and not plane._parked and not plane._pending,
+                        (len(done), plane.ledger))
+        if self.control.adoptions and self.adopted_at is None:
+            self.adopted_at = t
+        elif self.adopted_at == t - 1:  # c's sensor rows reach the card with this tick's upload
+            self.kernels_at("adoption")
+
+    def in_cell(self, eid: int, cid) -> bool:
+        ch = self.P.channel.get_channel(cid) if cid is not None else None
+        return ch is not None and eid in ch.get_data_message().entities
+
+    def kernels_at(self, case: str) -> None:
+        eng, K = self.eng, self.K
+        if K is not None:
+            self.kernels[case] = soak_live_kernels(K, eng.grid, eng._d_positions, eng._d_valid,
+                                                   eng._d_queries)
+        else:
+            self.kernels[case] = None
+
+    def adoption_checks(self) -> None:
+        """The dead peer's adoption, after the run: c declared dead by the
+        leader after its miss window, a the adopter, c's cells created
+        here, c's entities (but those b claimed) tracked at their cells'
+        centres and placed, c's sensor rows on a's query plane."""
+        P, eng, ctl, control = self.P, self.eng, self.ctl, self.control
+        size = self.size
+        self.expect("c_declared_dead_and_adopted_here",
+                    control.dead == {"c"} and control.deaths == 1 and control.adoptions == 1,
+                    (control.dead, control.deaths, control.adoptions))
+        cells = [self.start + i for i in FLEET_CELLS["c"]]
+        self.expect("c_cells_hosted_here", all(P.channel.get_channel(c) is not None
+                                               for c in cells)
+                    and all(self.directory.is_local_cell(c) for c in cells), cells)
+        adopted = [e for e in self.c_ids if e not in self.claimed]
+        placed = [e for e in adopted if eng.slot_of_entity(e) is not None
+                  and self.in_cell(e, ctl._data_cell.get(e))]
+        self.expect("c_entities_adopted_and_tracked", placed == adopted, (len(placed), len(adopted)))
+        self.expect("claimed_ids_not_recreated",
+                    all(P.channel.get_channel(e) is None and eng.slot_of_entity(e) is None
+                        for e in self.claimed) and self.peers["b"].claims == self.claimed,
+                    (self.claimed, self.peers["b"].claims))
+        keys = set(ctl.queryplane._entries)
+        self.expect("c_sensor_rows_restored",
+                    {k for k, *_ in self.c_sensors} <= keys
+                    and control.counters.get("queries_adopted", 0) == size["adopt_sensors"],
+                    (sorted(keys)[-6:], control.counters))
+
+    # ---- one tick ----------------------------------------------------------
+
+    def tick(self, t: int) -> dict:
+        P, eng, K, ctl = self.P, self.eng, self.K, self.ctl
+        self.clock.advance(FLEET_TICK_S)
+        self.drive(t)
+        now = time.monotonic_ns()
+        chans = P.channel.all_channels()
+        cuda = self.dev.type == "cuda"
+        crossings, ran, steps = len(self.handovers), self.engine_ticks, len(self.step_ms)
+        sent0 = {gw: len(tap.sent) for gw, tap in self.taps.links.items()}
+        before = K.launch_counts() if K is not None else None
+        entity_channels = [ch for cid, ch in sorted(chans.items()) if cid >= self.estart]
+        spatial = [ch for cid, ch in sorted(chans.items())
+                   if ch.channel_type == P.types.ChannelType.SPATIAL]
+        sync(self.dev)
+        eng.last_result = None
+        with (Reads() if cuda else contextlib.nullcontext()) as reads:
+            t0 = time.perf_counter()
+            for ch in entity_channels:
+                ch.tick_once(now)
+            self.gch.tick_once(now)
+            for ch in spatial:
+                ch.tick_once(now)
+            t1 = time.perf_counter()
+        result = eng.last_result
+        obs = dict(handovers=[r for rows in self.handovers[crossings:] for r in rows],
+                   ran=self.engine_ticks - ran, served=result is not None,
+                   tick_ms=(t1 - t0) * 1e3,
+                   step_ms=self.step_ms[steps] if len(self.step_ms) > steps else None,
+                   reads=reads.count if cuda else None)
+        obs.update(self.observe(result, sent0))
+        if K is not None:
+            obs["launches"] = {n: c - before[n] for n, c in K.launch_counts().items()}
+        if self.size.get("columns"):
+            slots = np.sort(eng.agent_slots())
+            self.columns.append([host(c)[slots] for c in (eng._d_positions, eng._d_vel,
+                                                          eng._d_sim_state, eng._d_sim_target)])
+        self.check_events(t)
+        return obs
+
+    def observe(self, result, sent0: dict) -> dict:
+        """Digests of what the tick left: tables, the placement ledger, the
+        engine's slots, committed cells, validity and counts, the agents and
+        sim columns, the changed query rows, the trunk messages a sent, the
+        ledgers and the peers' holdings."""
+        P, eng, ctl = self.P, self.eng, self.ctl
+        tables = hashlib.sha256()
+        for cid, ch in sorted(P.channel.all_channels().items()):
+            if ch.channel_type == P.types.ChannelType.SPATIAL:
+                tables.update(np.array([cid], np.int64).tobytes())
+                tables.update(ch.get_data_message().SerializeToString(deterministic=True))
+        q = counts = None
+        census = False
+        if result is not None:
+            count, rows = eng.query_changed_rows(result)
+            q = (count, digest([rows[: min(count, len(rows))]])[0])
+            census = "sim_census" in result
+            counts = digest([np.asarray(eng.consume(result)[2] if hasattr(eng, "consume")
+                                        else result["cell_counts"])])[0]
+        slots = sorted(eng._slot_of_entity.items())
+        engine = digest([np.asarray(slots, np.int64).reshape(-1), host(eng._d_cell),
+                         host(eng._d_valid), eng._agent_mask])
+        sim = digest([host(t) for t in (eng._d_positions, eng._d_vel, eng._d_sim_state,
+                                              eng._d_sim_target)]) if eng._d_vel is not None else None
+        trunk = {gw: [(tp, hashlib.sha256(b).hexdigest()[:16]) for tp, b, _ in tap.sent[sent0[gw]:]]
+                 for gw, tap in self.taps.links.items()}
+        qp = ctl.queryplane
+        return dict(
+            tables=tables.hexdigest(), q=q, census=census,
+            counts=counts, engine=engine, sim=sim,
+            placement=digest([np.asarray(sorted(ctl._data_cell.items()), np.int64).reshape(-1)])[0],
+            agents=(eng.agent_count(), sorted(ctl.simplane.authority._backed)),
+            trunk=trunk,
+            ledgers=(sorted(self.plane.ledger.items()), self.plane.busy_frames,
+                     sorted(self.control.ledger.items()), sorted(self.control.counters.items()),
+                     self.control.adoptions, self.control.deaths, sorted(self.control.dead),
+                     sorted(ctl.simplane.ledgers.items()),
+                     sorted(ctl.simplane.authority.ledgers.items()),
+                     sorted(qp.ledgers.items()), sorted(P.failover.journal.counts.items())),
+            peers={gw: sorted(p.census) for gw, p in self.peers.items()},
+            sent={c.id: (c.count, c.digest.hexdigest()) for c in self.conns})
+
+    def run(self) -> list:
+        obs = [self.tick(t) for t in range(self.size["ticks"])]
+        self.adoption_checks()
+        return obs
+
+    def report(self) -> dict:
+        """The books at the end: the census across a, stub b and stub c,
+        each ledger against its metric."""
+        P, ctl = self.P, self.ctl
+        inv = P.invariants
+        d = inv.delta(inv.scrape(), self.metrics0)
+        fed_metric = {dict(labels)["result"]: int(v) for (name, labels), v in d.items()
+                      if name == "federation_handover_total" and v}
+        placed: dict = {}
+        for cid, ch in P.channel.all_channels().items():
+            if ch.channel_type == P.types.ChannelType.SPATIAL:
+                for eid in ch.get_data_message().entities:
+                    placed.setdefault(eid, []).append(("a", cid))
+        for gw, peer in self.peers.items():
+            for eid in peer.census:
+                placed.setdefault(eid, []).append((gw, 0))
+        expected = set(self.entity_ids) | set(self.herd_ids) | set(self.c_ids)
+        expected |= {e for e in self.burst}
+        ledger = {k: v for k, v in self.plane.ledger.items() if k not in ("redirects", "staged")}
+        return dict(
+            lost=sorted(e for e in expected if e not in placed),
+            duplicated={e: w for e, w in placed.items() if len(w) > 1},
+            fed_ledger=ledger, fed_metric=fed_metric,
+            adoptions=(self.control.adoptions,
+                       int(inv.sample_total(d, "gateway_adoptions_total"))),
+            deaths=(self.control.deaths, int(inv.sample_total(d, "gateway_deaths_total"))),
+            ledger=dict(self.plane.ledger), control=self.control.report()["counters"],
+            sim=dict(ctl.simplane.ledgers), journal=dict(P.failover.journal.counts),
+            in_flight=P.failover.journal.in_flight_count(),
+            pending=len(self.plane._pending), parked=len(self.plane._parked),
+            adopted_at=self.adopted_at, kernels=self.kernels,
+            engine_ticks=self.engine_ticks, local_cells=len(self.local_cells))
+
+    def close(self) -> None:
+        self.P.federation.reset_federation()
+        self._unwrap()
+        reset_gateway(self.P)
+
+
+
+def fleet_config(scratch: str) -> str:
+    """WORLD_3 on the device controller, as a spatial config file."""
+    import os
+
+    path = os.path.join(scratch, "fleet_world3.json")
+    with open(path, "w") as f:
+        json.dump(dict(WORLD_3, SpatialControllerType="TPUSpatialController"), f)
+    return path
+
+
+def run_fleet_leg(P, dev: torch.device, size: dict, scratch: str, K=None) -> tuple:
+    """One leg of 15a: (per-tick observations, report with the six events'
+    checks and, with ``K``, the kernels on the live tensors)."""
+    t_leg = time.perf_counter()
+    with FixedClock() as clock:
+        world = FleetWorld(P, dev, clock, size, fleet_config(scratch), K)
+        if K is not None:
+            K.reset_launch_counts()
+        obs = world.run()
+        report = world.report()
+        report["events"] = list(world.events)
+        report["columns"] = world.columns
+        report["launches"] = K.launch_counts() if K is not None else None
+        world.close()
+        del world
+    report["secs"] = time.perf_counter() - t_leg
+    return obs, report
+
+
+def fleet_checks(obs: list, r: dict) -> list:
+    """15a's books of one leg, as (name, held, detail): the six events, the
+    census across a, stub b and stub c (zero lost, zero duplicated), each
+    ledger equal to its metric, nothing left in flight."""
+    return list(r["events"]) + [
+        ("census_zero_lost", r["lost"] == [], r["lost"]),
+        ("census_zero_duplicated", r["duplicated"] == {}, r["duplicated"]),
+        ("federation_ledger_equals_metric", r["fed_ledger"] == r["fed_metric"],
+         (r["fed_ledger"], r["fed_metric"])),
+        ("adoptions_equal_metric", r["adoptions"][0] == r["adoptions"][1] == 1, r["adoptions"]),
+        ("deaths_equal_metric", r["deaths"][0] == r["deaths"][1] == 1, r["deaths"]),
+        ("journal_balanced", r["journal"].get("prepared", 0)
+         == r["journal"].get("committed", 0) + r["journal"].get("aborted", 0)
+         and r["in_flight"] == 0, (r["journal"], r["in_flight"])),
+        ("nothing_pending_or_parked", (r["pending"], r["parked"]) == (0, 0),
+         (r["pending"], r["parked"])),
+        ("every_tick_served", all(o["served"] for o in obs),
+         [t for t, o in enumerate(obs) if not o["served"]][:10])]
+
+
+def phase_fleet_lockstep(K, dev, size: dict) -> tuple:
+    """15a: ``FleetWorld`` on the card against a lockstep CPU leg, tick for
+    tick, both held to the fleet's books. Returns (K1/K2 launches, the
+    kernels' entries after the inbound herd and after the adoption)."""
+    import shutil
+    import tempfile
+
+    P = gateway_modules()
+    scratch = tempfile.mkdtemp(prefix="fleet-lockstep-")
+    t_phase = time.perf_counter()
+    try:
+        card, rc = run_fleet_leg(P, dev, size, scratch, K)
+        cpu, rp = run_fleet_leg(P, torch.device("cpu"), size, scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    check(len(card) == len(cpu), f"15a: {len(card)} card and {len(cpu)} cpu ticks")
+    for t in range(len(card)):
+        where = first_gateway_diff(card[t], cpu[t])
+        check(where is None, f"15a tick {t}: cuda and cpu differ: {where}")
+    for leg, obs, r in (("cuda", card, rc), ("cpu", cpu, rp)):
+        for name, ok, detail in fleet_checks(obs, r):
+            check(ok, f"15a {leg}: {name}: {str(detail)[:300]}")
+    for t, o in enumerate(card):
+        want = {name: o["ran"] for name in o["launches"]}
+        check(o["launches"] == want, f"15a tick {t}: launches {o['launches']} in {o['ran']} "
+                                     f"engine ticks (one of each per engine tick)")
+        if o["served"] and not o["census"]:
+            check(o["reads"] == 2, f"15a tick {t}: {o['reads']} device reads, not 2 (the "
+                                   f"consume blob and the query plane's changed rows)")
+    check(set(rc["kernels"]) == {"herd", "adoption"},
+          f"15a: K1/K2 held on the live tensors of {sorted(rc['kernels'])} only")
+    ledger, control = rc["ledger"], rc["control"]
+    trunk_out = sum(len(o["trunk"][gw]) for o in card for gw in o["trunk"])
+    print(f"15a fleet lockstep: gateway a of scripts/global_soak.py's WORLD_3 (6x4 cells of 50 m, "
+          f"three 2x4 blocks; a hosts {rc['local_cells']} cells) on the device controller at "
+          f"{size['entity_capacity']} slots / {size['query_capacity']} query rows, "
+          f"{len(card)} GLOBAL ticks of a fixed {FLEET_TICK_S * 1e3:g} ms clock (epoch "
+          f"{FLEET_EPOCH_TICKS} ticks), {size['entities']} entities, {size['agents']} sim "
+          f"agents, {size['sensors']} sensors, {size['followers']} followers; stub peers b and c "
+          f"behind tapped trunks: outbound {size['burst']} ({size['burst_agents']} agents), "
+          f"refused {size['refusal']}, inbound {size['herd']} ({size['herd_agents']} agents), "
+          f"severed {size['sever']}, c's adoption of {size['adopt']} + 2 in-flight entities and "
+          f"{size['adopt_sensors']} sensor rows (b claimed {size['claimed']}) on tick "
+          f"{rc['adopted_at']}; every check held on both legs: "
+          + ", ".join(name for name, _, _ in fleet_checks(card, rc))
+          + f"; federation ledger {ledger}, control counters {control}, sim {rc['sim']}; "
+          f"{trunk_out} trunk messages from a; cuda equals the CPU leg on every tick (handovers, "
+          f"trunk messages as bytes in order, tables, placement ledger, engine slots, cells and "
+          f"counts, agents and sim columns, changed query rows, every ledger, the peers' "
+          f"holdings, every outbound stream); 2 device reads a steady tick; launches "
+          f"{rc['launches']} in {rc['engine_ticks']} engine ticks; phase "
+          f"{time.perf_counter() - t_phase:.1f} s (card leg {rc['secs']:.1f} s, cpu leg "
+          f"{rp['secs']:.1f} s)")
+    for leg, obs in (("cuda", card), ("cpu", cpu)):
+        steps = [o["step_ms"] for o in obs[1:] if o["step_ms"] is not None]
+        print(f"15a on {leg}: tick (host clock) {tick_stats([o['tick_ms'] for o in obs[1:]])}; "
+              f"guarded step {tick_stats(steps)}")
+    entries: dict = {}
+    for case, ks in sorted(rc["kernels"].items()):
+        for name, k in ks.items():
+            entries.setdefault(name, {})[f"15a_{case}"] = k
+            print(f"15a {name} on the live tensors after the {case} ({k['shape']}): exact; "
+                  f"alone {k['ms']:.4f} ms (events, bare launches), plain {k['plain_ms']:.4f} "
+                  f"ms, bound {k['bound_ms']:.6f} ms ({k['bound_by']})")
+    return rc["launches"], entries
+
+
+
+# ---- 15b: scripts/federation_soak.py's live fleet through the port ----------
+
+
+def fed_auth_frame(P, pit: str) -> bytes:
+    return soak_frame(P, P.types.MessageType.AUTH, P.control_pb2.AuthMessage(
+        playerIdentifierToken=pit, loginToken="fed-soak").SerializeToString())
+
+
+async def fed_boot_gateway(P, gw_id: str, fed_cfg: dict, params: FedSoakParams, stop,
+                           scratch: str, expect_cells: int = 8) -> dict:
+    """scripts/federation_soak.py's ``boot_gateway`` through one package's
+    modules: every singleton reset, the soak's pins, listeners on loopback,
+    the master possessing GLOBAL and one spatial server claiming the local
+    block over TCP, the federation plane armed and started (its trunks)."""
+    import asyncio
+    import os
+
+    reset_gateway(P)
+    P.failover.reset_failover()
+    P.federation.reset_federation()
+    fed_pins(P, params)
+    P.sim_models.register_sim_types()
+    P.connection.init_connections(SERVER_FSM, CLIENT_FSM)
+    P.channel.init_channels()
+    P.ddos.init_anti_ddos()
+    spatial_path = os.path.join(scratch, f"fed_soak_spatial_{gw_id}_{os.getpid()}.json")
+    with open(spatial_path, "w") as f:
+        json.dump(WORLD_SPATIAL, f)
+    P.controller.init_spatial_controller(spatial_path)
+    ctl = P.controller.get_spatial_controller()
+    P.federation.init_federation(fed_cfg, gw_id, ctl)
+    MT, CT = P.types.MessageType, P.types.ChannelType
+    host = "127.0.0.1"
+    client_port = int(fed_cfg["gateways"][gw_id]["client"].rpartition(":")[2])
+    server_srv = await P.server.start_listening(P.types.ConnectionType.SERVER, "tcp", f"{host}:0")
+    server_port = server_srv.sockets[0].getsockname()[1]
+    client_srv = await P.server.start_listening(P.types.ConnectionType.CLIENT, "tcp",
+                                                f"{host}:{client_port}")
+    tasks = [asyncio.ensure_future(P.server.flush_loop()),
+             asyncio.ensure_future(P.ddos.unauth_reaper_loop()),
+             asyncio.ensure_future(P.recovery.connection_recovery_loop())]
+    writers = []
+    for pit, create in ((f"fed-master-{gw_id}", P.control_pb2.CreateChannelMessage(
+            channelType=CT.GLOBAL)), (f"fed-spatial-{gw_id}", P.control_pb2.CreateChannelMessage(
+            channelType=CT.SPATIAL, subOptions=P.control_pb2.ChannelSubscriptionOptions(
+                dataAccess=P.types.ChannelDataAccess.WRITE_ACCESS)))):
+        reader, writer = await asyncio.open_connection(host, server_port)
+        await soak_auth(P, reader, writer, pit, timeout=8.0)
+        writer.write(soak_frame(P, MT.CREATE_CHANNEL, create.SerializeToString()))
+        await writer.drain()
+        tasks.append(asyncio.ensure_future(soak_read_frames(P, reader, lambda mp: None, stop)))
+        writers.append(writer)
+    gs = P.settings.global_settings
+    start_id, end_id = gs.spatial_channel_id_start, gs.entity_channel_id_start
+    deadline = time.monotonic() + 20.0
+    while time.monotonic() < deadline:
+        cells = [ch for cid, ch in P.channel.all_channels().items() if start_id <= cid < end_id]
+        if len(cells) == expect_cells and all(ch.has_owner() for ch in cells):
+            break
+        await asyncio.sleep(0.05)
+    else:
+        raise RuntimeError(f"gateway {gw_id}: local shard failed to come up")
+    plane = P.federation.plane
+    await plane.start()
+    return dict(ctl=ctl, plane=plane, tasks=tasks, writers=writers,
+                servers=[server_srv, client_srv], spatial_path=spatial_path,
+                client_port=client_port)
+
+
+def fed_teardown_gateway(P, gw: dict) -> None:
+    """scripts/federation_soak.py's ``teardown_gateway``."""
+    import os
+
+    P.federation.reset_federation()
+    P.wal.reset_wal()
+    for t in gw.get("tasks", []):
+        t.cancel()
+    for w in gw.get("writers", []):
+        w.close()
+    for s in gw.get("servers", []):
+        s.close()
+    reset_gateway(P)
+    P.failover.reset_failover()
+    with contextlib.suppress(OSError):
+        os.remove(gw.get("spatial_path", ""))
+
+
+class FedSim:
+    """scripts/federation_soak.py's FedSim: entities created in the local
+    shard and moved through the entity channels' merge and notify path;
+    those handed to the peer vanish locally and leave the drive set."""
+
+    def __init__(self, P, ctl, rng):
+        self.P, self.ctl, self.rng = P, ctl, rng
+        self.entity_ids: list = []
+
+    def local_ids(self) -> list:
+        return [e for e in self.entity_ids if self.P.channel.get_channel(e) is not None]
+
+    def adopt_scan(self) -> None:
+        known = set(self.entity_ids)
+        estart = self.P.settings.global_settings.entity_channel_id_start
+        for cid in self.P.channel.all_channels():
+            if cid > estart and cid not in known:
+                self.entity_ids.append(cid)
+
+    def create_entities(self, n: int, x0: float, x1: float, z0: float, z1: float,
+                        base: int = 0) -> None:
+        P = self.P
+        estart = P.settings.global_settings.entity_channel_id_start
+        for i in range(n):
+            eid = estart + 1 + base + i
+            x, z = self.rng.uniform(x0, x1), self.rng.uniform(z0, z1)
+            cell_ch = P.channel.get_channel(self.ctl.get_channel_id(P.controller.SpatialInfo(x, 0, z)))
+            owner = cell_ch.get_owner()
+            ch = P.channel.create_entity_channel(eid, owner)
+            d = P.sim_pb2.SimEntityChannelData()
+            d.state.entityId = eid
+            d.state.transform.position.x = x
+            d.state.transform.position.z = z
+            ch.init_data(d, None)
+            ch.spatial_notifier = self.ctl
+            if owner is not None:
+                P.sub.subscribe_to_channel(owner, ch, None)
+            cell_ch.execute(lambda c, e=eid, dd=d: c.get_data_message().add_entity(e, dd))
+            self.entity_ids.append(eid)
+
+    def move(self, eid: int, x: float, z: float) -> bool:
+        P = self.P
+        ch = P.channel.get_channel(eid)
+        if ch is None or ch.is_removing():
+            return False
+        upd = P.sim_pb2.SimEntityChannelData()
+        upd.state.entityId = eid
+        upd.state.transform.position.x = x
+        upd.state.transform.position.z = z
+
+        def apply(c, u=upd):
+            owner = c.get_owner()
+            c.data.on_update(u, c.get_time(), owner.id if owner is not None else 0, self.ctl)
+
+        ch.execute(apply)
+        return True
+
+    def herd(self, ids: list, x0: float, x1: float, z0: float, z1: float) -> list:
+        return [eid for eid in ids
+                if self.move(eid, self.rng.uniform(x0, x1), self.rng.uniform(z0, z1))]
+
+    def jitter(self, x0: float, x1: float, z0: float, z1: float) -> None:
+        ids = self.local_ids()
+        for eid in self.rng.sample(ids, max(1, len(ids) // 6)):
+            self.move(eid, self.rng.uniform(x0, x1), self.rng.uniform(z0, z1))
+
+
+def fed_local_placement(P) -> dict:
+    """scripts/federation_soak.py's ``local_placement``: entity id -> cell
+    over every local cell (duplicates within the gateway under
+    ``__local_dups__``)."""
+    gs = P.settings.global_settings
+    placement: dict = {}
+    counts: dict = {}
+    for cid, ch in P.channel.all_channels().items():
+        if not gs.spatial_channel_id_start <= cid < gs.entity_channel_id_start:
+            continue
+        ents = getattr(ch.get_data_message(), "entities", None)
+        if ents is None:
+            continue
+        for eid in ents:
+            placement[str(eid)] = cid
+            counts[eid] = counts.get(eid, 0) + 1
+    dups = sorted(e for e, n in counts.items() if n > 1)
+    if dups:
+        placement["__local_dups__"] = dups
+    return placement
+
+
+def fed_metric_delta(P, baseline: dict) -> dict:
+    """federation_handover_total{result} deltas (the ledger's far side)."""
+    inv = P.invariants
+    return {dict(labels)["result"]: int(v) for (name, labels), v in
+            inv.delta(inv.scrape(), baseline).items()
+            if name == "federation_handover_total" and v}
+
+
+def fed_trunk_metrics(P, baseline: dict) -> dict:
+    inv = P.invariants
+    d = inv.delta(inv.scrape(), baseline)
+    return {"trunk_msgs_out": int(inv.sample_total(d, "trunk_msgs_total", direction="out")),
+            "trunk_msgs_in": int(inv.sample_total(d, "trunk_msgs_total", direction="in")),
+            "redirects_total": int(inv.sample_total(d, "redirects_total")),
+            "trunk_rtt_ms_p50": inv.histogram_quantile(d, "trunk_rtt_ms", 0.50),
+            "trunk_rtt_ms_p99": inv.histogram_quantile(d, "trunk_rtt_ms", 0.99)}
+
+
+def fed_free_ports(n: int) -> list:
+    """scripts/federation_soak.py's ``_free_ports``: n distinct free ports."""
+    import socket
+
+    socks, ports = [], []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+        ports.append(s.getsockname()[1])
+    for s in socks:
+        s.close()
+    return ports
+
+
+def foreign_modules() -> list:
+    """Modules of JAX or of the JAX package loaded in this process."""
+    return sorted(m for m in sys.modules
+                  if m in ("jax", "channeld_tpu") or m.startswith(("jax.", "channeld_tpu.")))
+
+
+async def fed_child_main(config: str, report_path: str) -> None:
+    """scripts/federation_soak.py's ``remote_main`` (gateway "b") through the
+    port, driven over stdin: force_l3, clear_l3, herd_back, quiesce,
+    report, exit. Its report also lists the modules of JAX or of the JAX
+    package it loaded (none)."""
+    import asyncio
+
+    from random import Random
+
+    import os
+
+    P = gateway_modules()
+    with open(config) as f:
+        fed_cfg = json.load(f)
+    p = FedSoakParams()
+    stop = asyncio.Event()
+    scratch = os.path.dirname(os.path.abspath(report_path))
+    gw = await fed_boot_gateway(P, "b", fed_cfg, p, stop, scratch)
+    plane, ctl = gw["plane"], gw["ctl"]
+    journal, governor = P.failover.journal, P.overload.governor
+    sim = FedSim(P, ctl, Random(p.seed ^ 0xB))
+    baseline = P.invariants.scrape()
+    print("READY", flush=True)
+
+    async def jitter_loop():
+        while not stop.is_set():
+            sim.adopt_scan()
+            if sim.local_ids():
+                sim.jitter(2.0, 98.0, -98.0, 98.0)  # stay inside shard b
+            await asyncio.sleep(0.15)
+
+    jitter_task = asyncio.ensure_future(jitter_loop())
+    loop = asyncio.get_running_loop()
+    reader = asyncio.StreamReader()
+    await loop.connect_read_pipe(lambda: asyncio.StreamReaderProtocol(reader), sys.stdin)
+    while True:
+        line = await reader.readline()
+        if not line:
+            break
+        try:
+            cmd = json.loads(line)
+        except ValueError:
+            continue
+        name = cmd.get("cmd")
+        if name == "force_l3":
+            governor._move(3)
+            print("OK force_l3", flush=True)
+        elif name == "clear_l3":
+            governor._move(0, forced=True)
+            print("OK clear_l3", flush=True)
+        elif name == "herd_back":
+            sim.adopt_scan()
+            moved = sim.herd(sim.local_ids()[: int(cmd.get("n", 8))], -98.0, -2.0, -98.0, 98.0)
+            print(f"OK herd_back {len(moved)}", flush=True)
+        elif name == "quiesce":
+            until = time.monotonic() + float(cmd.get("drain_s", 10.0))
+            jitter_task.cancel()
+            while time.monotonic() < until and (plane._pending or plane._parked
+                                                or journal.in_flight_count()):
+                await asyncio.sleep(0.1)
+            print("OK quiesce", flush=True)
+        elif name == "report":
+            report = dict(gateway="b", ledger=dict(plane.ledger), busy_frames=plane.busy_frames,
+                          metric_delta=fed_metric_delta(P, baseline),
+                          trunk=fed_trunk_metrics(P, baseline), placement=fed_local_placement(P),
+                          pending=len(plane._pending), parked=len(plane._parked),
+                          journal=journal.report(), events=plane.events[-200:],
+                          overload_transitions=governor.transitions,
+                          modules=foreign_modules(), spatial=type(ctl).__name__)
+            with open(report_path, "w") as f:
+                json.dump(report, f)
+            print("OK report", flush=True)
+        elif name == "exit":
+            break
+    stop.set()
+    jitter_task.cancel()
+    fed_teardown_gateway(P, gw)
+
+
+def fed_child(config: str, report_path: str) -> int:
+    """``chip_smoke.py --fed-child CONFIG REPORT``: 15b's gateway "b"."""
+    import asyncio
+
+    asyncio.run(fed_child_main(config, report_path))
+    return 0
+
+
+async def fed_redirect_client(P, host: str, port: int, pit: str, result: dict, stop) -> None:
+    """scripts/federation_soak.py's ``redirect_client``: connect to gateway
+    a, wait for a ClientRedirectMessage, follow it to gateway b and record
+    whether the resume was seamless."""
+    import asyncio
+
+    MT = P.types.MessageType
+    reader, writer = await asyncio.open_connection(host, port)
+    await soak_auth(P, reader, writer, pit, timeout=8.0)
+    result["authed_a"] = True
+    dec = P.protocol.FrameDecoder()
+    redirect = None
+    while redirect is None and not stop.is_set():
+        try:
+            data = await asyncio.wait_for(reader.read(65536), timeout=0.5)
+        except asyncio.TimeoutError:
+            continue
+        except (ConnectionError, OSError):
+            break
+        if not data:
+            break
+        for packet in dec.decode_packets(data):
+            for mp in packet.messages:
+                if mp.msgType == MT.CLIENT_REDIRECT:
+                    redirect = P.control_pb2.ClientRedirectMessage()
+                    redirect.ParseFromString(mp.msgBody)
+    writer.close()
+    if redirect is None:
+        result["redirected"] = False
+        return
+    result["redirected"] = True
+    result["redirect"] = dict(gateway=redirect.gatewayId, addr=redirect.addr,
+                              entity=redirect.entityId, channel=redirect.channelId)
+    r_host, _, r_port = redirect.addr.rpartition(":")
+    reader2, writer2 = await asyncio.open_connection(r_host or host, int(r_port))
+    writer2.write(fed_auth_frame(P, pit))
+    await writer2.drain()
+    dec2 = P.protocol.FrameDecoder()
+    deadline = time.monotonic() + 10.0
+    recovery_channels = []
+    while time.monotonic() < deadline:
+        try:
+            data = await asyncio.wait_for(reader2.read(65536), timeout=1.0)
+        except asyncio.TimeoutError:
+            continue
+        except (ConnectionError, OSError):
+            break
+        if not data:
+            break
+        done = False
+        for packet in dec2.decode_packets(data):
+            for mp in packet.messages:
+                if mp.msgType == MT.AUTH:
+                    ar = P.control_pb2.AuthResultMessage()
+                    ar.ParseFromString(mp.msgBody)
+                    result["auth_result_b"] = int(ar.result)
+                    result["should_recover"] = bool(ar.shouldRecover)
+                    result["conn_id_b"] = ar.connId
+                elif mp.msgType == MT.RECOVERY_CHANNEL_DATA:
+                    rm = P.control_pb2.ChannelDataRecoveryMessage()
+                    rm.ParseFromString(mp.msgBody)
+                    recovery_channels.append(rm.channelId)
+                elif mp.msgType == MT.RECOVERY_END:
+                    result["recovery_end"] = True
+                    done = True
+        if done:
+            break
+    result["recovery_channels"] = recovery_channels
+    writer2.close()
+
+
+class FedChild:
+    """scripts/federation_soak.py's Child: the stdin/stdout handle of the
+    ``--fed-child`` process."""
+
+    def __init__(self, proc):
+        self.proc = proc
+
+    async def _readline(self, timeout: float) -> str:
+        import asyncio
+
+        loop = asyncio.get_running_loop()
+        return await asyncio.wait_for(loop.run_in_executor(None, self.proc.stdout.readline),
+                                      timeout)
+
+    async def wait_for(self, prefix: str, timeout: float) -> str:
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            line = await self._readline(deadline - time.monotonic())
+            if not line:
+                raise RuntimeError("federation child died")
+            line = line.strip()
+            if line.startswith(prefix):
+                return line
+        raise TimeoutError(f"child never answered {prefix!r}")
+
+    async def cmd(self, name: str, timeout: float = 15.0, **kw) -> str:
+        self.proc.stdin.write(json.dumps({"cmd": name, **kw}) + "\n")
+        self.proc.stdin.flush()
+        return await self.wait_for(f"OK {name}", timeout)
+
+
+async def run_fed_soak(P, p: FedSoakParams, scratch: str) -> dict:
+    """scripts/federation_soak.py's ``run_fed_soak`` through the port: gateway
+    "a" in-process on this asyncio loop, gateway "b" a ``--fed-child`` process
+    of this script; both on the script's WORLD_SPATIAL, whose
+    Static2DSpatialController touches no device. The boot, the five phases,
+    the invariants and the stats under the script's names; the report also
+    carries the child's foreign modules and its controller."""
+    import asyncio
+    import os
+
+    from random import Random
+
+    journal = P.failover.journal
+    t_start = time.monotonic()
+    ports = dict(zip(("a_trunk", "a_client", "b_trunk", "b_client"), fed_free_ports(4)))
+    fed_cfg = fed_config(ports)
+    cfg_path = os.path.join(scratch, f"fed_soak_cfg_{os.getpid()}.json")
+    report_path = os.path.join(scratch, f"fed_soak_report_{os.getpid()}.json")
+    log_path = os.path.join(scratch, "fed_child.log")
+    with open(cfg_path, "w") as f:
+        json.dump(fed_cfg, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(log_path, "w") as log:
+        child_proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--fed-child", cfg_path, report_path],
+            cwd=here, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=log, text=True)
+    child = FedChild(child_proc)
+    stop = asyncio.Event()
+    gw = None
+    timeline: list = []
+    notes: list = []
+
+    def mark(phase: str, **kw) -> None:
+        timeline.append({"t": round(time.monotonic() - t_start, 2), "phase": phase, **kw})
+
+    try:
+        try:
+            await child.wait_for("READY", p.child_boot_timeout_s)
+        except (RuntimeError, TimeoutError) as e:
+            with open(log_path) as f:
+                tail = f.read()[-600:]
+            raise PhaseFailed(f"15b: the --fed-child gateway did not boot ({e}): {tail}")
+        gw = await fed_boot_gateway(P, "a", fed_cfg, p, stop, scratch)
+        plane, ctl = gw["plane"], gw["ctl"]
+        baseline = P.invariants.scrape()
+        deadline = time.monotonic() + 15.0
+        while time.monotonic() < deadline and plane.link_to("b") is None:
+            await asyncio.sleep(0.05)
+        if plane.link_to("b") is None:
+            raise PhaseFailed("15b: trunk to b never came up")
+        mark("trunk_up")
+        sim = FedSim(P, ctl, Random(p.seed ^ 0xA))
+        sim.create_entities(p.entities, -98.0, -2.0, -98.0, 98.0)
+        await asyncio.sleep(0.5)
+        redirect_result: dict = {}
+        anchor_eid = sim.entity_ids[0]
+        client_task = asyncio.ensure_future(fed_redirect_client(
+            P, "127.0.0.1", gw["client_port"], "fed-client-0", redirect_result, stop))
+        cdeadline = time.monotonic() + 10.0
+        anchor_conn = None
+        while time.monotonic() < cdeadline and anchor_conn is None:
+            for conn in P.connection.all_connections().values():
+                if getattr(conn, "pit", "") == "fed-client-0" and not conn.is_closing():
+                    anchor_conn = conn
+                    break
+            await asyncio.sleep(0.05)
+        if anchor_conn is None:
+            raise PhaseFailed("15b: anchored client never authed")
+        plane.set_client_anchor(anchor_conn, anchor_eid)
+
+        async def wait_ledger(key: str, at_least: int, timeout: float) -> bool:
+            end = time.monotonic() + timeout
+            while time.monotonic() < end:
+                if plane.ledger.get(key, 0) >= at_least:
+                    return True
+                await asyncio.sleep(0.05)
+            return False
+
+        # ---- phase 1: commit burst (includes the anchor entity) ----
+        sim.herd(sim.entity_ids[: p.burst], 2.0, 98.0, -98.0, 98.0)
+        if not await wait_ledger("committed", p.burst, p.phase_timeout_s):
+            notes.append(f"commit burst incomplete: {plane.ledger.get('committed', 0)}/{p.burst}")
+        committed_burst = plane.ledger.get("committed", 0)
+        mark("commit_burst", committed=committed_burst)
+        rdeadline = time.monotonic() + p.phase_timeout_s
+        while time.monotonic() < rdeadline and not redirect_result.get("recovery_end"):
+            await asyncio.sleep(0.1)
+        mark("redirect", **{k: v for k, v in redirect_result.items()
+                            if k != "recovery_channels"})
+
+        # ---- phase 2: refusal under destination L3 ----
+        await child.cmd("force_l3")
+        refusal_ids = sim.local_ids()[: p.refusal_burst]
+        sim.herd(refusal_ids, 2.0, 98.0, -98.0, 98.0)
+        if not await wait_ledger("refused", 1, p.phase_timeout_s):
+            notes.append("no refusal observed under destination L3")
+        refused_batches = plane.ledger.get("refused", 0)
+        await child.cmd("clear_l3")
+        if not await wait_ledger("committed", committed_burst + len(refusal_ids),
+                                 p.phase_timeout_s):
+            notes.append("refused entities never re-committed after L3 clear")
+        mark("refusal", refused=refused_batches, busy_frames=plane.busy_frames)
+
+        # ---- phase 3: sever mid-burst ----
+        sever_ids = sim.local_ids()[: p.sever_burst]
+        committed_before_sever = plane.ledger.get("committed", 0)
+        aborted_before_sever = plane.ledger.get("aborted", 0)
+        sim.herd(sever_ids, 2.0, 98.0, -98.0, 98.0)
+        sdeadline = time.monotonic() + 5.0
+        severed = False
+        while time.monotonic() < sdeadline:
+            link = plane.link_to("b")
+            if plane._pending and link is not None:
+                link.sever_for_test()
+                severed = True
+                break
+            if not plane._pending and plane.ledger.get(
+                    "committed", 0) >= committed_before_sever + len(sever_ids):
+                break  # all acks won the race
+            await asyncio.sleep(0)
+        if not severed:
+            notes.append("sever raced: no batch in flight at cut time")
+        ddeadline = time.monotonic() + p.phase_timeout_s * 2
+        while time.monotonic() < ddeadline and (plane._pending or plane._parked):
+            await asyncio.sleep(0.1)
+        mark("sever", severed=severed,
+             aborted=plane.ledger.get("aborted", 0) - aborted_before_sever,
+             pending_after=len(plane._pending), parked_after=len(plane._parked))
+
+        # ---- phase 4: herd back (b initiates, a receives) ----
+        await child.cmd("herd_back", n=p.herd_back)
+        if not await wait_ledger("applied", 1, p.phase_timeout_s):
+            notes.append("no b->a handover applied")
+        mark("herd_back", applied=plane.ledger.get("applied", 0))
+
+        # ---- quiesce + census ----
+        await child.cmd("quiesce", timeout=p.phase_timeout_s + 5.0, drain_s=p.phase_timeout_s)
+        qdeadline = time.monotonic() + p.phase_timeout_s
+        while time.monotonic() < qdeadline and (
+                plane._pending or plane._parked or journal.in_flight_count()):
+            await asyncio.sleep(0.1)
+        await asyncio.sleep(p.quiesce_s)
+        await child.cmd("report", timeout=15.0)
+        with open(report_path) as f:
+            b_report = json.load(f)
+        a_placement = fed_local_placement(P)
+        b_placement = dict(b_report["placement"])
+        local_dups_a = a_placement.pop("__local_dups__", [])
+        local_dups_b = b_placement.pop("__local_dups__", [])
+        inv = P.invariants.InvariantChecker()
+        inv.expect_gt("cross_gateway_handovers_committed", plane.ledger.get("committed", 0), 0)
+        inv.expect_le("commit_burst_reached_target", p.burst, committed_burst,
+                      f"burst committed {committed_burst}/{p.burst}")
+        inv.check("trunk_severed_mid_burst", severed, str(notes))
+        inv.expect_gt("sever_aborted_back_to_source", plane.ledger.get("aborted", 0), 0)
+        inv.expect_equal("nothing_left_in_flight",
+                         (len(plane._pending), len(plane._parked), b_report["pending"],
+                          b_report["parked"]), (0, 0, 0, 0))
+        counts: dict = {}
+        for eid, cell in a_placement.items():
+            counts.setdefault(eid, []).append(("a", cell))
+        for eid, cell in b_placement.items():
+            counts.setdefault(eid, []).append(("b", cell))
+        expected = {str(e) for e in sim.entity_ids}
+        missing = sorted(e for e in expected if e not in counts)
+        duplicated = {e: where for e, where in counts.items() if len(where) > 1}
+        unexpected = sorted(e for e in counts if e not in expected)
+        inv.expect_equal("every_entity_on_exactly_one_gateway",
+                         (missing, duplicated, unexpected, local_dups_a, local_dups_b),
+                         ([], {}, [], [], []))
+        inv.expect_gt("l3_refusal_fired", refused_batches, 0)
+        inv.expect_equal("refusals_equal_busy_frames", plane.ledger.get("refused", 0),
+                         plane.busy_frames)
+        inv.expect_equal("remote_refusals_match", b_report["ledger"].get("refused_remote", 0),
+                         plane.ledger.get("refused", 0))
+        inv.check("client_redirected", redirect_result.get("redirected", False),
+                  str(redirect_result))
+        inv.check("redirect_resumed_without_reauth",
+                  redirect_result.get("should_recover", False)
+                  and redirect_result.get("auth_result_b", -1) == 0
+                  and redirect_result.get("recovery_end", False), str(redirect_result))
+        a_metric = fed_metric_delta(P, baseline)
+        a_ledger_counters = {k: v for k, v in plane.ledger.items()
+                             if k not in ("redirects", "staged")}
+        inv.expect_equal("a_ledger_matches_metric", a_metric, a_ledger_counters)
+        b_ledger_counters = {k: v for k, v in b_report["ledger"].items()
+                             if k not in ("redirects", "staged")}
+        inv.expect_equal("b_ledger_matches_metric", b_report["metric_delta"], b_ledger_counters)
+        inv.expect_equal("a_commits_equal_b_applies_minus_reconciled",
+                         plane.ledger.get("committed", 0),
+                         b_report["ledger"].get("applied", 0)
+                         - b_report["ledger"].get("reconciled", 0))
+        inv.expect_equal("b_commits_equal_a_applies_minus_reconciled",
+                         b_report["ledger"].get("committed", 0),
+                         plane.ledger.get("applied", 0) - plane.ledger.get("reconciled", 0))
+        jc = dict(journal.counts)
+        inv.expect_equal("journal_prepared_equals_committed_plus_aborted", jc.get("prepared", 0),
+                         jc.get("committed", 0) + jc.get("aborted", 0), f"counts={jc}")
+        inv.expect_equal("journal_nothing_in_flight", journal.in_flight_count(), 0)
+        report = {
+            "kind": "federation_soak", "duration_s": round(time.monotonic() - t_start, 2),
+            "entities": p.entities,
+            "phases": {"burst": p.burst, "refusal_burst": p.refusal_burst,
+                       "sever_burst": p.sever_burst, "herd_back": p.herd_back},
+            "timeline": timeline, "redirect": redirect_result,
+            "gateway_a": {"ledger": dict(plane.ledger), "busy_frames": plane.busy_frames,
+                          "metric_delta": a_metric, "trunk": fed_trunk_metrics(P, baseline),
+                          "spatial": type(ctl).__name__},
+            "gateway_b": b_report,
+            "census": {"expected": len(expected), "on_a": len(a_placement),
+                       "on_b": len(b_placement), "missing": missing,
+                       "duplicated": {str(k): v for k, v in duplicated.items()}},
+            "invariants": inv.summary(),
+            "stats": {"committed": plane.ledger.get("committed", 0),
+                      "aborted": plane.ledger.get("aborted", 0),
+                      "refused": plane.ledger.get("refused", 0),
+                      "applied_from_b": plane.ledger.get("applied", 0),
+                      "b_applied": b_report["ledger"].get("applied", 0),
+                      "b_reconciled": b_report["ledger"].get("reconciled", 0),
+                      "redirects": plane.ledger.get("redirects", 0)},
+        }
+        if notes:
+            report["notes"] = notes
+        stop.set()
+        client_task.cancel()
+        return report
+    finally:
+        stop.set()
+        if child_proc.poll() is None:
+            with contextlib.suppress(BrokenPipeError, OSError):
+                child_proc.stdin.write('{"cmd": "exit"}\n')
+                child_proc.stdin.flush()
+            try:
+                child_proc.wait(timeout=8)
+            except subprocess.TimeoutExpired:
+                child_proc.kill()
+                child_proc.wait()
+        if gw is not None:
+            fed_teardown_gateway(P, gw)
+
+
+def fed_soak_checks(r: dict) -> list:
+    """15b's checks of one report, as (name, held, detail): every invariant
+    of scripts/federation_soak.py under its own name, then
+    tests/test_federation.py::test_federation_smoke_soak's bars, the child
+    a gateway of the port with no module of JAX or of the JAX package."""
+    out = [(c["name"], c["ok"], c.get("detail", "")) for c in r["invariants"]["checks"]]
+    st, census, b = r["stats"], r["census"], r["gateway_b"]
+    return out + [
+        ("at_least_8_committed", st["committed"] >= 8, st["committed"]),
+        ("at_least_1_refused", st["refused"] >= 1, st["refused"]),
+        ("exactly_1_redirect", st["redirects"] == 1, st["redirects"]),
+        ("census_nothing_missing", census["missing"] == [], census["missing"]),
+        ("census_nothing_duplicated", census["duplicated"] == {}, census["duplicated"]),
+        ("child_imports_no_jax", b.get("modules") == [], b.get("modules")),
+        ("both_gateways_on_the_host_grid",
+         (r["gateway_a"]["spatial"], b.get("spatial")) == ("StaticGrid2DSpatialController",) * 2,
+         (r["gateway_a"]["spatial"], b.get("spatial")))]
+
+
+def fed_smoke_params(**kw) -> FedSoakParams:
+    """tests/test_federation.py::test_federation_smoke_soak's parameters."""
+    return FedSoakParams(**dict(dict(entities=32, burst=8, refusal_burst=4, sever_burst=8,
+                                     herd_back=6, phase_timeout_s=15.0, quiesce_s=1.5), **kw))
+
+
+def phase_fed_live(p: FedSoakParams) -> dict:
+    """15b: ``run_fed_soak`` through the port with a ``--fed-child`` gateway,
+    held to every invariant of the script and to the smoke test's bars."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    P = gateway_modules()
+    scratch = tempfile.mkdtemp(prefix="fed-live-")
+    t_phase = time.perf_counter()
+    try:
+        r = asyncio.run(run_fed_soak(P, p, scratch))
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    for name, ok, detail in fed_soak_checks(r):
+        check(ok, f"15b: {name}: {str(detail)[:300]}")
+    st, a, b = r["stats"], r["gateway_a"], r["gateway_b"]
+    print(f"15b federation live: scripts/federation_soak.py's run_fed_soak through the port, "
+          f"gateway a in-process and gateway b a `chip_smoke.py --fed-child` process (no module "
+          f"of JAX or of the JAX package loaded), both on WORLD_SPATIAL's "
+          f"Static2DSpatialController: this fleet touches no device, by the script's own "
+          f"design; {p.entities} entities, bursts {p.burst} / {p.refusal_burst} / "
+          f"{p.sever_burst} / {p.herd_back}; every invariant of the script held "
+          f"({len(r['invariants']['checks'])}); stats {st}; trunk a {a['trunk']}; census "
+          f"{r['census']['on_a']} on a + {r['census']['on_b']} on b of "
+          f"{r['census']['expected']}, none missing or duplicated; timeline "
+          f"{[(m['phase'], m['t']) for m in r['timeline']]}; soak {r['duration_s']} s, phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return r
+
+
+def phase_fleet(K, dev) -> tuple:
+    """15a and 15b. Returns ({path: launches}, {kernel: {case: entry}})."""
+    t_phase = time.perf_counter()
+    launches, entries = phase_fleet_lockstep(K, dev, fleet_size())
+    phase_fed_live(fed_smoke_params())
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return {"fleet_lockstep": launches}, entries
+
+
 def main_soaks(agents: int, entities: int) -> int:
     """Phase 12 alone (after the device and build phases):
     ``python3 chip_smoke.py --soaks 1000 4096``."""
@@ -8116,6 +9821,28 @@ def main_chaos_overload() -> int:
         return 1
     print(f"chip_smoke --chaos-overload: every phase passed in "
           f"{time.perf_counter() - t_run:.1f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main_fleet() -> int:
+    """Phases 1-3 and then phase 15 alone: ``python3 chip_smoke.py --fleet``."""
+    from channeld_tpu_torch.ops import cuda_kernels as K
+    from channeld_tpu_torch.ops import spatial_ops as ops
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t_run = time.perf_counter()
+    try:
+        name, _ = phase_device()
+        phase_build(K)
+        phase_kernels(K, ops, dev)
+        phase_fleet(K, dev)
+    except PhaseFailed as e:
+        report_failure(e)
+        return 1
+    print(f"chip_smoke --fleet: every phase passed in {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
@@ -8221,6 +9948,10 @@ def main_elastic(entities: int, ticks: int) -> int:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--fed-child"]:
+        # 15b's gateway "b": the federation soak's host grid touches no device
+        # by the script's design, so this role needs no card.
+        return fed_child(sys.argv[2], sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -8242,6 +9973,8 @@ def main() -> int:
         return main_trace_obs()
     if sys.argv[1:2] == ["--chaos-overload"]:
         return main_chaos_overload()
+    if sys.argv[1:2] == ["--fleet"]:
+        return main_fleet()
     if sys.argv[1:2] == ["--sim-child"]:
         return sim_child(sys.argv[2], *map(int, sys.argv[3:5]), *sys.argv[5:6])
     t_run = time.perf_counter()
@@ -8279,6 +10012,7 @@ def main() -> int:
         soak_launches, soak_entries = phase_soaks(K, dev)
         trace_obs_launches, trace_obs_entries = phase_trace_obs(K, dev)
         chaos_launches, chaos_entries = phase_chaos_overload(K, dev)
+        fleet_launches, fleet_entries = phase_fleet(K, dev)
     except PhaseFailed as e:
         report_failure(e)
         return 1
@@ -8301,7 +10035,8 @@ def main() -> int:
                               "elastic_mesh": elastic_mesh_launches[spec.name],
                               **{path: n[spec.name] for path, n in soak_launches.items()},
                               **{path: n[spec.name] for path, n in trace_obs_launches.items()},
-                              **{path: n[spec.name] for path, n in chaos_launches.items()}},
+                              **{path: n[spec.name] for path, n in chaos_launches.items()},
+                              **{path: n[spec.name] for path, n in fleet_launches.items()}},
             library_ms=None, **entries[spec.name],
             sim_path=dict(sim_entries[spec.name], library_ms=None),
             mesh_path=dict(mesh_entries[spec.name], launches_per_mesh_tick={
@@ -8313,6 +10048,7 @@ def main() -> int:
                        for path, cases in soak_entries.items()},
             trace_obs_path=trace_obs_entries[spec.name],
             chaos_overload_path=chaos_entries[spec.name],
+            fleet_path=fleet_entries[spec.name],
         ))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": kernels}))
