@@ -217,6 +217,14 @@ class ChannelData:
                 # update ring either — a buffered wrong-type message would
                 # fan out verbatim or crash window accumulation later.
                 return
+            if type(update_msg) is not type(self.msg):
+                # A custom merge took an update of another message family
+                # with the same fields (models/chat.py): the ring holds the
+                # channel's own type, or window accumulation's MergeFrom
+                # raises and the channel's tick task dies (ROADMAP F20).
+                own = type(self.msg)()
+                own.ParseFromString(update_msg.SerializeToString())
+                update_msg = own
         self.msg_index += 1
         # The fan-out windowing bisects this buffer, which requires arrival
         # times to be monotonic in this channel's clock. Clamp stray stamps

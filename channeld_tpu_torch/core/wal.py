@@ -791,8 +791,8 @@ def boot_replay(snapshot_path: str, wal_path: str) -> dict:
             wal._count_replayed("query_dropped", n_dropped)
     if sim_census is not None:
         # Sim plane (channeld_tpu/sim): stash the census for the plane
-        # to consume when it activates (controller load order puts the
-        # plane after boot replay). Seed + tick + census restore the
+        # to consume when it activates, or hand it to a plane that is
+        # live already (below). Seed + tick + census restore the
         # exact population — the counter-based RNG resumes the
         # identical trajectory.
         from ..sim.plane import restore_census
@@ -800,6 +800,14 @@ def boot_replay(snapshot_path: str, wal_path: str) -> dict:
         n_agents = restore_census(sim_census, source="wal replay")
         if n_agents:
             wal._count_replayed("sim_census", n_agents)
+            # A replay after the controller loaded (the gateway's own
+            # boot and the crash soak's) finds the plane live with a
+            # fresh population: it takes the census now (ROADMAP F22).
+            from ..spatial.controller import get_spatial_controller
+
+            simplane = getattr(get_spatial_controller(), "simplane", None)
+            if simplane is not None:
+                simplane.take_census()
     from ..federation.directory import directory
 
     version, overrides = directory_state
@@ -996,6 +1004,7 @@ def _reseed_controller(flips: dict[int, int]) -> None:
     tracker = getattr(ctl, "track_entity", None)
     moved_hook = getattr(ctl, "_note_entity_data_moved", None)
     center_of = getattr(ctl, "_cell_center", None)
+    seed_baseline = getattr(ctl, "_seed_baseline_cell", None)
     tree = getattr(ctl, "tree", None)
     if tree is not None:
         # Geometry-aware: a child cell's id is NOT a base-grid index,
@@ -1020,7 +1029,12 @@ def _reseed_controller(flips: dict[int, int]) -> None:
                 if not ech.has_owner() and owner is not None:
                     ech.set_owner(owner)
             if tracker is not None and center_of is not None:
-                tracker(eid, center_of(cid - lo))
+                info = center_of(cid - lo)
+                tracker(eid, info)
+                if seed_baseline is not None:
+                    # The device's prev cell too: a move before the first
+                    # tick would otherwise cross unseen (ROADMAP F23).
+                    seed_baseline(eid, info)
             if moved_hook is not None:
                 moved_hook([eid], cid)
     if moved_hook is not None:

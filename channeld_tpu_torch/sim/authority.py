@@ -100,6 +100,10 @@ class SimAuthority:
                 continue
             self._pending.append((eid, float(info.x), float(info.z)))
 
+    def reset_pending(self) -> None:
+        """Drop the attach queue (a restored census adopts its own)."""
+        self._pending = []
+
     def pump(self) -> None:
         """One bounded attach pass (called from the plane's pre_step):
         attach pending agents whose cell channel exists; cells still

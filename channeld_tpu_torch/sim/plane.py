@@ -39,10 +39,11 @@ logger = get_logger("sim.plane")
 # (ids are uint32 channel ids; 4M of headroom each way).
 AGENT_ID_OFFSET = 1 << 22
 
-# WAL-replay rendezvous: boot replay runs BEFORE the spatial controller
-# loads, so a replayed census is staged here and consumed by
-# ``SimPlane.activate()``. Written by the boot thread before the tick
-# loop exists, read once at controller load — never concurrent.
+# WAL-replay rendezvous: a replayed census is staged here and consumed
+# by ``SimPlane.activate()`` when the replay ran before the controller
+# loaded, or by ``SimPlane.take_census()``, which boot replay calls when
+# the plane is live already (ROADMAP F22). Staged and consumed on the
+# boot thread, never concurrently.
 _pending_census: Optional[dict] = None
 
 
@@ -127,23 +128,7 @@ class SimPlane:
         params = _params_from_settings()
         pending = consume_pending_census()
         if pending is not None:
-            entries = [
-                (int(eid), float(p[0]), float(p[1]), float(p[2]))
-                for eid, p in zip(pending["ids"], pending["pos"])
-            ]
-            eng.seed_agents(
-                entries, pending["seed"], params,
-                vels=pending["vel"], states=pending["state"],
-                targets=pending["target"],
-            )
-            eng.sim_tick = pending["tick"]
-            self._last_sim_tick = pending["tick"]
-            self._count("agents_restored", len(entries))
-            logger.info(
-                "sim population restored from %s: %d agents, resuming at "
-                "sim tick %d (seed %d)", pending["source"], len(entries),
-                pending["tick"], pending["seed"],
-            )
+            entries = self._seed_census(pending, params)
         else:
             entries = self._fresh_entries()
             eng.seed_agents(entries, global_settings.sim_seed, params)
@@ -152,6 +137,51 @@ class SimPlane:
                 "sim population spawned: %d agents (seed %d)",
                 len(entries), global_settings.sim_seed,
             )
+        self._adopt(entries)
+        eng.sim_warmup()  # compile OUTSIDE the guarded window (watchdog)
+        metrics.sim_agents_num.set(eng.agent_count())
+
+    def take_census(self) -> None:
+        """Replace the live population by a census staged after
+        activation (a boot replay that ran once the controller had
+        loaded): agents the census lacks leave the engine, the census's
+        agents take their journaled state and sim tick, and the channel
+        attach queue starts over from the census."""
+        pending = consume_pending_census()
+        if pending is None:
+            return
+        keep = {int(e) for e in pending["ids"]}
+        for eid in self.engine.agent_ids().tolist():
+            if int(eid) not in keep:
+                self.controller.untrack_entity(int(eid))
+        self.authority.reset_pending()
+        self._adopt(self._seed_census(pending, _params_from_settings()))
+        metrics.sim_agents_num.set(self.engine.agent_count())
+
+    def _seed_census(self, pending: dict, params: SimParams) -> list:
+        """Seed the engine's agents from a staged census; returns its
+        (id, x, y, z) entries."""
+        eng = self.engine
+        entries = [
+            (int(eid), float(p[0]), float(p[1]), float(p[2]))
+            for eid, p in zip(pending["ids"], pending["pos"])
+        ]
+        eng.seed_agents(
+            entries, pending["seed"], params,
+            vels=pending["vel"], states=pending["state"],
+            targets=pending["target"],
+        )
+        eng.sim_tick = pending["tick"]
+        self._last_sim_tick = pending["tick"]
+        self._count("agents_restored", len(entries))
+        logger.info(
+            "sim population restored from %s: %d agents, resuming at "
+            "sim tick %d (seed %d)", pending["source"], len(entries),
+            pending["tick"], pending["seed"],
+        )
+        return entries
+
+    def _adopt(self, entries: list) -> None:
         # Controller bookkeeping: placement ledger + last-position rows
         # so rebuild seeding and partition-split sorting see agents like
         # any tracked entity. (track_entity's add_entity is an upsert
@@ -159,8 +189,6 @@ class SimPlane:
         for eid, x, y, z in entries:
             self.controller.track_entity(eid, SpatialInfo(x, y, z))
         self.authority.adopt(eid for eid, *_ in entries)
-        eng.sim_warmup()  # compile OUTSIDE the guarded window (watchdog)
-        metrics.sim_agents_num.set(eng.agent_count())
 
     def _fresh_entries(self) -> list[tuple[int, float, float, float]]:
         """Seeded-uniform spawn positions over the world interior. Host

@@ -377,6 +377,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import importlib.util
 import itertools
@@ -1445,6 +1446,7 @@ class GatewayConn:
         self.logger = P.logger.get_logger(f"stub.{conn_id}")
         self.digest = hashlib.sha256()
         self.count = 0
+        self.frames = None  # a list keeps every (type, channel, body) sent
 
     def send(self, ctx) -> None:
         body = ctx.raw_body
@@ -1453,6 +1455,8 @@ class GatewayConn:
         self.digest.update(np.array([ctx.msg_type, ctx.channel_id, len(body)], np.int64).tobytes())
         self.digest.update(body)
         self.count += 1
+        if self.frames is not None:
+            self.frames.append((int(ctx.msg_type), int(ctx.channel_id), body))
 
     def is_closing(self) -> bool:
         return self.state >= self._closing
@@ -3407,7 +3411,8 @@ def phase_replay_live(dev_args=(), deadline_s: float = 180.0, connections: int =
         per_pass = 7  # chat_demo.cpr: AUTH, SUB_TO_CHANNEL and 5 CHANNEL_DATA_UPDATEs
         check(result["connections"] == connections and result["authenticated"] == connections,
               f"8c: {result['authenticated']} of {result['connections']} connections "
-              f"authenticated, not all {connections}")
+              f"authenticated, not all {connections}; the replay CLI's log: "
+              f"{out.stderr[-1500:]}; the gateway's log: {log()[-3000:]}")
         check(result["packets_sent"] >= connections * per_pass,
               f"8c: {result['packets_sent']} packets sent, fewer than the session's "
               f"{per_pass} per connection")
@@ -3425,6 +3430,8 @@ def phase_replay_live(dev_args=(), deadline_s: float = 180.0, connections: int =
         check(code == 0, f"8c: the gateway child exited {code} on SIGTERM: {log()[-2000:]}")
         text = log()
         check("spatial engine on cuda" in text or dev_args, "8c: the child's engine is not on cuda")
+        check("tick task died" not in text, f"8c: a channel's tick task died in the gateway "
+                                            f"child: {text[-3000:]}")
         print(f"8c replay: python -m channeld_tpu_torch.replay run replayed chat_demo.cpr "
               f"with {connections} connections against python -m channeld_tpu_torch "
               f"-imports channeld_tpu_torch.compat on {'cuda' if not dev_args else ' '.join(dev_args)}"
@@ -4604,38 +4611,48 @@ def elastic_live_kernels(K, eng, micro: tuple) -> dict:
     }
 
 
-def phase_elastic_lockstep(K, dev, size: dict, label: str = "11a") -> tuple:
-    """11a/11b: ``elastic_scenario`` through the port's gateway on the card
-    and on the CPU, tick for tick, and the density soak's invariants on
-    both legs. Returns (K1/K2 launches on this path, the kernels' entries
-    at the post-split shapes)."""
+def run_elastic_leg(K, leg: str, leg_dev, size: dict, label: str) -> tuple:
+    """One leg of 11a/11b: (per-tick observations, the leg's report)."""
+    t_leg = time.perf_counter()
+    with FixedClock() as clock:
+        world = ElasticWorld(leg_dev, clock, size, K=K)
+        P = world.P
+        K.reset_launch_counts()
+        obs = [world.tick(t) for t in range(size["ticks"])]
+        launches = K.launch_counts()
+        part, bal = P.partition.partition, P.balancer.balancer
+        report = dict(
+            launches=launches, engine_ticks=world.engine_ticks, epochs=list(world.epochs),
+            fired=list(world.fired), census=world.elastic_census(),
+            partition=dict(part.ledger), events=[dict(e) for e in part.events],
+            balancer=dict(bal.ledger), failover=dict(P.failover.plane.ledger),
+            splits=sorted(world.ctl.tree.splits),
+            micro=(world.ctl._mcols, world.ctl._mrows), guard=P.guard.guard.report(),
+            kernel_checks=list(world.kernel_checks), agents=world.eng.agent_count(),
+            shards=world.eng._mesh.size if world.eng._mesh is not None else 1,
+            in_flight=(part.op_in_flight(), bal.migration_in_flight()))
+        world.close()
+        del world
+    report["secs"] = time.perf_counter() - t_leg
+    return obs, report
+
+
+def phase_elastic_lockstep(K, dev, cpu_leg: "CpuLeg") -> tuple:
+    """11a/11b (``cpu_leg.phase``): ``elastic_scenario`` through the port's
+    gateway on the card and, at the same size (``cpu_leg.size``), on the
+    CPU in ``cpu_leg``'s child, tick for tick, and the density soak's
+    invariants on both legs. Returns (K1/K2 launches on this path, the
+    kernels' entries at the post-split shapes)."""
+    size, label = cpu_leg.size, cpu_leg.phase
     scn, ticks = size["scenario"], size["ticks"]
     mesh = label == "11b"
     legs, report = {}, {}
     t_phase = time.perf_counter()
-    for leg, leg_dev in (("cuda", dev), ("cpu", torch.device("cpu"))):
-        t_leg = time.perf_counter()
-        with FixedClock() as clock:
-            world = ElasticWorld(leg_dev, clock, size, K=K)
-            P = world.P
-            K.reset_launch_counts()
-            obs = [world.tick(t) for t in range(ticks)]
-            launches = K.launch_counts()
-            part, bal = P.partition.partition, P.balancer.balancer
-            report[leg] = dict(
-                launches=launches, engine_ticks=world.engine_ticks, epochs=list(world.epochs),
-                fired=list(world.fired), census=world.elastic_census(),
-                partition=dict(part.ledger), events=[dict(e) for e in part.events],
-                balancer=dict(bal.ledger), failover=dict(P.failover.plane.ledger),
-                splits=sorted(world.ctl.tree.splits),
-                micro=(world.ctl._mcols, world.ctl._mrows), guard=P.guard.guard.report(),
-                kernel_checks=list(world.kernel_checks), agents=world.eng.agent_count(),
-                shards=world.eng._mesh.size if world.eng._mesh is not None else 1,
-                in_flight=(part.op_in_flight(), bal.migration_in_flight()))
-            world.close()
-            del world
-        report[leg]["secs"] = time.perf_counter() - t_leg
-        legs[leg] = obs
+    try:
+        legs["cuda"], report["cuda"] = run_elastic_leg(K, "cuda", dev, size, label)
+        legs["cpu"], report["cpu"] = cpu_leg.result()
+    finally:
+        cpu_leg.close()
     card, cpu = legs["cuda"], legs["cpu"]
     for t in range(ticks):
         where = first_gateway_diff(card[t], cpu[t])
@@ -4719,7 +4736,8 @@ def phase_elastic_lockstep(K, dev, size: dict, label: str = "11a") -> tuple:
           f"{r['engine_ticks']} engine ticks; reads per steady tick before and after each re-grid "
           f"(ticks {regrids}) {per_span}; "
           f"overflow {overflow}; phase {time.perf_counter() - t_phase:.1f} s (card leg "
-          f"{report['cuda']['secs']:.1f} s, cpu leg {report['cpu']['secs']:.1f} s)")
+          f"{report['cuda']['secs']:.1f} s, cpu leg {report['cpu']['secs']:.1f} s in a --cpu-leg "
+          f"child)")
     ph = scn["phases"]
     spread = [t for t in (*range(*ph["warmup"]), *range(*ph["disperse"])) if card[t]["steady"]]
     for leg, obs in (("cuda", card), ("cpu", cpu)):
@@ -4740,32 +4758,30 @@ def phase_elastic_lockstep(K, dev, size: dict, label: str = "11a") -> tuple:
     return r["launches"], entries
 
 
-def phase_elastic_mesh(K, entities: int = ELASTIC_ENTITIES // 2, ticks: int = ELASTIC_TICKS,
-                       n_dev: Optional[int] = None, dev=None) -> tuple:
-    """11b: ``elastic_scenario`` on config/spatial_tpu_cells_2x2.json's
-    world (Sharding cells) at MeshDevices = min(cards, 8), the CPU leg at
-    the same mesh, with the density soak's dispatch-stall weather and a
-    CellBucket the pileup overflows (on a mesh of one, every tick, as
-    7c's)."""
-    import shutil
-    import tempfile
-
+def elastic_mesh_size(scratch: str, entities: int = ELASTIC_ENTITIES // 2,
+                      ticks: int = ELASTIC_TICKS, n_dev: Optional[int] = None) -> dict:
+    """11b's size: config/spatial_tpu_cells_2x2.json at MeshDevices = n_dev
+    (default min(cards, 8)) and a CellBucket the pileup overflows, written
+    into ``scratch``."""
     if n_dev is None:
         n_dev = min(torch.cuda.device_count(), MESH_SHARDS)
     with open(ELASTIC_CELLS_CONFIG) as f:
         cfg = json.load(f)
     bucket = max(1, (entities * 15) // (16 * n_dev))
     cfg["Config"].update(MeshDevices=n_dev, CellBucket=bucket)
-    scratch = tempfile.mkdtemp(prefix="elastic-mesh-")
     path = f"{scratch}/spatial_tpu_cells_elastic.json"
     with open(path, "w") as f:
         json.dump(cfg, f)
-    try:
-        size = dict(elastic_size(entities, ticks, mesh=True, config=path), bucket=bucket)
-        return phase_elastic_lockstep(K, dev if dev is not None else torch.device("cuda", 0),
-                                      size, "11b")
-    finally:
-        shutil.rmtree(scratch, ignore_errors=True)
+    return dict(elastic_size(entities, ticks, mesh=True, config=path), bucket=bucket)
+
+
+def phase_elastic_mesh(K, cpu_leg: "CpuLeg", dev=None) -> tuple:
+    """11b: ``elastic_scenario`` on config/spatial_tpu_cells_2x2.json's
+    world (Sharding cells) at MeshDevices = min(cards, 8), the CPU leg at
+    the same mesh in ``cpu_leg``'s child, with the density soak's
+    dispatch-stall weather and a CellBucket the pileup overflows (on a mesh
+    of one, every tick, as 7c's)."""
+    return phase_elastic_lockstep(K, dev if dev is not None else torch.device("cuda", 0), cpu_leg)
 
 
 ELASTIC_LIVE = dict(entities=64, split=32, merge=8)
@@ -5447,28 +5463,33 @@ class SensorSoakWorld(SoakWorld):
         self.expect("closed_clients_hold_no_rows", not held, held[:5])
 
 
+def run_soak_leg(K, leg: str, leg_dev, make_world, run) -> tuple:
+    """One leg of a soak in a fresh gateway on a fixed clock: (observations,
+    report), the report holding ``run``'s result and the world's checks,
+    timings and counts (and on the card its launches)."""
+    t_leg = time.perf_counter()
+    with FixedClock() as clock:
+        world = make_world(leg, leg_dev, clock)
+        if leg == "cuda":
+            K.reset_launch_counts()
+        obs = run(world)
+        r = dict(checks=list(world.checks), engine_ticks=world.engine_ticks,
+                 step_ms=list(world.step_ms), rebuild_ms=list(world.rebuild_ms),
+                 epoch_ms=world.epoch_ms, world=world.report())
+        if leg == "cuda":
+            r["launches"] = K.launch_counts()
+        world.close()
+        del world
+    r["secs"] = time.perf_counter() - t_leg
+    return obs, r
+
+
 def run_soak_legs(K, dev, make_world, run) -> tuple:
-    """One soak on the card (counted launches) and then on the CPU, each in
-    a fresh gateway on a fixed clock; returns ({leg: observations},
-    {leg: report}), the report holding ``run``'s result and the world's
-    checks, timings and counts."""
+    """One soak on the card (counted launches) and then on the CPU; returns
+    ({leg: observations}, {leg: report})."""
     legs, report = {}, {}
     for leg, leg_dev in (("cuda", dev), ("cpu", torch.device("cpu"))):
-        t_leg = time.perf_counter()
-        with FixedClock() as clock:
-            world = make_world(leg, leg_dev, clock)
-            if leg == "cuda":
-                K.reset_launch_counts()
-            obs = run(world)
-            r = dict(checks=list(world.checks), engine_ticks=world.engine_ticks,
-                     step_ms=list(world.step_ms), rebuild_ms=list(world.rebuild_ms),
-                     epoch_ms=world.epoch_ms, world=world.report())
-            if leg == "cuda":
-                r["launches"] = K.launch_counts()
-            world.close()
-            del world
-        r["secs"] = time.perf_counter() - t_leg
-        legs[leg], report[leg] = obs, r
+        legs[leg], report[leg] = run_soak_leg(K, leg, leg_dev, make_world, run)
     return legs, report
 
 
@@ -5746,18 +5767,9 @@ def phase_sim_soak(K, dev, scn: dict) -> tuple:
     return r["launches"], entries
 
 
-def phase_sensor_soak(K, dev, scn: dict) -> tuple:
-    """12b: the port's copy of scripts/sensor_soak.py through the port's
-    controller on the card and on the CPU, tick for tick, each leg held to
-    every book of the soak. Returns (K1/K2 launches on this path, the
-    kernels' entries at its shapes)."""
-    P = gateway_modules()
-    t_phase = time.perf_counter()
-    entries: dict = {}
-
-    def make(leg, leg_dev, clock):
-        return SensorSoakWorld(P, leg_dev, clock, scn, K=K if leg == "cuda" else None)
-
+def sensor_soak_run(K, scn: dict, entries: dict):
+    """12b's drive of one leg's world: every tick, the soak's books, and on
+    the card the kernels on the live tensors (into ``entries``)."""
     def run(world):
         obs = [world.tick(t) for t in range(scn["ticks"])]
         world.books(scn["ticks"], every_client=True)
@@ -5767,7 +5779,27 @@ def phase_sensor_soak(K, dev, scn: dict) -> tuple:
                                                    eng._d_queries)
         return obs
 
-    legs, report = run_soak_legs(K, dev, make, run)
+    return run
+
+
+def phase_sensor_soak(K, dev, cpu_leg: "CpuLeg") -> tuple:
+    """12b: the port's copy of scripts/sensor_soak.py (the scenario
+    ``cpu_leg.size``) through the port's controller on the card and on the
+    CPU in ``cpu_leg``'s child, tick for tick, each leg held to every book
+    of the soak. Returns (K1/K2 launches on this path, the kernels' entries
+    at its shapes)."""
+    P = gateway_modules()
+    scn = cpu_leg.size
+    t_phase = time.perf_counter()
+    entries: dict = {}
+    legs, report = {}, {}
+    try:
+        legs["cuda"], report["cuda"] = run_soak_leg(
+            K, "cuda", dev, lambda leg, leg_dev, clock: SensorSoakWorld(P, leg_dev, clock, scn, K=K),
+            sensor_soak_run(K, scn, entries))
+        legs["cpu"], report["cpu"] = cpu_leg.result()
+    finally:
+        cpu_leg.close()
     check_soak_legs(K, "12b", legs, report, census_extra=0)
     card, r = legs["cuda"], report["cuda"]
     w = r["world"]
@@ -5781,7 +5813,7 @@ def phase_sensor_soak(K, dev, scn: dict) -> tuple:
           f"over every live client among them); ledgers {w['ledgers']}; reads per steady tick "
           f"2; launches {r['launches']} in {r['engine_ticks']} engine ticks; phase "
           f"{time.perf_counter() - t_phase:.1f} s (card leg {r['secs']:.1f} s, cpu leg "
-          f"{report['cpu']['secs']:.1f} s)")
+          f"{report['cpu']['secs']:.1f} s in a --cpu-leg child)")
     for leg in ("cuda", "cpu"):
         obs, rr = legs[leg], report[leg]
         print(f"12b on {leg}: tick {tick_stats([o['tick_ms'] for o in obs])}; guarded step "
@@ -5795,10 +5827,11 @@ def phase_sensor_soak(K, dev, scn: dict) -> tuple:
     return r["launches"], entries
 
 
-def phase_soaks(K, dev, agents: int = SOAK_AGENTS, entities: int = SOAK_ENTITIES) -> tuple:
-    """12a and 12b. Returns ({path: launches}, {path: kernel entries})."""
+def phase_soaks(K, dev, sensor_cpu_leg: "CpuLeg", agents: int = SOAK_AGENTS) -> tuple:
+    """12a and 12b (12b's CPU leg in ``sensor_cpu_leg``'s child). Returns
+    ({path: launches}, {path: kernel entries})."""
     sim_launches, sim_entries = phase_sim_soak(K, dev, sim_soak_scenario(agents))
-    sensor_launches, sensor_entries = phase_sensor_soak(K, dev, sensor_soak_scenario(entities))
+    sensor_launches, sensor_entries = phase_sensor_soak(K, dev, sensor_cpu_leg)
     return ({"sim_soak": sim_launches, "sensor_soak": sensor_launches},
             {"sim_soak": sim_entries, "sensor_soak": sensor_entries})
 
@@ -9061,11 +9094,14 @@ def fed_auth_frame(P, pit: str) -> bytes:
 
 
 async def fed_boot_gateway(P, gw_id: str, fed_cfg: dict, params: FedSoakParams, stop,
-                           scratch: str, expect_cells: int = 8) -> dict:
+                           scratch: str, expect_cells: int = 8, settings_hook=None,
+                           pre_start_hook=None) -> dict:
     """scripts/federation_soak.py's ``boot_gateway`` through one package's
-    modules: every singleton reset, the soak's pins, listeners on loopback,
-    the master possessing GLOBAL and one spatial server claiming the local
-    block over TCP, the federation plane armed and started (its trunks)."""
+    modules: every singleton reset, the soak's pins (then
+    ``settings_hook(global_settings)``), listeners on loopback, the master
+    possessing GLOBAL and one spatial server claiming the local block over
+    TCP, ``pre_start_hook()``, the federation plane armed and started (its
+    trunks)."""
     import asyncio
     import os
 
@@ -9073,6 +9109,8 @@ async def fed_boot_gateway(P, gw_id: str, fed_cfg: dict, params: FedSoakParams, 
     P.failover.reset_failover()
     P.federation.reset_federation()
     fed_pins(P, params)
+    if settings_hook is not None:
+        settings_hook(P.settings.global_settings)
     P.sim_models.register_sim_types()
     P.connection.init_connections(SERVER_FSM, CLIENT_FSM)
     P.channel.init_channels()
@@ -9114,6 +9152,8 @@ async def fed_boot_gateway(P, gw_id: str, fed_cfg: dict, params: FedSoakParams, 
         await asyncio.sleep(0.05)
     else:
         raise RuntimeError(f"gateway {gw_id}: local shard failed to come up")
+    if pre_start_hook is not None:
+        pre_start_hook()
     plane = P.federation.plane
     await plane.start()
     return dict(ctl=ctl, plane=plane, tasks=tasks, writers=writers,
@@ -9762,6 +9802,1810 @@ def phase_fleet(K, dev) -> tuple:
     return {"fleet_lockstep": launches}, entries
 
 
+# ---- phase 16: the crash soak: a GPU-controlled gateway SIGKILLed and restarted ----
+
+# scripts/crash_soak.py's per-gateway x ranges (strictly inside each half of
+# WORLD_SPATIAL), z range and entity-id bases.
+CRASH_XR = {"a": (-98.0, -2.0), "b": (2.0, 98.0)}
+CRASH_ZR = (-98.0, 98.0)
+CRASH_BASE = {"a": 0, "b": 1000}
+
+
+@dataclasses.dataclass
+class CrashSoakParams:
+    """scripts/crash_soak.py's CrashSoakParams."""
+    seed: int = 20260804
+    base_entities: int = 12
+    committed_each_way: int = 4
+    kill_burst: int = 8
+    phases: tuple = ("reclaim", "adopt")
+    epoch_ms: int = 250
+    epoch_ms_b: int = 10_000
+    death_miss_epochs: int = 4
+    heartbeat_ms: int = 150
+    trunk_timeout_ms: int = 900
+    handover_timeout_ms: int = 1500
+    global_tick_ms: int = 20
+    fsync_ms: float = 10.0
+    snapshot_interval_s: float = 2.0
+    restart_deadline_s: float = 90.0
+    phase_timeout_s: float = 30.0
+    quiesce_s: float = 2.0
+    child_boot_timeout_s: float = 90.0
+    out_path: str = ""
+    state_dir: str = ""
+
+
+def persistence_paths(state_dir: str, gw_id: str) -> tuple:
+    """scripts/crash_soak.py's ``persistence_paths``: (snapshot, WAL)."""
+    import os
+
+    return (os.path.join(state_dir, f"gw_{gw_id}.snap"),
+            os.path.join(state_dir, f"gw_{gw_id}.wal"))
+
+
+def wal_settings_hook(gw_id: str, state_dir: str, p: CrashSoakParams):
+    """scripts/crash_soak.py's ``wal_settings_hook``: the control plane armed
+    (gateway a's epoch 250 ms, b's 10 s), failover on, partitioning off, the
+    snapshot and the WAL armed."""
+    snap_path, wal_path = persistence_paths(state_dir, gw_id)
+
+    def hook(gs) -> None:
+        gs.global_control_enabled = True
+        gs.global_epoch_ms = p.epoch_ms if gw_id == "a" else p.epoch_ms_b
+        gs.global_death_miss_epochs = p.death_miss_epochs
+        gs.global_min_entity_delta = 10_000
+        gs.failover_enabled = True
+        gs.partition_enabled = False
+        gs.snapshot_path = snap_path
+        gs.snapshot_interval_s = p.snapshot_interval_s
+        gs.wal_path = wal_path
+        gs.wal_fsync_ms = p.fsync_ms
+
+    return hook
+
+
+# 16a's ticks of a fixed 50 ms clock: stub a's control epoch (250 ms) is 5
+# ticks, b's plane timeout sweep (100 ms) 2, b's snapshot loop (2.0 s) 40
+# ticks from each boot. b's own control epoch (10 s) never comes round in
+# an incarnation of the run (the longest is 2.35 s), as in the soak's.
+CRASH_TICK_S = 0.05
+CRASH_EPOCH_TICKS = 5
+CRASH_SWEEP_TICKS = 2
+CRASH_SNAPSHOT_TICKS = 40
+# The stub trunk's directory ports: written into the shard directory, never opened.
+CRASH_PORTS = dict(a_trunk=17011, a_client=17012, b_trunk=17013, b_client=17014)
+CRASH_CELLS = {"a": (0, 1, 4, 5, 8, 9, 12, 13), "b": (2, 3, 6, 7, 10, 11, 14, 15)}
+# The ticks each event of 16a's script happens on. b is down from the end of
+# each kill tick until its restart tick; the first kill falls after b's first
+# snapshot (tick 40), the second after the first incarnation's (tick 90).
+CRASH_AT = dict(commit_in=5, commit_out=10, burst1=44, kill1=46, restart1=50, trunk1=53,
+                reoffer=56, torn=94, burst2=96, kill2=97, restart2=122, trunk2=125)
+# Sim passes between journaled censuses (the gateway's default is 50;
+# scripts/sim_soak.py's kill leg journals every 4): the snapshot does not
+# carry the census, so a restart restores the last one journaled after it.
+CRASH_CENSUS_EVERY = 4
+
+
+def crash_size(**kw) -> dict:
+    """16a's sizes: the gateway's tables (1<<17 entity slots, 4,096 query
+    rows), scripts/crash_soak.py's acceptance run (CrashSoakParams: 12 base
+    entities a side, 4 commits each way, a kill burst of 8), 64 sim agents,
+    4 sensor rows, 2 crossings parked across the first restart."""
+    p = CrashSoakParams()
+    size = dict(entity_capacity=1 << 17, query_capacity=4096, entities=p.base_entities,
+                commits=p.committed_each_way, burst=p.kill_burst, agents=64, sensors=4,
+                parked=2, ticks=150, deadline_s=GATEWAY_DEADLINE_S)
+    size.update(kw)
+    return size
+
+
+def wal_barrier(wal, since: int, timeout_s: float = 30.0) -> None:
+    """``wal.flush()`` on the host's clock (the run's monotonic clock is
+    fixed): every record appended so far fsync'd, or the writer no longer
+    alive (wedged by a tear). ``since`` is the sequence the writer started
+    from: a new process's writer counts its flushes from 0, so with
+    nothing appended since there is nothing to wait for."""
+    target = wal.current_seq()
+    deadline = time.perf_counter() + timeout_s
+    while target > since and wal.report()["flushed_seq"] < target and wal.writer_alive():
+        check(time.perf_counter() < deadline, f"the WAL writer did not flush seq {target} "
+                                              f"({wal.report()})")
+        time.sleep(0.001)
+
+
+def wal_wait(what: str, done, timeout_s: float = 30.0) -> None:
+    """Wait on the host's clock until ``done()`` (the writer thread's work
+    seen on disk)."""
+    deadline = time.perf_counter() + timeout_s
+    while not done():
+        check(time.perf_counter() < deadline, f"the WAL writer did not {what}")
+        time.sleep(0.001)
+
+
+class CrashStub:
+    """16a's gateway "a", the leader, scripted behind a ``TrunkTap``: its own
+    entities (scripts/crash_soak.py's base population on a's side), the
+    batches it prepares into b, the acks, abort notices, load reports, the
+    death declaration after the miss window, the adoption (its copies of
+    what it committed into b), the directory sync on b's return, and the
+    resurrection acks (``shardAdopted``, ``isAdopter``,
+    ``missingEntityIds``). It answers through b's own trunk dispatch
+    (``plane._on_trunk_message``). ``hold`` leaves b's messages unread on the
+    link: at a kill they are lost in flight."""
+
+    def __init__(self, world, rng):
+        self.w, self.P, self.rng = world, world.P, rng
+        self.link = None
+        self.read = 0
+        self.census: set = set()
+        self.own: list = []         # its own entities, in creation order
+        self.pos: dict = {}         # entity id -> (x, z) while held here
+        self.pending: dict = {}     # our prepares' batch id -> rows
+        self.retained: dict = {}    # committed into b: batch id -> ids
+        self.aborted: list = []     # rows of batches aborted by b's death, re-offered later
+        self.notices: set = set()   # aborted batch ids, flushed on trunk up
+        self.applied: dict = {}     # b's batches applied here: batch id -> ids
+        self.hold = False
+        self.up = False
+        self.down_since = None
+        self.death_ticks = None     # the miss window in ticks (None: pinned open)
+        self.dead = False
+        self.directory_version = 0
+        self.resurrections: dict = {}
+        self.batch = 0
+        self.epoch = 0
+        self.log: list = []         # what the stub did, in order
+
+    def deliver(self, msg_type, msg) -> None:
+        self.w.plane._on_trunk_message("a", int(msg_type), msg)
+
+    def connect(self, link) -> None:
+        """b's trunk came up (a new link each incarnation): flush the abort
+        notices, then, after a death, the full directory sync (real a's
+        ``_on_trunk_up`` order)."""
+        P = self.P
+        MT, pb = P.types.MessageType, P.control_pb2
+        self.link, self.read, self.up, self.down_since = link, 0, True, None
+        if self.notices:
+            self.deliver(MT.TRUNK_ABORT_NOTICE,
+                         pb.TrunkAbortNoticeMessage(batchIds=sorted(self.notices)))
+            self.log.append(("notices", sorted(self.notices)))
+            self.notices.clear()
+        if self.dead:
+            msg = pb.TrunkDirectoryUpdateMessage(version=self.directory_version,
+                                                 replaceOverrides=True)
+            for cid in self.w.b_cells:
+                msg.overrides.add(channelId=cid, gatewayId="a")
+            self.deliver(MT.TRUNK_DIRECTORY_UPDATE, msg)
+            self.log.append(("directory_sync", self.directory_version))
+            self.dead = False  # the returnee is live again (real a's dead.discard)
+
+    def disconnect(self, t: int) -> None:
+        """b died: what it sent since the last read is lost in flight, and
+        every batch pending at b aborts here (restored, notice queued)."""
+        self.up, self.down_since = False, t
+        self.read = len(self.link.sent)
+        for bid, rows in sorted(self.pending.items()):
+            self.census.update(e for e, _, _ in rows)
+            self.aborted.extend(rows)
+            self.notices.add(bid)
+            self.log.append(("aborted", bid, [e for e, _, _ in rows]))
+        self.pending.clear()
+
+    def answer(self) -> None:
+        if not self.up or self.hold:
+            return
+        P = self.P
+        MT, pb = P.types.MessageType, P.control_pb2
+        new = self.link.sent[self.read:]
+        self.read = len(self.link.sent)
+        for t, body, cls in new:
+            msg = cls.FromString(body)
+            if t == MT.TRUNK_HANDOVER_PREPARE:
+                ids = [e.entityId for e in msg.entities]
+                self.census.update(ids)
+                for e in msg.entities:
+                    pos = P.anyutil.unpack_any(e.data).state.transform.position
+                    self.pos[e.entityId] = (pos.x, pos.z)
+                self.applied[msg.batchId] = ids
+                self.log.append(("applied", msg.batchId, ids))
+                self.deliver(MT.TRUNK_HANDOVER_ACK, pb.TrunkHandoverAckMessage(
+                    batchId=msg.batchId, committed=True, traceId=msg.traceId))
+            elif t == MT.TRUNK_HANDOVER_ACK:
+                rows = self.pending.pop(msg.batchId, [])
+                ids = [e for e, _, _ in rows]
+                if msg.committed:
+                    self.retained[msg.batchId] = ids
+                    for e in ids:
+                        self.pos.pop(e, None)
+                else:
+                    self.census.update(ids)
+                self.log.append(("ack", msg.batchId, bool(msg.committed)))
+            elif t == MT.TRUNK_ABORT_NOTICE:
+                for bid in msg.batchIds:
+                    self.census.difference_update(self.applied.pop(bid, []))
+                self.log.append(("purged", sorted(msg.batchIds)))
+            elif t == MT.TRUNK_RESURRECT_HELLO and not msg.ack:
+                adopted = bool(self.directory_version)
+                reply = pb.TrunkResurrectHelloMessage(
+                    gatewayId="a", ack=True, shardAdopted=adopted,
+                    directoryVersion=self.directory_version)
+                if adopted:
+                    reply.isAdopter = True
+                    reply.missingEntityIds.extend(e for e in msg.entityIds
+                                                  if e not in self.census)
+                outcome = "peer_yielded" if adopted else "peer_reclaimed"
+                self.resurrections[outcome] = self.resurrections.get(outcome, 0) + 1
+                self.log.append(("hello", sorted(msg.cellIds), sorted(msg.entityIds),
+                                 sorted(reply.missingEntityIds)))
+                self.deliver(MT.TRUNK_RESURRECT_HELLO, reply)
+
+    def epoch_tick(self, t: int) -> None:
+        """Stub a's control epoch: its load report to b, and the leader's
+        death check (b silent for the whole miss window: declared dead,
+        its shard adopted here)."""
+        P = self.P
+        self.epoch += 1
+        if self.up:
+            self.deliver(P.types.MessageType.TRUNK_LOAD_REPORT, P.control_pb2.TrunkLoadReportMessage(
+                gatewayId="a", epoch=self.epoch, entities=len(self.census), cells=8,
+                trunkRttMs=1.0, directoryVersion=self.directory_version))
+        elif (self.death_ticks is not None and not self.dead
+              and t - self.down_since >= self.death_ticks):
+            self.dead = True
+            self.directory_version += 1
+            for ids in self.retained.values():  # resurrection candidates restored here
+                self.census.update(ids)
+            self.log.append(("declared_dead", t, self.directory_version))
+
+    def herd(self, n: int, t: int) -> list:
+        """Up to ``n`` of the entities held here into b's half, as batches
+        per (source, destination) cell pair; returns the ids sent."""
+        w = self.w
+        ids = [e for e in self.own + sorted(self.census - set(self.own))
+               if e in self.census and e in self.pos][:n]
+        groups: dict = {}
+        for eid in ids:
+            x, z = self.rng.uniform(*CRASH_XR["b"]), self.rng.uniform(*CRASH_ZR)
+            src = w.cell_of(*self.pos[eid])
+            groups.setdefault((src, w.cell_of(x, z)), []).append((eid, x, z))
+        for (src, dst), rows in sorted(groups.items()):
+            self.prepare(src, dst, rows)
+        return ids
+
+    def prepare(self, src: int, dst: int, rows: list) -> None:
+        P = self.P
+        self.batch += 1
+        bid = 9000 + self.batch
+        msg = P.control_pb2.TrunkHandoverPrepareMessage(
+            batchId=bid, srcChannelId=src, dstChannelId=dst, traceId=f"a-herd-{self.batch}")
+        for i, (eid, x, z) in enumerate(rows):
+            e = msg.entities.add(entityId=eid, txnId=bid + i)
+            e.data.CopyFrom(P.anyutil.pack_any(sim_entity_data(P, eid, x, z)))
+        self.pending[bid] = rows
+        self.census.difference_update(e for e, _, _ in rows)  # in flight: on neither side's books
+        self.log.append(("prepare", bid, src, dst, [e for e, _, _ in rows]))
+        self.deliver(P.types.MessageType.TRUNK_HANDOVER_PREPARE, msg)
+
+    def reoffer(self) -> list:
+        """Re-offer the batches b's death aborted (real a's parked crossings)."""
+        w, rows, self.aborted = self.w, self.aborted, []
+        groups: dict = {}
+        for eid, x, z in rows:
+            groups.setdefault((w.cell_of(*self.pos[eid]), w.cell_of(x, z)), []).append((eid, x, z))
+        for (src, dst), batch in sorted(groups.items()):
+            self.prepare(src, dst, batch)
+        return [e for e, _, _ in rows]
+
+
+class CrashWorld:
+    """16a: gateway "b" of scripts/crash_soak.py's world, the crash victim, on
+    the device controller, through one package's modules ``P``: WORLD_SPATIAL
+    (4x4 cells of 50 m at -100, two server blocks, b owns x > 0) as a
+    ``TPUSpatialController`` (the port's alias of ``GPUSpatialController``)
+    with the sim plane, the query plane and the device guard on, the crash
+    soak's directory, boot pins and ``wal_settings_hook("b")``: the WAL and
+    the snapshot armed in ``state_dir``. Gateway "a", the leader, is a
+    ``CrashStub``. A fixed 50 ms clock runs b's plane timeout sweep, b's
+    control epoch and snapshot loop, and the stub's epoch.
+
+    The WAL's writer thread flushes at the end of every tick b serves (the
+    soak's durability barrier), so each kill loses exactly the fsync window
+    of the tick it falls in: the file is cut back to its last flushed
+    length. A kill stops the writer without a flush and drops every
+    process-wide registry, the engine's tensors, the trace-id counter and
+    K1's counts buffers; a restart boots as scripts/crash_soak.py's child
+    does (controller, the local shard claimed, ``boot_replay`` of the
+    snapshot and the WAL, the writer started above the replayed sequence,
+    the plane up, the trunk up three ticks later).
+
+    The script (``CRASH_AT``): commits both ways; a kill mid-burst (the
+    stub's batches in flight, one applied and durable, one applied in the
+    lost window); restart 1, b's own crossings parked before its trunk is
+    up, the hello and the reclaim, the stub's abort notices purging the
+    applied copy, both sides' parked crossings re-offered and committed;
+    ``wal.torn_write`` armed and a second kill mid-burst; the stub's death
+    declaration and adoption; restart 2 over the torn tail; the yield.
+    Records per tick the handovers, the trunk messages b sent, the tables,
+    the placement ledger, the engine's slots, cells and counts, the agents
+    and sim columns, the changed query rows, the ledgers, the WAL's bytes,
+    the snapshot and the stub's holdings."""
+
+    def __init__(self, P, dev: torch.device, clock, size: dict, state_dir: str, config: str,
+                 K=None):
+        from random import Random
+
+        self.P, self.dev, self.clock, self.size, self.K = P, dev, clock, size, K
+        self.state_dir, self.config = state_dir, config
+        self.p = CrashSoakParams()
+        self.snap_path, self.wal_path = persistence_paths(state_dir, "b")
+        self.rng = Random(self.p.seed ^ 0xB)
+        self.conns: list = []
+        self.handovers, self.step_ms, self.rebuild_ms = [], [], []
+        self.engine_ticks = 0
+        self.events: list = []
+        self.kernels: dict = {}
+        self.replays: list = []      # each restart's boot_replay report
+        self.restarts: list = []     # each restart's host seconds (kill to booted)
+        self.kills: list = []        # each kill's books
+        self.durable: list = []      # each kill's WAL and snapshot files, as bytes
+        self.booted: list = []       # each restart's booted_state()
+        self.memory: list = []       # (moment, bytes allocated on the card)
+        self.columns: list = []
+        self.down = False
+        self.flushed = 0             # the WAL file's length at the last flush
+        self.placed_ever: set = set()
+        self.torn = False            # the torn prefix is on disk
+        self.durable_census = None   # (agents, sim tick, ids) of the last census fsync'd
+        self.stub = CrashStub(self, Random(self.p.seed ^ 0xA))
+        self.traced = [sys.modules[type(o).__module__]
+                       for o in (P.federation.plane, P.federation.control)]
+        self.trace_ids = [m.new_trace_id for m in self.traced]
+        self.note_memory("before boot")
+        self.boot(0)
+        self.entity_ids = self._entities()
+        self.sensor_keys = self._sensors()
+        self.trunk_up()
+
+    _wrap = SoakWorld._wrap
+
+    def conn(self, conn_id: int, kind: str):
+        c = GatewayWorld.conn(self, conn_id, kind)
+        if self.size.get("columns"):
+            c.frames = []
+        return c
+
+    # ---- one process image -------------------------------------------------
+
+    def boot(self, t: int) -> None:
+        """A fresh gateway b: every registry as a new process has it, the
+        crash soak's settings, the controller on the device (its sim plane
+        spawns), the local shard claimed by a server, ``boot_replay`` (a
+        no-op on an empty state dir), the WAL writer started, the plane
+        up; clients subscribed to its cells."""
+        P, K, size = self.P, self.K, self.size
+        reset_gateway(P)
+        P.federation.reset_federation()
+        P.failover.reset_failover()
+        # Trace ids ride the trunk messages: a new process numbers them from 1,
+        # under its pid, here the incarnation's (one leg may run in a child).
+        P.tracing._trace_counter = counter = itertools.count(1)
+        pid = 0xB00 + len(self.replays) + (t > 0)
+        for module in self.traced:
+            module.new_trace_id = \
+                lambda prefix="", _c=counter, _p=pid: f"{prefix or 'g'}-{_p:x}-{next(_c):x}"
+        p = self.p
+        fed_pins(P, FedSoakParams(heartbeat_ms=p.heartbeat_ms, trunk_timeout_ms=p.trunk_timeout_ms,
+                                  handover_timeout_ms=p.handover_timeout_ms,
+                                  global_tick_ms=p.global_tick_ms))
+        s = P.settings.global_settings
+        wal_settings_hook("b", self.state_dir, p)(s)
+        if P.port:
+            s.spatial_device = self.dev.type
+        s.tpu_entity_capacity = size["entity_capacity"]
+        s.tpu_query_capacity = size["query_capacity"]
+        s.sim_enabled = True
+        s.sim_agents = size["agents"]
+        s.sim_census_every_ticks = CRASH_CENSUS_EVERY
+        s.device_guard_enabled = True
+        s.device_step_deadline_s = size["deadline_s"]
+        P.message.init_message_map()
+        P.channel.init_channels()
+        P.sim_models.register_sim_types()
+        P.controller.init_spatial_controller(self.config)
+        ctl = self.ctl = P.controller.get_spatial_controller()
+        self.eng = ctl.engine
+        if P.port:
+            check(self.eng.device.type == self.dev.type,
+                  f"the engine is on {self.eng.device}, not {self.dev}")
+        P.federation.init_federation(fed_config(CRASH_PORTS), "b", ctl)
+        self.plane, self.control = P.federation.plane, P.federation.control
+        self.directory = P.federation.directory
+        self.tap = TrunkTap("a")
+        self.plane.manager = NS(links={"a": self.tap}, stop=lambda: None)
+        self.tap.alive = False  # the trunk dials once the plane is up
+        self.conns = []
+        self._servers()
+        self.metrics0 = P.invariants.scrape()  # before any WAL or replay counter moves
+        t0 = time.perf_counter()
+        rep = P.wal.boot_replay(self.snap_path, self.wal_path)
+        rep["replay_s"] = time.perf_counter() - t0
+        P.wal.wal.start(self.wal_path, initial_seq=rep.get("max_seq", 0))
+        self.writer_seq0 = P.wal.wal.current_seq()
+        self.plane.active = True
+        self.control.plane, self.control.active = self.plane, True  # the epoch runs on the clock
+        self._clients()
+        self.gch = P.channel.get_global_channel()
+        self.booted_at = t
+        self.replay = rep
+        self._wrap()
+
+    def _servers(self) -> None:
+        P, ctl = self.P, self.ctl
+        master = self.conn(1, "SERVER")
+        gch = P.channel.get_global_channel()
+        gch.set_owner(master)
+        P.sub.subscribe_to_channel(master, gch, None)
+        server = self.conn(2, "SERVER")
+        ctx = P.message.MessageContext(msg_type=P.types.MessageType.CREATE_CHANNEL,
+                                       msg=P.control_pb2.CreateChannelMessage(), connection=server)
+        for ch in ctl.create_channels(ctx):
+            P.sub.subscribe_to_channel(server, ch, None)
+        start = P.settings.global_settings.spatial_channel_id_start
+        self.b_cells = [start + i for i in CRASH_CELLS["b"]]
+        local = sorted(c for c, ch in P.channel.all_channels().items()
+                       if ch.channel_type == P.types.ChannelType.SPATIAL)
+        check(local == self.b_cells, f"16a: b's local cells {[hex(c) for c in local]}")
+
+    def _clients(self) -> None:
+        P = self.P
+        for i in range(4):
+            client = self.conn(2000 + i, "CLIENT")
+            for cid in self.b_cells[2 * i:2 * i + 2]:
+                P.sub.subscribe_to_channel(client, P.channel.get_channel(cid),
+                                           P.control_pb2.ChannelSubscriptionOptions(
+                                               fanOutIntervalMs=50))
+
+    def _entities(self) -> list:
+        """b's base population (the soak's ``spawn``: FedSim in x > 0), tracked
+        on the device from birth; stub a's own base population."""
+        P, ctl = self.P, self.ctl
+        sim = FedSim(P, ctl, self.rng)
+        sim.create_entities(self.size["entities"], *CRASH_XR["b"], *CRASH_ZR, base=CRASH_BASE["b"])
+        for eid in sim.entity_ids:
+            pos = P.channel.get_channel(eid).get_data_message().state.transform.position
+            ctl.track_entity(eid, P.controller.SpatialInfo(pos.x, 0, pos.z))
+        estart = P.settings.global_settings.entity_channel_id_start
+        stub = self.stub
+        for i in range(self.size["entities"]):
+            eid = estart + 1 + CRASH_BASE["a"] + i
+            stub.own.append(eid)
+            stub.census.add(eid)
+            stub.pos[eid] = (stub.rng.uniform(*CRASH_XR["a"]), stub.rng.uniform(*CRASH_ZR))
+        return sim.entity_ids
+
+    def _sensors(self) -> list:
+        """Standing sensors over b's half (box, sphere, cone, spots),
+        journaled as the WAL's query records."""
+        ctl, ops, rng = self.ctl, self.P.ops, self.rng
+        (x0, x1), (z0, z1) = CRASH_XR["b"], CRASH_ZR
+        kinds = (ops.AOI_BOX, ops.AOI_SPHERE, ops.AOI_CONE, ops.AOI_SPOTS)
+        for i in range(self.size["sensors"]):
+            kind = kinds[i % 4]
+            cx, cz = rng.uniform(x0, x1), rng.uniform(z0, z1)
+            if kind == ops.AOI_SPOTS:
+                ctl.register_sensor(f"b-sensor{i}", kind=kind, spots=[
+                    (cx, cz), (rng.uniform(x0, x1), rng.uniform(z0, z1))], dists=[0, 1])
+            else:
+                ctl.register_sensor(f"b-sensor{i}", kind=kind, center=(cx, cz),
+                                    extent=(rng.uniform(30, 70), rng.uniform(30, 70)),
+                                    direction=(-1.0, 0.0), angle=0.7)
+        return self.sensor_rows()
+
+    def sensor_rows(self) -> list:
+        """The query plane's rows, their parameters as the WAL's float32."""
+        return sorted((key, scope, name, kind, np.float32(params).tolist(), list(spots))
+                      for key, scope, name, kind, params, spots
+                      in self.ctl.queryplane.snapshot_rows())
+
+    def trunk_up(self) -> None:
+        """The trunk between b and the stub comes up: the stub's side first
+        (its notices and, after a death, the directory sync), then b's."""
+        self.tap.alive = True
+        self.stub.connect(self.tap)
+        self.plane._on_trunk_up("a", self.tap)
+
+    # ---- the kill and the restart ----------------------------------------
+
+    def kill(self, t: int) -> None:
+        """SIGKILL: the writer stops without a flush and the file keeps only
+        what the last flush made durable; every registry, the engine and its
+        tensors go with the process."""
+        P = self.P
+        wal = P.wal.wal
+        self.kills.append(self.books(f"kill at tick {t}"))
+        wal.stop(flush=False)
+        with open(self.wal_path, "r+b") as f:
+            f.truncate(self.flushed)
+        with open(self.wal_path, "rb") as f:
+            wal_bytes = f.read()
+        self.kills[-1]["wal"] = (len(wal_bytes), hashlib.sha256(wal_bytes).hexdigest())
+        self.kills[-1]["snapshot"] = self.snapshot_digest()
+        with open(self.snap_path, "rb") as f:
+            self.durable.append(dict(wal=wal_bytes, snapshot=f.read()))
+        self.stub.disconnect(t)
+        self._unwrap()
+        self.tap.alive = False
+        P.chaos.disarm()
+        reset_gateway(P)
+        P.federation.reset_federation()
+        P.failover.reset_failover()
+        self.ctl = self.eng = None
+        if self.K is not None:
+            self.K._zeroed.clear()  # K1's counts buffers go with the process
+        gc.collect()  # the old engine's tensors sit in reference cycles
+        self.down = True
+        self.note_memory(f"kill at tick {t}")
+
+    def restart(self, t: int) -> None:
+        self.note_memory(f"before restart at tick {t}")
+        t0 = time.perf_counter()
+        self.boot(t)
+        self.restarts.append(time.perf_counter() - t0)
+        self.replays.append(dict(self.replay))
+        self.booted.append(self.booted_state())
+        self.down = False
+        self.note_memory(f"after restart at tick {t}")
+
+    def booted_state(self) -> dict:
+        """What a restart's replay leaves for the device's first tick: the
+        agents' host columns and sim tick, and the previous cell seeded for
+        each of b's humans."""
+        eng = self.eng
+        slots = eng.agent_slots()
+        return dict(ids=eng.agent_ids(slots).tolist(), sim_tick=int(eng.sim_tick),
+                    columns=[c[slots].tolist() for c in (eng._positions, eng._vel,
+                                                         eng._sim_state, eng._sim_target)],
+                    prev_cells={int(eng._entity_of_slot[slot]): int(cell)
+                                for slot, cell in eng._seed_cells.items()
+                                if not eng._agent_mask[slot]})
+
+    def note_memory(self, moment: str) -> None:
+        if self.dev.type == "cuda":
+            self.memory.append((moment, torch.cuda.memory_allocated(self.dev)))
+
+    def settle(self, t: int) -> None:
+        """The end of a tick b served: the durability barrier (every record
+        appended so far fsync'd), then its snapshot loop's cycle when due
+        (scripts/crash_soak.py's ``snapshot_loop``: take, write, checkpoint),
+        the live writer left to carry the checkpoint out. The harness only
+        waits for what the writer does to reach the disk: the checkpoint's
+        rewrite (a new file) when it covers a record, and after a tear the
+        torn prefix; the file's length is then what a kill keeps."""
+        import os
+
+        P = self.P
+        wal = P.wal.wal
+        wal_barrier(wal, self.writer_seq0)
+        since = t - self.booted_at
+        if since and since % CRASH_SNAPSHOT_TICKS == 0:
+            snap = P.snapshot.take_snapshot()
+            P.snapshot.write_snapshot(snap, self.snap_path)
+            records, _ = P.wal.read_wal_records(self.wal_path, truncate=False)
+            covered = any(r.seq <= snap.walSeq for r in records)
+            inode = os.stat(self.wal_path).st_ino
+            wal.checkpoint(snap.walSeq)
+            if covered and wal.writer_alive():
+                wal_wait("rewrite the file at the checkpoint",
+                         lambda: os.stat(self.wal_path).st_ino != inode)
+        if not wal.writer_alive() and not self.torn:
+            # The tear's prefix is the last write that ever reaches the disk.
+            wal_wait("write the torn prefix",
+                     lambda: P.wal.read_wal_records(self.wal_path, truncate=False)[1])
+            self.torn = True
+        self.flushed = os.path.getsize(self.wal_path)
+
+    def snapshot_digest(self):
+        """The snapshot file's content (its wall-clock ``takenAt`` masked)."""
+        import os
+
+        if not os.path.exists(self.snap_path):
+            return None
+        snap = self.P.snapshot.load_snapshot(self.snap_path)
+        return (snap.walSeq, self.P.snapshot.snapshot_digest(snap))
+
+    def wal_digest(self):
+        """The WAL's durable prefix: what the last flush made durable (on a
+        kill tick the writer may still be writing the lost window)."""
+        with open(self.wal_path, "rb") as f:
+            blob = f.read(self.flushed)
+        return (len(blob), hashlib.sha256(blob).hexdigest()[:16])
+
+    # ---- the script ------------------------------------------------------
+
+    def cell_of(self, x: float, z: float) -> int:
+        return self.ctl.get_channel_id(self.P.controller.SpatialInfo(x, 0, z))
+
+    def centre(self, cid: int) -> tuple:
+        info = self.ctl._cell_center(cid - self.P.settings.global_settings.spatial_channel_id_start)
+        return info.x, info.z
+
+    def move(self, eid: int, x: float, z: float) -> None:
+        FedSim(self.P, self.ctl, self.rng).move(eid, x, z)
+
+    def west(self, n: int) -> list:
+        """``n`` of b's live base entities moved into a's half."""
+        P = self.P
+        ids = [e for e in self.entity_ids if P.channel.get_channel(e) is not None
+               and e not in self.plane._parked and self.eng.slot_of_entity(e) is not None][:n]
+        check(len(ids) == n, f"16a: {len(ids)} of {n} of b's entities to move west")
+        for eid in ids:
+            self.move(eid, self.rng.uniform(*CRASH_XR["a"]), self.rng.uniform(*CRASH_ZR))
+        return ids
+
+    def drive(self, t: int) -> None:
+        at, size, stub = CRASH_AT, self.size, self.stub
+        stub.answer()
+        if t == at["trunk1"] or t == at["trunk2"]:
+            self.trunk_up()
+        since = t - self.booted_at
+        if since and since % CRASH_SWEEP_TICKS == 0:
+            fed_timeouts(self.plane)
+        if t == at["commit_in"]:
+            self.commit_in = stub.herd(size["commits"], t)
+        elif t == at["commit_out"]:
+            self.commit_out = self.west(size["commits"])
+        elif t == at["burst1"]:
+            stub.hold = True  # b's acks stay on the wire from here to the kill
+            self.burst1 = stub.herd(size["burst"] // 2, t)
+            self.applied_copy = [e for rows in stub.pending.values() for e, _, _ in rows]
+        elif t == at["kill1"]:
+            self.burst1 += stub.herd(size["burst"] - len(self.burst1), t)
+        elif t == at["restart1"]:
+            self.parked = self.west(size["parked"])  # crossings before the trunk is up
+        elif t == at["reoffer"]:
+            self.reoffered = stub.reoffer()
+        elif t == at["torn"]:
+            # scripts/crash_soak.py's arm_torn: the next append tears (simulated
+            # power loss) and the writer wedges; the marker is that append.
+            self.P.chaos.arm({"seed": self.p.seed, "faults": [
+                {"point": "wal.torn_write", "every_n": 1, "max_fires": 1}]})
+            self.P.wal.wal.log_flip([], 0)
+        elif t == at["burst2"]:
+            stub.hold = True
+            self.burst2 = stub.herd(size["burst"] // 2, t)
+        elif t == at["kill2"]:
+            self.burst2 += stub.herd(size["burst"] - len(self.burst2), t)
+
+    def stub_tick(self, t: int) -> None:
+        if t % CRASH_EPOCH_TICKS == 0:
+            self.stub.epoch_tick(t)
+
+    # ---- the events ------------------------------------------------------
+
+    def expect(self, name: str, ok, detail="") -> None:
+        self.events.append((name, bool(ok), str(detail)[:300]))
+
+    def in_cell(self, eid: int, cid) -> bool:
+        ch = self.P.channel.get_channel(cid) if cid is not None else None
+        return ch is not None and eid in ch.get_data_message().entities
+
+    def placed(self) -> dict:
+        """b's placement: entity id -> [cells holding it]."""
+        P, out = self.P, {}
+        for cid, ch in P.channel.all_channels().items():
+            if ch.channel_type == P.types.ChannelType.SPATIAL:
+                for eid in ch.get_data_message().entities:
+                    out.setdefault(eid, []).append(cid)
+        return out
+
+    def at_centres(self, ids) -> list:
+        """Those of ``ids`` tracked on the card at the centre of the cell
+        holding them, the placement ledger agreeing."""
+        eng, ctl = self.eng, self.ctl
+        out = []
+        for e in ids:
+            cid, slot = ctl._data_cell.get(e), eng.slot_of_entity(e)
+            if slot is not None and self.in_cell(e, cid) \
+                    and tuple(eng._positions[slot][[0, 2]]) == self.centre(cid):
+                out.append(e)
+        return out
+
+    def gone(self, ids) -> list:
+        """Those of ``ids`` with no channel, no slot and no row on b."""
+        P, placed = self.P, self.placed()
+        return [e for e in ids if P.channel.get_channel(e) is None
+                and self.eng.slot_of_entity(e) is None and e not in placed]
+
+    def restart_checks(self, k: int) -> None:
+        """A restart's boot, before its first tick: every resident of b's
+        cells re-tracked at its cell's centre (the placement ledger naming
+        that cell), the sensor rows and the sim census restored."""
+        eng, ctl, rep = self.eng, self.ctl, self.replay
+        humans = [e for e in self.placed() if e < self.agent_base]
+        self.expect(f"restart_{k}_residents_retracked_at_cell_centres",
+                    humans and self.at_centres(humans) == humans,
+                    (len(self.at_centres(humans)), len(humans)))
+        self.expect(f"restart_{k}_sensor_rows_restored", self.sensor_rows() == self.sensor_keys,
+                    (len(self.sensor_rows()), len(self.sensor_keys)))
+        census, booted = self.durable_census, self.booted[-1]
+        journaled = journaled_census(self.P, self.durable[-1]["wal"], self.durable[-1]["snapshot"])
+        self.expect(f"restart_{k}_sim_census_restored",
+                    census is not None and ctl.simplane.ledgers.get("agents_restored") == census[0]
+                    and eng.sim_tick == census[1]
+                    and sorted(eng.agent_ids().tolist()) == census[2]
+                    and journaled is not None and booted_agents(booted) == journaled,
+                    (census and census[:2], ctl.simplane.ledgers, eng.sim_tick,
+                     journaled and journaled[:2]))
+        self.expect(f"restart_{k}_replayed_snapshot_and_wal",
+                    rep["snapshot_channels"] > 0 and rep["wal_records"] > 0, rep)
+
+    def check_events(self, t: int) -> None:
+        at, P, eng, plane, stub = CRASH_AT, self.P, self.eng, self.plane, self.stub
+        if t == at["commit_in"] + 2:
+            self.expect("inbound_commit_tracked_at_cell_centres",
+                        self.at_centres(self.commit_in) == self.commit_in
+                        and not stub.pending and len(self.commit_in) == self.size["commits"],
+                        (self.at_centres(self.commit_in), self.commit_in))
+        if t == at["commit_out"] + 3:
+            self.expect("outbound_commit_untracked",
+                        self.gone(self.commit_out) == self.commit_out
+                        and set(self.commit_out) <= stub.census, self.commit_out)
+        if t == at["trunk1"] + 2:
+            self.expect("reclaimed", self.control.resurrections == {"announced": 1, "reclaimed": 1}
+                        and stub.resurrections == {"peer_reclaimed": 1},
+                        (self.control.resurrections, stub.resurrections))
+            self.expect("abort_notices_purged_the_applied_copy",
+                        plane.ledger.get("reconciled", 0) == len(self.applied_copy) > 0
+                        and all(P.channel.get_channel(e) is None for e in self.applied_copy),
+                        (plane.ledger, self.applied_copy))
+            self.expect("parked_crossings_reoffered_from_the_card_and_committed",
+                        self.gone(self.parked) == self.parked and set(self.parked) <= stub.census,
+                        self.parked)
+        if t == at["reoffer"] + 2:
+            self.expect("stub_burst_reoffered_and_committed",
+                        self.at_centres(self.reoffered) == self.reoffered
+                        and sorted(self.reoffered) == sorted(self.burst1) and not stub.pending,
+                        (self.reoffered, self.burst1))
+        if t == at["torn"]:
+            wal = P.wal.wal
+            self.expect("wal_torn_and_writer_wedged", self.torn and wal.enabled
+                        and not wal.writer_alive(), wal.report())
+        if self.yield_at is None and self.control.resurrections.get("yielded"):
+            self.yield_at = t
+            self.yield_missing = next(e[3] for e in reversed(stub.log) if e[0] == "hello")
+            dropped = self.yield_event()["dropped_ids"]
+            self.expect("yield_dropped_copies_leave_the_card_in_the_same_tick",
+                        dropped and self.gone(dropped) == dropped
+                        and not any(eng.is_agent(e) for e in dropped), dropped)
+            self.kernels_at("yield")
+        if self.yield_at is not None and t == self.yield_at + 3:
+            handed = self.yield_missing
+            self.expect("yield_missing_ids_handed_over_the_trunk",
+                        handed and self.gone(handed) == handed and set(handed) <= stub.census
+                        and self.control.counters.get("resurrect_entities_handed") == len(handed),
+                        (handed, self.control.counters))
+            self.expect("yielded", self.control.resurrections == {"announced": 1, "yielded": 1}
+                        and stub.resurrections.get("peer_yielded") == 1,
+                        (self.control.resurrections, stub.resurrections))
+
+    def yield_event(self) -> dict:
+        return next(e for e in self.control.events if e.get("kind") == "resurrect_yield_shard")
+
+    def kernels_at(self, case: str) -> None:
+        eng, K = self.eng, self.K
+        self.kernels[case] = None if K is None else soak_live_kernels(
+            K, eng.grid, eng._d_positions, eng._d_valid, eng._d_queries)
+
+    # ---- one tick ----------------------------------------------------------
+
+    def tick(self, t: int) -> dict:
+        P, K, at = self.P, self.K, CRASH_AT
+        self.clock.advance(CRASH_TICK_S)
+        self.stub_tick(t)
+        if t in (at["restart1"], at["restart2"]):
+            k = 1 if t == at["restart1"] else 2
+            self.restart(t)
+            self.restart_checks(k)
+            if k == 2:
+                self.expect("restart_2_torn_tail_truncated", self.replay["torn"], self.replay)
+        if self.down:
+            return dict(down=True)
+        eng, ctl = self.eng, self.ctl
+        sent0 = len(self.tap.sent)
+        self.drive(t)
+        self.censuses_at_tick = P.wal.wal.record_counts.get("sim_census", 0)
+        now = time.monotonic_ns()
+        chans = P.channel.all_channels()
+        cuda = self.dev.type == "cuda"
+        crossings, ran, steps = len(self.handovers), self.engine_ticks, len(self.step_ms)
+        before = K.launch_counts() if K is not None else None
+        estart = P.settings.global_settings.entity_channel_id_start
+        entity_channels = [ch for cid, ch in sorted(chans.items()) if cid >= estart]
+        spatial = [ch for cid, ch in sorted(chans.items())
+                   if ch.channel_type == P.types.ChannelType.SPATIAL]
+        sync(self.dev)
+        eng.last_result = None
+        with (Reads() if cuda else contextlib.nullcontext()) as reads:
+            t0 = time.perf_counter()
+            for ch in entity_channels:
+                ch.tick_once(now)
+            self.gch.tick_once(now)
+            for ch in spatial:
+                ch.tick_once(now)
+            t1 = time.perf_counter()
+        result = eng.last_result
+        first = t in (at["restart1"], at["restart2"])
+        if first and K is not None:
+            self.kernels_at(f"restart{1 if t == at['restart1'] else 2}")
+        if first:
+            self.restarts[-1] += time.perf_counter() - t0  # restart to serving: boot + first tick
+        kill = t in (at["kill1"], at["kill2"])
+        censuses = P.wal.wal.record_counts.get("sim_census", 0)
+        if not kill:
+            self.settle(t)
+            if censuses > self.censuses_at_tick and not self.torn:
+                slots = eng.agent_slots()
+                self.durable_census = (len(slots), eng.sim_tick,
+                                       sorted(eng.agent_ids(slots).tolist()))
+        obs = dict(handovers=[r for rows in self.handovers[crossings:] for r in rows],
+                   ran=self.engine_ticks - ran, served=result is not None,
+                   tick_ms=(t1 - t0) * 1e3,
+                   step_ms=self.step_ms[steps] if len(self.step_ms) > steps else None,
+                   reads=reads.count if cuda else None)
+        obs.update(self.observe(result, sent0))
+        if K is not None:
+            obs["launches"] = {n: c - before[n] for n, c in K.launch_counts().items()}
+        if self.size.get("columns"):
+            slots = np.sort(eng.agent_slots())
+            self.columns.append([host(c)[slots] for c in (eng._d_positions, eng._d_vel,
+                                                          eng._d_sim_state, eng._d_sim_target)])
+        self.placed_ever.update(self.placed())
+        self.check_events(t)
+        if kill:
+            pending = sorted(self.stub.pending)
+            self.kill(t)
+            self.expect(f"kill_{1 if t == at['kill1'] else 2}_in_flight_batches_aborted_at_the_stub",
+                        pending and set(pending) <= self.stub.notices
+                        and not self.stub.pending, (pending, sorted(self.stub.notices)))
+            if t == at["kill2"]:
+                self.stub.death_ticks = round(
+                    self.p.death_miss_epochs * self.p.epoch_ms / 1000.0 / CRASH_TICK_S)
+            self.stub.hold = False
+        return obs
+
+    def observe(self, result, sent0: int) -> dict:
+        """Digests of what the tick left on b (as FleetWorld's), the WAL's
+        bytes after the tick's flush, the snapshot, and the stub's holdings."""
+        P, eng, ctl = self.P, self.eng, self.ctl
+        tables, agent_rows = hashlib.sha256(), hashlib.sha256()
+        for cid, ch in sorted(P.channel.all_channels().items()):
+            if ch.channel_type == P.types.ChannelType.SPATIAL:
+                for eid, state in sorted(ch.get_data_message().entities.items()):
+                    h = agent_rows if eid >= self.agent_base else tables
+                    h.update(np.array([cid, eid], np.int64).tobytes())
+                    h.update(state.SerializeToString(deterministic=True))
+        q = counts = None
+        census = False
+        if result is not None:
+            count, rows = eng.query_changed_rows(result)
+            q = (count, digest([rows[: min(count, len(rows))]])[0])
+            census = "sim_census" in result
+            counts = digest([np.asarray(eng.consume(result)[2] if hasattr(eng, "consume")
+                                        else result["cell_counts"])])[0]
+        slots = sorted(eng._slot_of_entity.items())
+        engine = digest([np.asarray(slots, np.int64).reshape(-1), host(eng._d_cell),
+                         host(eng._d_valid), eng._agent_mask])
+        sim = digest([host(t) for t in (eng._d_positions, eng._d_vel, eng._d_sim_state,
+                                        eng._d_sim_target)]) if eng._d_vel is not None else None
+        trunk = [(tp, len(b), hashlib.sha256(b).hexdigest()[:16])
+                 for tp, b, _ in self.tap.sent[sent0:]]
+        wal = P.wal.wal
+        raw = None
+        if self.size.get("columns"):
+            # What the digests fold, for a comparison with JAX that parses them.
+            with open(self.wal_path, "rb") as f:
+                blob = f.read(self.flushed)
+            raw = dict(trunk=[(tp, b) for tp, b, _ in self.tap.sent[sent0:]], wal=blob,
+                       frames={c.id: c.frames for c in self.conns},
+                       agent_rows=[(cid, eid, state.SerializeToString(deterministic=True))
+                                   for cid, ch in sorted(P.channel.all_channels().items())
+                                   if ch.channel_type == P.types.ChannelType.SPATIAL
+                                   for eid, state in sorted(ch.get_data_message().entities.items())
+                                   if eid >= self.agent_base])
+            for c in self.conns:
+                c.frames = []
+        return dict(raw=raw,
+            tables=tables.hexdigest(), agent_rows=agent_rows.hexdigest(), q=q, census=census,
+            counts=counts, engine=engine, sim=sim,
+            placement=digest([np.asarray(sorted(ctl._data_cell.items()), np.int64).reshape(-1)])[0],
+            agents=(eng.agent_count(), sorted(ctl.simplane.authority._backed)),
+            trunk={"a": trunk},
+            ledgers=(sorted(self.plane.ledger.items()), sorted(self.control.resurrections.items()),
+                     sorted(self.control.counters.items()), sorted(wal.record_counts.items()),
+                     sorted(wal.replay_counts.items()), wal.current_seq(),
+                     sorted(ctl.simplane.ledgers.items()),
+                     sorted(ctl.simplane.authority.ledgers.items()),
+                     sorted(ctl.queryplane.ledgers.items()),
+                     sorted(P.failover.journal.counts.items())),
+            peers={"a": sorted(self.stub.census)},
+            wal=self.wal_digest(), snapshot=self.snapshot_digest(),
+            sent={c.id: (c.count, c.digest.hexdigest()) for c in self.conns})
+
+    def run(self) -> list:
+        self.agent_base = self.P.settings.global_settings.entity_channel_id_start \
+            + self.P.sim_plane.AGENT_ID_OFFSET
+        self.yield_at = None
+        return [self.tick(t) for t in range(self.size["ticks"])]
+
+    # ---- the books ---------------------------------------------------------
+
+    def books(self, when: str) -> dict:
+        """b's ledgers against their metrics since this incarnation booted
+        (scripts/crash_soak.py's ``wal_metric_delta``)."""
+        P = self.P
+        inv = P.invariants
+        metric: dict = {"records": {}, "replayed": {}, "resurrection": {}}
+        for (name, labels), value in inv.delta(inv.scrape(), self.metrics0).items():
+            if not value:
+                continue
+            if name == "wal_records_total":
+                metric["records"][dict(labels)["kind"]] = int(value)
+            elif name == "wal_replayed_total":
+                metric["replayed"][dict(labels)["kind"]] = int(value)
+            elif name == "resurrection_total":
+                metric["resurrection"][dict(labels)["outcome"]] = int(value)
+        wal = P.wal.wal
+        return dict(when=when, metric=metric, records=dict(wal.record_counts),
+                    replayed=dict(wal.replay_counts),
+                    resurrections=dict(self.control.resurrections))
+
+    def report(self) -> dict:
+        """The books at the end: the census across b and the stub, the
+        ledgers against their metrics at each kill and at the end, the
+        journal, nothing left in flight."""
+        P = self.P
+        placed = {e: [("b", c) for c in cids] for e, cids in self.placed().items()}
+        for e in self.stub.census:
+            placed.setdefault(e, []).append(("a", 0))
+        expected = set(self.entity_ids) | set(self.stub.own) | self.placed_ever
+        s = P.settings.global_settings
+        return dict(
+            lost=sorted(e for e in expected if e not in placed),
+            duplicated={e: w for e, w in placed.items() if len(w) > 1},
+            books=self.kills + [self.books("end")],
+            journal=dict(P.failover.journal.counts),
+            in_flight=P.failover.journal.in_flight_count(),
+            pending=(len(self.plane._pending), len(self.plane._parked), len(self.stub.pending)),
+            replays=[{k: v for k, v in r.items() if k not in ("elapsed_s", "replay_s")}
+                     for r in self.replays],
+            replay_s=[r["replay_s"] for r in self.replays], restart_s=list(self.restarts),
+            deadlines=(s.wal_restart_deadline_s, self.p.restart_deadline_s),
+            kills=[{k: v for k, v in b.items() if k in ("wal", "snapshot")} for b in self.kills],
+            ledger=dict(self.plane.ledger), control=dict(self.control.counters),
+            resurrections=dict(self.control.resurrections), stub=dict(self.stub.resurrections),
+            stub_log=list(self.stub.log), sim=dict(self.ctl.simplane.ledgers),
+            yield_at=self.yield_at, kernels=self.kernels, engine_ticks=self.engine_ticks,
+            memory=list(self.memory), durable=list(self.durable), booted=list(self.booted),
+            census=(len(placed), len(self.placed()),
+                                              len(self.stub.census)))
+
+    def close(self) -> None:
+        P = self.P
+        P.chaos.disarm()
+        P.federation.reset_federation()
+        for module, fn in zip(self.traced, self.trace_ids):
+            module.new_trace_id = fn
+        self._unwrap()
+        reset_gateway(P)
+        P.failover.reset_failover()
+
+
+def journaled_census(P, wal_bytes: bytes, snapshot_bytes: bytes):
+    """The census a restart replays, decoded by ``P``'s WAL and snapshot
+    readers from the files a kill left: the last ``sim_census`` record
+    above the snapshot's sequence, as (sim tick, ids, [positions,
+    velocities, states, targets] by id), or None."""
+    import tempfile
+
+    snap = P.snapshot.snapshot_pb2.GatewaySnapshot()
+    snap.ParseFromString(snapshot_bytes)
+    with tempfile.NamedTemporaryFile(suffix=".wal") as f:
+        f.write(wal_bytes)
+        f.flush()
+        records, _ = P.wal.read_wal_records(f.name, truncate=False)
+    census = [r for r in records if r.kind == "sim_census" and r.seq > snap.walSeq]
+    if not census:
+        return None
+    r = census[-1]
+    n = len(r.simAgentIds)
+    order = np.argsort(np.asarray(r.simAgentIds, np.int64), kind="stable")
+    cols = [np.asarray(r.simAgentPos, np.float32).reshape(n, 3),
+            np.asarray(r.simAgentVel, np.float32).reshape(n, 3),
+            np.asarray(r.simAgentState, np.int32),
+            np.asarray(r.simAgentTarget, np.float32).reshape(n, 3)]
+    return (int(r.simTick), np.asarray(r.simAgentIds, np.int64)[order].tolist(),
+            [c[order].tolist() for c in cols])
+
+
+def booted_agents(booted: dict) -> tuple:
+    """``CrashWorld.booted_state()``'s agents in ``journaled_census``'s
+    form."""
+    order = np.argsort(np.asarray(booted["ids"], np.int64), kind="stable")
+    return (booted["sim_tick"], np.asarray(booted["ids"], np.int64)[order].tolist(),
+            [np.asarray(c)[order].tolist() for c in booted["columns"]])
+
+
+def crash_config(scratch: str) -> str:
+    """WORLD_SPATIAL on the device controller, as a spatial config file."""
+    import os
+
+    path = os.path.join(scratch, "crash_world.json")
+    with open(path, "w") as f:
+        json.dump(dict(WORLD_SPATIAL, SpatialControllerType="TPUSpatialController"), f)
+    return path
+
+
+def run_crash_leg(P, dev: torch.device, size: dict, scratch: str, K=None) -> tuple:
+    """One leg of 16a in a state dir of its own: (per-tick observations,
+    report with the events' checks and, with ``K``, the kernels on the
+    live tensors at each restart's first tick and the yield tick)."""
+    import os
+    import tempfile
+
+    t_leg = time.perf_counter()
+    state_dir = tempfile.mkdtemp(prefix=f"crash-{dev.type}-", dir=scratch)
+    with FixedClock() as clock:
+        if K is not None:
+            K.reset_launch_counts()
+        world = CrashWorld(P, dev, clock, size, state_dir, crash_config(scratch), K)
+        obs = world.run()
+        report = world.report()
+        report["events"] = list(world.events)
+        report["columns"] = world.columns
+        report["launches"] = K.launch_counts() if K is not None else None
+        world.close()
+        del world
+    report["secs"] = time.perf_counter() - t_leg
+    report["state_dir"] = os.path.basename(state_dir)
+    return obs, report
+
+
+def crash_checks(obs: list, r: dict) -> list:
+    """16a's books of one leg, as (name, held, detail): the events, the
+    census across b and the stub (zero lost, zero duplicated), each of b's
+    ledgers equal to its metric at each kill and at the end, the journal
+    balanced, nothing left in flight, every tick b was up served, each
+    restart within the deadlines."""
+    out = list(r["events"])
+    out += [("census_zero_lost", r["lost"] == [], r["lost"]),
+            ("census_zero_duplicated", r["duplicated"] == {}, r["duplicated"])]
+    for name, ledger, metric in (("wal_records", "records", "records"),
+                                 ("wal_replayed", "replayed", "replayed"),
+                                 ("resurrection", "resurrections", "resurrection")):
+        bad = [b["when"] for b in r["books"] if b["metric"][metric] != b[ledger]]
+        out.append((f"{name}_ledger_equals_metric", not bad, bad))
+    jc = r["journal"]
+    out += [("journal_balanced", jc.get("prepared", 0) == jc.get("committed", 0)
+             + jc.get("aborted", 0) and r["in_flight"] == 0, (jc, r["in_flight"])),
+            ("nothing_pending_or_parked", r["pending"] == (0, 0, 0), r["pending"]),
+            ("every_tick_up_served", all(o["served"] for o in obs if not o.get("down")),
+             [t for t, o in enumerate(obs) if not o.get("down") and not o["served"]][:10]),
+            ("restarts_within_deadline", len(r["restart_s"]) == 2
+             and all(s <= r["deadlines"][1] for s in r["restart_s"])
+             and all(s <= r["deadlines"][0] for s in r["replay_s"]),
+             (r["restart_s"], r["replay_s"]))]
+    return out
+
+
+# ---- 16b: scripts/crash_soak.py's live two-process run through the port ------
+
+
+def wal_pre_start_hook(P, gw_id: str, state_dir: str, sink: dict):
+    """scripts/crash_soak.py's ``wal_pre_start_hook``: replay the snapshot
+    and the WAL (a no-op on a virgin state dir) and start the journal
+    writer, before the plane starts."""
+    def hook() -> None:
+        snap_path, wal_path = persistence_paths(state_dir, gw_id)
+        t0 = time.monotonic()
+        sink["replay"] = P.wal.boot_replay(snap_path, wal_path)
+        sink["replay"]["wall_s"] = round(time.monotonic() - t0, 3)
+        P.wal.wal.start(wal_path, initial_seq=sink["replay"].get("max_seq", 0))
+
+    return hook
+
+
+def wal_metric_delta(P, baseline: dict) -> dict:
+    """scripts/crash_soak.py's ``wal_metric_delta``: wal_records_total{kind},
+    wal_replayed_total{kind} and resurrection_total{outcome} since
+    ``baseline``."""
+    inv = P.invariants
+    out: dict = {"records": {}, "replayed": {}, "resurrection": {}}
+    for (name, labels), value in inv.delta(inv.scrape(), baseline).items():
+        if not value:
+            continue
+        if name == "wal_records_total":
+            out["records"][dict(labels)["kind"]] = int(value)
+        elif name == "wal_replayed_total":
+            out["replayed"][dict(labels)["kind"]] = int(value)
+        elif name == "resurrection_total":
+            out["resurrection"][dict(labels)["outcome"]] = int(value)
+    return out
+
+
+def persistence_report(P, baseline: dict, replay: dict) -> dict:
+    """scripts/crash_soak.py's ``persistence_report``."""
+    return {"wal": P.wal.wal.report(), "replay": replay,
+            "metric": wal_metric_delta(P, baseline),
+            "resurrections": dict(P.federation.control.resurrections)}
+
+
+async def crash_child_main(config: str, report_path: str, state_dir: str, seed: int) -> None:
+    """scripts/crash_soak.py's ``remote_main`` (gateway "b", the crash victim)
+    through the port, driven over stdin: spawn, herd_to, flush_wal,
+    arm_torn, quiesce, report, exit. Its report also lists the modules of
+    JAX or of the JAX package it loaded (none) and its controller."""
+    import asyncio
+    import os
+
+    from random import Random
+
+    P = gateway_modules()
+    baseline = P.invariants.scrape()  # before any WAL/replay counter moves
+    with open(config) as f:
+        fed_cfg = json.load(f)
+    p = CrashSoakParams()
+    fp = FedSoakParams(heartbeat_ms=p.heartbeat_ms, trunk_timeout_ms=p.trunk_timeout_ms,
+                       handover_timeout_ms=p.handover_timeout_ms, global_tick_ms=p.global_tick_ms)
+    stop = asyncio.Event()
+    sink: dict = {"replay": {}}
+    scratch = os.path.dirname(os.path.abspath(report_path))
+    gw = await fed_boot_gateway(P, "b", fed_cfg, fp, stop, scratch,
+                                settings_hook=wal_settings_hook("b", state_dir, p),
+                                pre_start_hook=wal_pre_start_hook(P, "b", state_dir, sink))
+    plane, ctl = gw["plane"], gw["ctl"]
+    journal, wal = P.failover.journal, P.wal.wal
+    snap_path, _ = persistence_paths(state_dir, "b")
+    snap_task = asyncio.ensure_future(P.snapshot.snapshot_loop(snap_path, p.snapshot_interval_s))
+    sim = FedSim(P, ctl, Random(seed ^ 0xB))
+    print("READY", flush=True)
+    loop = asyncio.get_running_loop()
+    reader = asyncio.StreamReader()
+    await loop.connect_read_pipe(lambda: asyncio.StreamReaderProtocol(reader), sys.stdin)
+    while True:
+        line = await reader.readline()
+        if not line:
+            break
+        try:
+            cmd = json.loads(line)
+        except ValueError:
+            continue
+        name = cmd.get("cmd")
+        if name == "spawn":
+            sim.create_entities(int(cmd["n"]), *CRASH_XR["b"], *CRASH_ZR,
+                                base=CRASH_BASE["b"] + int(cmd.get("offset", 0)))
+            print(f"OK spawn {cmd['n']}", flush=True)
+        elif name == "herd_to":
+            sim.adopt_scan()
+            moved = sim.herd(sim.local_ids()[: int(cmd.get("n", 4))], *CRASH_XR[cmd["gw"]],
+                             *CRASH_ZR)
+            print(f"OK herd_to {len(moved)}", flush=True)
+        elif name == "flush_wal":
+            ok = await asyncio.to_thread(wal.flush, 10.0)
+            print(f"OK flush_wal {ok}", flush=True)
+        elif name == "arm_torn":
+            P.chaos.arm({"seed": seed, "faults": [
+                {"point": "wal.torn_write", "every_n": 1, "max_fires": 1}]})
+            wal.log_flip([], 0)  # the record that tears
+            await asyncio.to_thread(wal.flush, 5.0)
+            print("OK arm_torn", flush=True)
+        elif name == "quiesce":
+            deadline = time.monotonic() + float(cmd.get("drain_s", 10.0))
+            while time.monotonic() < deadline and (plane._pending or plane._parked
+                                                   or journal.in_flight_count()):
+                await asyncio.sleep(0.1)
+            print("OK quiesce", flush=True)
+        elif name == "report":
+            report = dict(gateway="b", ledger=dict(plane.ledger),
+                          persistence=persistence_report(P, baseline, sink["replay"]),
+                          placement=fed_local_placement(P), pending=len(plane._pending),
+                          parked=len(plane._parked), journal=journal.report(),
+                          events=plane.events[-300:], modules=foreign_modules(),
+                          spatial=type(ctl).__name__)
+            with open(report_path, "w") as f:
+                json.dump(report, f)
+            print("OK report", flush=True)
+        elif name == "exit":
+            break
+    stop.set()
+    snap_task.cancel()
+    fed_teardown_gateway(P, gw)
+
+
+def crash_child(config: str, report_path: str, state_dir: str, seed: int) -> int:
+    """``chip_smoke.py --crash-child CONFIG REPORT STATE_DIR SEED``: 16b's
+    gateway "b"."""
+    import asyncio
+
+    asyncio.run(crash_child_main(config, report_path, state_dir, seed))
+    return 0
+
+
+async def run_crash_soak(P, p: CrashSoakParams, scratch: str) -> dict:
+    """scripts/crash_soak.py's ``run_crash_soak`` through the port: gateway
+    "a" in-process on this asyncio loop, gateway "b" a ``--crash-child``
+    process of this script, SIGKILLed twice (once reclaimed, once adopted
+    over a torn WAL tail) and restarted from its snapshot and WAL; both on
+    the script's WORLD_SPATIAL, whose Static2DSpatialController touches no
+    device. The phases, the invariants and the report under the script's
+    names; the child's report also carries its foreign modules and its
+    controller."""
+    import asyncio
+    import os
+    import signal
+
+    from random import Random
+
+    journal = P.failover.journal
+    gs = P.settings.global_settings
+    t_start = time.monotonic()
+    baseline = P.invariants.scrape()
+    ports = dict(zip(("a_trunk", "a_client", "b_trunk", "b_client"), fed_free_ports(4)))
+    fed_cfg = fed_config(ports)
+    state_dir = p.state_dir or os.path.join(scratch, "crash_soak_state")
+    os.makedirs(state_dir, exist_ok=True)
+    cfg_path = os.path.join(scratch, "crash_soak_cfg.json")
+    b_report_path = os.path.join(scratch, "crash_soak_b.json")
+    with open(cfg_path, "w") as f:
+        json.dump(fed_cfg, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def spawn_child(generation: int):
+        with open(f"{b_report_path}.b{generation}.log", "w") as log:
+            return subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--crash-child", cfg_path,
+                 b_report_path, state_dir, str(p.seed + generation)],
+                cwd=here, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=log, text=True)
+
+    generation = 0
+    procs = [spawn_child(generation)]
+    b = FedChild(procs[-1])
+    stop = asyncio.Event()
+    gw = snap_task = None
+    timeline: list = []
+    notes: list = []
+    crashes: list = []
+
+    def mark(phase: str, **kw) -> None:
+        timeline.append({"t": round(time.monotonic() - t_start, 2), "phase": phase, **kw})
+
+    async def wait_trunk(plane, timeout: float) -> None:
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline and plane.link_to("b") is None:
+            await asyncio.sleep(0.05)
+        if plane.link_to("b") is None:
+            raise PhaseFailed("16b: the trunk to b never (re-)established")
+
+    async def kill_mid_burst(plane, sim, phase: str) -> dict:
+        sim.adopt_scan()
+        sim.herd(sim.local_ids()[: p.kill_burst], *CRASH_XR["b"], *CRASH_ZR)
+        ev = dict(phase=phase, mid_burst=False, restart_s=0.0, replay={})
+        deadline = time.monotonic() + 5.0
+        while time.monotonic() < deadline:
+            if any(bt.peer == "b" for bt in plane._pending.values()):
+                procs[-1].send_signal(signal.SIGKILL)
+                ev["mid_burst"] = True
+                break
+            await asyncio.sleep(0)
+        if not ev["mid_burst"]:
+            procs[-1].send_signal(signal.SIGKILL)
+            notes.append(f"{phase}: kill raced, no batch in flight")
+        return ev
+
+    async def restart_b(ev: dict) -> None:
+        nonlocal b, generation
+        with contextlib.suppress(subprocess.TimeoutExpired):
+            procs[-1].wait(timeout=10)
+        generation += 1
+        t0 = time.monotonic()
+        procs.append(spawn_child(generation))
+        b = FedChild(procs[-1])
+        await b.wait_for("READY", p.child_boot_timeout_s)
+        ev["restart_s"] = round(time.monotonic() - t0, 2)
+
+    try:
+        try:
+            await b.wait_for("READY", p.child_boot_timeout_s)
+        except (RuntimeError, TimeoutError) as e:
+            with open(f"{b_report_path}.b0.log") as f:
+                tail = f.read()[-600:]
+            raise PhaseFailed(f"16b: the --crash-child gateway did not boot ({e}): {tail}")
+        sink_a: dict = {"replay": {}}
+        fp = FedSoakParams(heartbeat_ms=p.heartbeat_ms, trunk_timeout_ms=p.trunk_timeout_ms,
+                           handover_timeout_ms=p.handover_timeout_ms,
+                           global_tick_ms=p.global_tick_ms)
+        gw = await fed_boot_gateway(P, "a", fed_cfg, fp, stop, scratch,
+                                    settings_hook=wal_settings_hook("a", state_dir, p),
+                                    pre_start_hook=wal_pre_start_hook(P, "a", state_dir, sink_a))
+        plane, ctl, control = gw["plane"], gw["ctl"], P.federation.control
+        a_snap, _ = persistence_paths(state_dir, "a")
+        snap_task = asyncio.ensure_future(P.snapshot.snapshot_loop(a_snap, p.snapshot_interval_s))
+        await wait_trunk(plane, 15.0)
+        mark("trunk_up", leader=control.leader())
+        sim = FedSim(P, ctl, Random(p.seed ^ 0xA))
+        sim.create_entities(p.base_entities, *CRASH_XR["a"], *CRASH_ZR, base=CRASH_BASE["a"])
+        await b.cmd("spawn", n=p.base_entities)
+        estart = gs.entity_channel_id_start
+        expected_ids = {str(estart + 1 + CRASH_BASE[g] + i)
+                        for g in ("a", "b") for i in range(p.base_entities)}
+
+        async def wait_ledger(key: str, at_least: int, timeout: float) -> bool:
+            end = time.monotonic() + timeout
+            while time.monotonic() < end:
+                if plane.ledger.get(key, 0) >= at_least:
+                    return True
+                await asyncio.sleep(0.05)
+            return False
+
+        sim.herd(sim.entity_ids[: p.committed_each_way], *CRASH_XR["b"], *CRASH_ZR)
+        if not await wait_ledger("committed", p.committed_each_way, p.phase_timeout_s):
+            notes.append("pre-crash a->b commits incomplete")
+        await b.cmd("herd_to", gw="a", n=p.committed_each_way)
+        if not await wait_ledger("applied", 1, p.phase_timeout_s):
+            notes.append("pre-crash b->a handover never applied")
+        await b.cmd("flush_wal")
+        await asyncio.to_thread(P.wal.wal.flush)
+        mark("traffic", committed=plane.ledger.get("committed", 0),
+             applied=plane.ledger.get("applied", 0))
+
+        if "reclaim" in p.phases:
+            gs.global_death_miss_epochs = 100_000
+            ev = await kill_mid_burst(plane, sim, "reclaim")
+            crashes.append(ev)
+            mark("sigkill_reclaim", mid_burst=ev["mid_burst"])
+            deadline = time.monotonic() + p.phase_timeout_s
+            while time.monotonic() < deadline and any(
+                    bt.peer == "b" for bt in plane._pending.values()):
+                await asyncio.sleep(0.1)
+            await restart_b(ev)
+            await wait_trunk(plane, p.phase_timeout_s)
+            deadline = time.monotonic() + p.phase_timeout_s
+            while time.monotonic() < deadline and \
+                    control.resurrections.get("peer_reclaimed", 0) < 1:
+                await asyncio.sleep(0.1)
+            if control.resurrections.get("peer_reclaimed", 0) < 1:
+                notes.append("no peer_reclaimed resurrection observed")
+            deadline = time.monotonic() + p.phase_timeout_s
+            while time.monotonic() < deadline and (plane._pending or plane._parked):
+                await asyncio.sleep(0.1)
+            await b.cmd("quiesce", timeout=p.phase_timeout_s + 5.0, drain_s=p.phase_timeout_s)
+            await b.cmd("flush_wal")
+            await b.cmd("report", timeout=15.0)
+            with open(b_report_path) as f:
+                ev["replay"] = json.load(f)["persistence"]["replay"]
+            mark("reclaimed", restart_s=ev["restart_s"], replay_s=ev["replay"].get("elapsed_s"),
+                 resurrections=dict(control.resurrections))
+
+        if "adopt" in p.phases:
+            gs.global_death_miss_epochs = p.death_miss_epochs
+            await b.cmd("flush_wal")
+            await b.cmd("arm_torn")
+            ev = await kill_mid_burst(plane, sim, "adopt")
+            crashes.append(ev)
+            mark("sigkill_adopt", mid_burst=ev["mid_burst"])
+            deadline = time.monotonic() + p.phase_timeout_s * 2
+            while time.monotonic() < deadline and "b" not in control.dead:
+                await asyncio.sleep(0.1)
+            if "b" not in control.dead:
+                raise PhaseFailed(f"16b: b never declared dead: {control.report()['counters']}")
+            deadline = time.monotonic() + p.phase_timeout_s
+            while time.monotonic() < deadline and control.adoptions < 1:
+                await asyncio.sleep(0.1)
+            mark("adopted_by_a", adoptions=control.adoptions, deaths=control.deaths)
+            await restart_b(ev)
+            await wait_trunk(plane, p.phase_timeout_s)
+            deadline = time.monotonic() + p.phase_timeout_s
+            while time.monotonic() < deadline and \
+                    control.resurrections.get("peer_yielded", 0) < 1:
+                await asyncio.sleep(0.1)
+            if control.resurrections.get("peer_yielded", 0) < 1:
+                notes.append("no peer_yielded resurrection observed")
+            deadline = time.monotonic() + p.phase_timeout_s
+            while time.monotonic() < deadline and (plane._pending or plane._parked):
+                await asyncio.sleep(0.1)
+            await b.cmd("quiesce", timeout=p.phase_timeout_s + 5.0, drain_s=p.phase_timeout_s)
+            mark("yielded", restart_s=ev["restart_s"], resurrections=dict(control.resurrections))
+
+        qdeadline = time.monotonic() + p.phase_timeout_s
+        while time.monotonic() < qdeadline and (
+                plane._pending or plane._parked or journal.in_flight_count()):
+            await asyncio.sleep(0.1)
+        await asyncio.sleep(p.quiesce_s)
+        await b.cmd("report", timeout=15.0)
+        with open(b_report_path) as f:
+            b_report = json.load(f)
+        final_replay = b_report["persistence"]["replay"]
+        if crashes and not crashes[-1]["replay"]:
+            crashes[-1]["replay"] = final_replay
+        a_placement = fed_local_placement(P)
+        b_placement = dict(b_report["placement"])
+        local_dups_a = a_placement.pop("__local_dups__", [])
+        local_dups_b = b_placement.pop("__local_dups__", [])
+        a_persist = persistence_report(P, baseline, sink_a["replay"])
+
+        inv = P.invariants.InvariantChecker()
+        inv.expect_le("two_crashes", len(p.phases), len(crashes),
+                      f"{len(crashes)} crashes, phases={p.phases}")
+        inv.check("both_kills_mid_handover_burst", all(ev["mid_burst"] for ev in crashes),
+                  str([(ev["phase"], ev["mid_burst"]) for ev in crashes]))
+        if "reclaim" in p.phases:
+            inv.expect_gt("shard_reclaimed_after_restart",
+                          control.resurrections.get("peer_reclaimed", 0), 0)
+        if "adopt" in p.phases:
+            inv.check("death_declared_and_adopted", control.deaths >= 1 and control.adoptions >= 1,
+                      f"deaths={control.deaths} adoptions={control.adoptions}")
+            inv.expect_gt("shard_yielded_after_restart",
+                          control.resurrections.get("peer_yielded", 0), 0)
+            b_res = b_report["persistence"]["resurrections"]
+            inv.expect_gt("b_counted_yielded", b_res.get("yielded", 0), 0, str(b_res))
+            inv.check("torn_tail_replayed", bool(final_replay.get("torn")), str(final_replay))
+        counts: dict = {}
+        for eid, cell in a_placement.items():
+            counts.setdefault(eid, []).append(("a", cell))
+        for eid, cell in b_placement.items():
+            counts.setdefault(eid, []).append(("b", cell))
+        missing = sorted(e for e in expected_ids if e not in counts)
+        duplicated = {e: w for e, w in counts.items() if len(w) > 1}
+        unexpected = sorted(e for e in counts if e not in expected_ids)
+        inv.expect_equal("zero_committed_entities_lost_or_duplicated",
+                         (missing, duplicated, unexpected, local_dups_a, local_dups_b),
+                         ([], {}, [], [], []))
+        replay_ok = all((c["replay"] or final_replay).get("elapsed_s", 1e9)
+                        <= gs.wal_restart_deadline_s for c in crashes)
+        inv.check("replay_within_deadline", replay_ok, str([final_replay.get("elapsed_s")]))
+        inv.check("restart_to_serving_within_deadline",
+                  all(0 < c["restart_s"] <= p.restart_deadline_s for c in crashes),
+                  str([(c["phase"], c["restart_s"]) for c in crashes]))
+        inv.expect_equal("a_wal_records_ledger_matches_metric", a_persist["metric"]["records"],
+                         a_persist["wal"]["record_counts"])
+        inv.expect_equal("a_wal_replayed_ledger_matches_metric", a_persist["metric"]["replayed"],
+                         a_persist["wal"]["replay_counts"])
+        inv.expect_equal("a_resurrection_ledger_matches_metric",
+                         a_persist["metric"]["resurrection"], a_persist["resurrections"])
+        b_persist = b_report["persistence"]
+        inv.expect_equal("b_wal_records_ledger_matches_metric", b_persist["metric"]["records"],
+                         b_persist["wal"]["record_counts"])
+        inv.expect_equal("b_wal_replayed_ledger_matches_metric", b_persist["metric"]["replayed"],
+                         b_persist["wal"]["replay_counts"])
+        inv.expect_equal("b_resurrection_ledger_matches_metric",
+                         b_persist["metric"]["resurrection"], b_persist["resurrections"])
+        inv.expect_equal("nothing_left_in_flight",
+                         (len(plane._pending), len(plane._parked), b_report["pending"],
+                          b_report["parked"], journal.in_flight_count()), (0, 0, 0, 0, 0))
+        jc = dict(journal.counts)
+        inv.expect_equal("journal_prepared_equals_committed_plus_aborted", jc.get("prepared", 0),
+                         jc.get("committed", 0) + jc.get("aborted", 0), f"counts={jc}")
+        report = {
+            "kind": "crash_soak", "duration_s": round(time.monotonic() - t_start, 2),
+            "entities": len(expected_ids),
+            "knobs": {"fsync_ms": p.fsync_ms, "snapshot_interval_s": p.snapshot_interval_s,
+                      "epoch_ms": p.epoch_ms, "death_miss_epochs": p.death_miss_epochs,
+                      "restart_deadline_s": p.restart_deadline_s,
+                      "wal_restart_deadline_s": gs.wal_restart_deadline_s},
+            "timeline": timeline,
+            "crashes": [{"phase": c["phase"], "mid_burst": c["mid_burst"],
+                         "restart_s": c["restart_s"],
+                         "replay_s": (c["replay"] or {}).get("elapsed_s"),
+                         "torn": bool((c["replay"] or {}).get("torn"))} for c in crashes],
+            "replay": final_replay,
+            "resurrection": {"a": a_persist["resurrections"], "b": b_persist["resurrections"]},
+            "wal": {"a": {"records": a_persist["wal"]["record_counts"],
+                          "replayed": a_persist["wal"]["replay_counts"]},
+                    "b": {"records": b_persist["wal"]["record_counts"],
+                          "replayed": b_persist["wal"]["replay_counts"]}},
+            "gateways": {"a": {"ledger": dict(plane.ledger), "spatial": type(ctl).__name__},
+                         "b": {k: v for k, v in b_report.items()
+                               if k not in ("placement", "events")}},
+            "census": {"expected": len(expected_ids), "on_a": len(a_placement),
+                       "on_b": len(b_placement), "missing": missing,
+                       "duplicated": {str(k): v for k, v in duplicated.items()},
+                       "unexpected": unexpected},
+            "invariants": inv.summary(),
+        }
+        if notes:
+            report["notes"] = notes
+        return report
+    finally:
+        stop.set()
+        if snap_task is not None:
+            snap_task.cancel()
+        for proc in procs:
+            if proc.poll() is None:
+                with contextlib.suppress(BrokenPipeError, OSError):
+                    proc.stdin.write('{"cmd": "exit"}\n')
+                    proc.stdin.flush()
+                try:
+                    proc.wait(timeout=8)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+        if gw is not None:
+            fed_teardown_gateway(P, gw)
+        gs.global_death_miss_epochs = p.death_miss_epochs
+
+
+def crash_soak_checks(r: dict) -> list:
+    """16b's checks of one report, as (name, held, detail): every invariant
+    of scripts/crash_soak.py under its own name, then the crashes in the
+    script's order (one reclaimed, then one adopted), the child a gateway
+    of the port on the host grid with no module of JAX or of the JAX
+    package."""
+    out = [(c["name"], c["ok"], c.get("detail", "")) for c in r["invariants"]["checks"]]
+    b = r["gateways"]["b"]
+    return out + [
+        ("one_reclaimed_then_one_adopted",
+         [c["phase"] for c in r["crashes"]] == ["reclaim", "adopt"],
+         [c["phase"] for c in r["crashes"]]),
+        ("child_imports_no_jax", b.get("modules") == [], b.get("modules")),
+        ("child_on_the_host_grid", b.get("spatial") == "StaticGrid2DSpatialController",
+         b.get("spatial"))]
+
+
+def phase_crash_live(p: CrashSoakParams) -> dict:
+    """16b: ``run_crash_soak`` through the port with a ``--crash-child``
+    gateway SIGKILLed and restarted twice, held to every invariant of the
+    script."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    P = gateway_modules()
+    scratch = tempfile.mkdtemp(prefix="crash-live-")
+    t_phase = time.perf_counter()
+    try:
+        r = asyncio.run(run_crash_soak(P, p, scratch))
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    for name, ok, detail in crash_soak_checks(r):
+        check(ok, f"16b: {name}: {str(detail)[:300]}")
+    print(f"16b crash soak live: scripts/crash_soak.py's run_crash_soak through the port, "
+          f"gateway a in-process and gateway b a `chip_smoke.py --crash-child` process (no "
+          f"module of JAX or of the JAX package loaded), both on WORLD_SPATIAL's "
+          f"Static2DSpatialController with the WAL and the snapshot armed; {r['entities']} "
+          f"entities, kill burst {p.kill_burst}; crashes {r['crashes']}; every invariant of the "
+          f"script held ({len(r['invariants']['checks'])}); resurrections {r['resurrection']}; "
+          f"WAL b {r['wal']['b']}; census {r['census']['on_a']} on a + {r['census']['on_b']} on "
+          f"b of {r['census']['expected']}, none missing, duplicated or unexpected; timeline "
+          f"{[(m['phase'], m['t']) for m in r['timeline']]}; soak {r['duration_s']} s, phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return r
+
+
+# ---- the CPU legs of the costliest lockstep phases, in a child process -------
+
+
+def cpu_leg_size(phase: str, scratch: str, **kw) -> dict:
+    """The size of a lockstep phase whose CPU leg runs in a child: ``11a``,
+    ``11b`` (its mesh config written into ``scratch``), ``12b`` and
+    ``16a``, each from its size function with ``kw``."""
+    if phase == "11a":
+        return elastic_size(**kw)
+    if phase == "11b":
+        return elastic_mesh_size(scratch, **kw)
+    if phase == "12b":
+        return sensor_soak_scenario(**kw)
+    if phase == "16a":
+        return crash_size(**kw)
+    raise ValueError(f"no CPU leg for phase {phase!r}")
+
+
+def cpu_leg_child(phase: str, scratch: str) -> int:
+    """``chip_smoke.py --cpu-leg PHASE SCRATCH``: run ``phase``'s CPU leg at
+    the size pickled in SCRATCH/size.pickle and pickle (observations,
+    report) into SCRATCH/leg.pickle for the parent to compare."""
+    import os
+    import pickle
+
+    from channeld_tpu_torch.ops import cuda_kernels as K
+
+    os.nice(10)  # the card leg beside it keeps the host first
+    with open(os.path.join(scratch, "size.pickle"), "rb") as f:
+        size = pickle.load(f)
+    cpu = torch.device("cpu")
+    if phase in ("11a", "11b"):
+        result = run_elastic_leg(K, "cpu", cpu, size, phase)
+    elif phase == "12b":
+        P = gateway_modules()
+        result = run_soak_leg(K, "cpu", cpu,
+                              lambda leg, d, clock: SensorSoakWorld(P, d, clock, size),
+                              sensor_soak_run(K, size, {}))
+    elif phase == "16a":
+        result = run_crash_leg(gateway_modules(), cpu, size, scratch)
+    else:
+        raise ValueError(f"no CPU leg for phase {phase!r}")
+    out = os.path.join(scratch, "leg.pickle")
+    with open(out + ".tmp", "wb") as f:
+        pickle.dump(result, f, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(out + ".tmp", out)
+    return 0
+
+
+class PhaseLaps:
+    """The full run's wall time per phase group, printed as each ends."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.laps: list = []
+
+    def __call__(self, label: str) -> None:
+        now = time.perf_counter()
+        self.laps.append((label, now - self.t))
+        print(f"phase {label} wall time: {now - self.t:.1f} s")
+        self.t = now
+
+    def summary(self) -> str:
+        return ", ".join(f"{label} {secs:.1f} s" for label, secs in self.laps)
+
+
+class CpuLeg:
+    """A lockstep phase's CPU leg running in a ``--cpu-leg`` child while this
+    process runs the card leg (the full script starts it a phase or two
+    earlier, beside phases whose host is mostly idle). ``size`` is the
+    phase's size (``cpu_leg_size(phase, scratch, **kw)``): the child runs
+    at it and the phase runs its card leg at it."""
+
+    def __init__(self, phase: str, **kw):
+        import os
+        import pickle
+        import tempfile
+
+        self.phase = phase
+        self.scratch = tempfile.mkdtemp(prefix=f"cpu-leg-{phase}-")
+        self.size = cpu_leg_size(phase, self.scratch, **kw)
+        with open(os.path.join(self.scratch, "size.pickle"), "wb") as f:
+            pickle.dump(self.size, f, protocol=pickle.HIGHEST_PROTOCOL)
+        self.out = os.path.join(self.scratch, "leg.pickle")
+        self.log = os.path.join(self.scratch, "leg.log")
+        self.t0 = time.perf_counter()
+        with open(self.log, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--cpu-leg", phase, self.scratch],
+                cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log, stderr=log)
+
+    def result(self) -> tuple:
+        """Wait for the child; (observations, report), the report's ``secs``
+        the child's own."""
+        import pickle
+        import shutil
+
+        try:
+            rc = self.proc.wait(timeout=900)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            rc = "killed after 900 s"
+        try:
+            if rc != 0:
+                with open(self.log) as f:
+                    tail = f.read()[-1500:]
+                raise PhaseFailed(f"{self.phase}: the --cpu-leg child exited {rc}: {tail}")
+            with open(self.out, "rb") as f:
+                obs, report = pickle.load(f)
+        finally:
+            self.close()
+        report["wall_s"] = time.perf_counter() - self.t0
+        return obs, report
+
+    def close(self) -> None:
+        """Stop the child if the phase ended without its result."""
+        import shutil
+
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.scratch, ignore_errors=True)
+
+
+def phase_crash_lockstep(K, dev, cpu_leg: CpuLeg) -> tuple:
+    """16a: ``CrashWorld`` on the card against its lockstep CPU leg in
+    ``cpu_leg``'s child, at ``cpu_leg.size``, tick for tick through both
+    crashes, both held to the crash soak's books. Returns (K1/K2 launches,
+    the kernels' entries on each restart's first tick and the yield
+    tick)."""
+    import shutil
+    import tempfile
+
+    P = gateway_modules()
+    size = cpu_leg.size
+    scratch = tempfile.mkdtemp(prefix="crash-lockstep-")
+    t_phase = time.perf_counter()
+    try:
+        card, rc = run_crash_leg(P, dev, size, scratch, K)
+        cpu, rp = cpu_leg.result()
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+        cpu_leg.close()
+    check(len(card) == len(cpu), f"16a: {len(card)} card and {len(cpu)} cpu ticks")
+    for t in range(len(card)):
+        if card[t].get("down") or cpu[t].get("down"):
+            check(card[t] == cpu[t], f"16a tick {t}: b down on one leg only")
+            continue
+        where = first_gateway_diff(card[t], cpu[t])
+        for key in ("agent_rows", "wal", "snapshot"):
+            if where is None and card[t][key] != cpu[t][key]:
+                where = f"{key}: {card[t][key]} vs {cpu[t][key]}"
+        check(where is None, f"16a tick {t}: cuda and cpu differ: {where}")
+    for key in ("replays", "kills", "booted", "lost", "duplicated", "ledger", "control",
+                "resurrections", "stub", "stub_log", "sim", "journal", "yield_at", "census"):
+        check(rc[key] == rp[key], f"16a: cuda and cpu differ in {key}: {str(rc[key])[:200]} vs "
+                                  f"{str(rp[key])[:200]}")
+    for leg, obs, r in (("cuda", card, rc), ("cpu", cpu, rp)):
+        for name, ok, detail in crash_checks(obs, r):
+            check(ok, f"16a {leg}: {name}: {str(detail)[:300]}")
+    up = [(t, o) for t, o in enumerate(card) if not o.get("down")]
+    for t, o in up:
+        want = {name: o["ran"] for name in o["launches"]}
+        check(o["launches"] == want, f"16a tick {t}: launches {o['launches']} in {o['ran']} "
+                                     f"engine ticks (one of each per engine tick)")
+    steady = sorted({o["reads"] for t, o in up if o["served"] and not o["census"]
+                     and t not in (CRASH_AT["restart1"], CRASH_AT["restart2"])})
+    check(set(rc["kernels"]) == {"restart1", "restart2", "yield"},
+          f"16a: K1/K2 held on the live tensors of {sorted(rc['kernels'])} only")
+    trunk_out = sum(len(o["trunk"]["a"]) for t, o in up)
+    p = CrashSoakParams()
+    print(f"16a crash lockstep: gateway b of scripts/crash_soak.py's WORLD_SPATIAL (4x4 cells of "
+          f"50 m, b hosts {len(CRASH_CELLS['b'])} cells) on the device controller at "
+          f"{size['entity_capacity']} slots / {size['query_capacity']} query rows, "
+          f"{len(card)} GLOBAL ticks of a fixed {CRASH_TICK_S * 1e3:g} ms clock ({len(up)} up, "
+          f"killed at ticks {CRASH_AT['kill1']} and {CRASH_AT['kill2']}, restarted at "
+          f"{CRASH_AT['restart1']} and {CRASH_AT['restart2']}), {size['entities']} entities a "
+          f"side, {size['agents']} sim agents (census every {CRASH_CENSUS_EVERY} passes), "
+          f"{size['sensors']} sensors, the WAL (fsync {p.fsync_ms:g} ms, flushed at the end of "
+          f"every tick b serves) and the snapshot (every {p.snapshot_interval_s:g} s) armed; "
+          f"stub a the leader: commits {size['commits']} each way, kill bursts of "
+          f"{size['burst']}, death after {p.death_miss_epochs} missed {p.epoch_ms} ms epochs; "
+          f"every check held on both legs: "
+          + ", ".join(name for name, _, _ in crash_checks(card, rc))
+          + f"; replays {[{k: r[k] for k in ('snapshot_channels', 'wal_records', 'torn', 'in_flight_resolved')} for r in rc['replays']]}; "
+          f"WAL at the kills {rc['kills']}; resurrections b {rc['resurrections']}, stub "
+          f"{rc['stub']}; federation ledger {rc['ledger']}, control counters {rc['control']}; "
+          f"{trunk_out} trunk messages from b; cuda equals the CPU leg on every tick (handovers, "
+          f"trunk messages as bytes in order, tables, placement ledger, engine slots, cells and "
+          f"counts, agents and sim columns, changed query rows, every ledger, the WAL's bytes, "
+          f"the snapshot, the stub's holdings, every outbound stream, each restart's agents "
+          f"and device baselines before its first tick); device reads a steady "
+          f"tick {steady}; launches {rc['launches']} in {rc['engine_ticks']} engine ticks; "
+          f"card memory {[(m, f'{b / 2**20:.1f} MiB') for m, b in rc['memory']]}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s (card leg {rc['secs']:.1f} s, cpu leg "
+          f"{rp['secs']:.1f} s in a --cpu-leg child)")
+    for leg, obs, r in (("cuda", card, rc), ("cpu", cpu, rp)):
+        ups = [o for o in obs if not o.get("down")]
+        steps = [o["step_ms"] for o in ups[1:] if o["step_ms"] is not None]
+        print(f"16a on {leg}: tick (host clock) {tick_stats([o['tick_ms'] for o in ups[1:]])}; "
+              f"guarded step {tick_stats(steps)}; restart to serving (boot, replay and first "
+              f"tick, host clock) " + ", ".join(f"{s * 1e3:.1f}" for s in r["restart_s"])
+              + " ms; boot_replay " + ", ".join(f"{s * 1e3:.2f}" for s in r["replay_s"]) + " ms")
+    entries: dict = {}
+    for case, ks in sorted(rc["kernels"].items()):
+        for name, k in ks.items():
+            entries.setdefault(name, {})[f"16a_{case}"] = k
+            print(f"16a {name} on the live tensors at the {case} tick ({k['shape']}): exact; "
+                  f"alone {k['ms']:.4f} ms (events, bare launches), plain {k['plain_ms']:.4f} "
+                  f"ms, bound {k['bound_ms']:.6f} ms ({k['bound_by']})")
+    return rc["launches"], entries
+
+
+def phase_crash(K, dev, cpu_leg: CpuLeg) -> tuple:
+    """16a (its CPU leg in ``cpu_leg``'s child) and 16b. Returns ({path:
+    launches}, {kernel: {case: entry}})."""
+    t_phase = time.perf_counter()
+    launches, entries = phase_crash_lockstep(K, dev, cpu_leg)
+    phase_crash_live(CrashSoakParams())
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return {"crash_lockstep": launches}, entries
+
+
 def main_soaks(agents: int, entities: int) -> int:
     """Phase 12 alone (after the device and build phases):
     ``python3 chip_smoke.py --soaks 1000 4096``."""
@@ -9772,7 +11616,7 @@ def main_soaks(agents: int, entities: int) -> int:
     try:
         name, _ = phase_device()
         phase_build(K)
-        phase_soaks(K, dev, agents, entities)
+        phase_soaks(K, dev, CpuLeg("12b", entities=entities), agents)
     except PhaseFailed as e:
         report_failure(e)
         return 1
@@ -9843,6 +11687,28 @@ def main_fleet() -> int:
         report_failure(e)
         return 1
     print(f"chip_smoke --fleet: every phase passed in {time.perf_counter() - t_run:.1f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main_crash() -> int:
+    """Phases 1-3 and then phase 16 alone: ``python3 chip_smoke.py --crash``."""
+    from channeld_tpu_torch.ops import cuda_kernels as K
+    from channeld_tpu_torch.ops import spatial_ops as ops
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t_run = time.perf_counter()
+    try:
+        name, _ = phase_device()
+        phase_build(K)
+        phase_kernels(K, ops, dev)
+        phase_crash(K, dev, CpuLeg("16a"))
+    except PhaseFailed as e:
+        report_failure(e)
+        return 1
+    print(f"chip_smoke --crash: every phase passed in {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
@@ -9934,14 +11800,20 @@ def main_elastic(entities: int, ticks: int) -> int:
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    legs = []
     try:
         name, _ = phase_device()
         phase_build(K)
-        phase_elastic_lockstep(K, dev, elastic_size(entities, ticks))
-        phase_elastic_mesh(K, entities // 2, ticks)
+        legs = [CpuLeg("11a", entities=entities, ticks=ticks),
+                CpuLeg("11b", entities=entities // 2, ticks=ticks)]
+        phase_elastic_lockstep(K, dev, legs[0])
+        phase_elastic_mesh(K, legs[1])
     except PhaseFailed as e:
         report_failure(e)
         return 1
+    finally:
+        for leg in legs:
+            leg.close()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
@@ -9952,6 +11824,12 @@ def main() -> int:
         # 15b's gateway "b": the federation soak's host grid touches no device
         # by the script's design, so this role needs no card.
         return fed_child(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--crash-child"]:
+        # 16b's gateway "b", on the crash soak's host grid: no card either.
+        return crash_child(sys.argv[2], sys.argv[3], sys.argv[4], int(sys.argv[5]))
+    if sys.argv[1:2] == ["--cpu-leg"]:
+        # A lockstep phase's CPU leg, beside the parent's card leg.
+        return cpu_leg_child(sys.argv[2], sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -9975,6 +11853,8 @@ def main() -> int:
         return main_chaos_overload()
     if sys.argv[1:2] == ["--fleet"]:
         return main_fleet()
+    if sys.argv[1:2] == ["--crash"]:
+        return main_crash()
     if sys.argv[1:2] == ["--sim-child"]:
         return sim_child(sys.argv[2], *map(int, sys.argv[3:5]), *sys.argv[5:6])
     t_run = time.perf_counter()
@@ -9985,37 +11865,64 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    laps = PhaseLaps()
+    legs: dict = {}
     try:
         name, _ = phase_device()
         phase_build(K)
         entries = phase_kernels(K, ops, dev)
+        laps("1-3")
         launches = phase_main_path(K, service, dev)
+        laps("4")
         sim_launches, sim_entries = phase_sim_world(K, engine_mod, ops, dev)
+        laps("5")
         gateway_launches = phase_gateway_lockstep(K, dev, gateway_size())
         phase_gateway_live()
         phase_gateway_threads(K, engine_mod, ops, dev)
+        laps("6")
         mesh_launches, mesh_entries = phase_mesh_steps(K, ops)
         mesh_engine_launches = phase_mesh_engine(K, engine_mod, ops)
         mesh_gateway_launches = phase_mesh_gateway(K)
+        laps("7")
         engine_launches = phase_engine_adapter(K, engine_size())
         unreal_launches = phase_unreal(K)
         phase_replay_live()
+        laps("8")
         phase_native_codec()
         phase_sidecar(service, dev)
+        laps("9")
+        # 11a's and 11b's CPU legs run beside phase 10 (10c's live gateway
+        # mostly waits on its timed faults), 12b's beside 12a, 16a's beside
+        # phase 15.
+        legs.update(elastic=CpuLeg("11a"), elastic_mesh=CpuLeg("11b"))
         recovery_launches = phase_recovery_lockstep(K, dev, recovery_size())
         phase_recovery_wedge(K, dev)
         phase_recovery_sticky()
         phase_recovery_live()
-        elastic_launches, elastic_entries = phase_elastic_lockstep(K, dev, elastic_size())
-        elastic_mesh_launches, elastic_mesh_entries = phase_elastic_mesh(K)
+        laps("10")
+        elastic_launches, elastic_entries = phase_elastic_lockstep(K, dev, legs["elastic"])
+        elastic_mesh_launches, elastic_mesh_entries = phase_elastic_mesh(K, legs["elastic_mesh"])
         phase_elastic_live()
-        soak_launches, soak_entries = phase_soaks(K, dev)
+        laps("11")
+        legs["sensor"] = CpuLeg("12b")
+        soak_launches, soak_entries = phase_soaks(K, dev, legs["sensor"])
+        laps("12")
         trace_obs_launches, trace_obs_entries = phase_trace_obs(K, dev)
+        laps("13")
         chaos_launches, chaos_entries = phase_chaos_overload(K, dev)
+        laps("14")
+        legs["crash"] = CpuLeg("16a")
         fleet_launches, fleet_entries = phase_fleet(K, dev)
+        laps("15")
+        crash_launches, crash_entries = phase_crash(K, dev, legs["crash"])
+        laps("16")
     except PhaseFailed as e:
         report_failure(e)
         return 1
+    finally:
+        for leg in legs.values():
+            leg.close()
+    print(f"chip_smoke phase wall times: {laps.summary()}")
     kernels = []
     for spec in K.KERNEL_SPECS:
         kernels.append(dict(
@@ -10036,7 +11943,8 @@ def main() -> int:
                               **{path: n[spec.name] for path, n in soak_launches.items()},
                               **{path: n[spec.name] for path, n in trace_obs_launches.items()},
                               **{path: n[spec.name] for path, n in chaos_launches.items()},
-                              **{path: n[spec.name] for path, n in fleet_launches.items()}},
+                              **{path: n[spec.name] for path, n in fleet_launches.items()},
+                              **{path: n[spec.name] for path, n in crash_launches.items()}},
             library_ms=None, **entries[spec.name],
             sim_path=dict(sim_entries[spec.name], library_ms=None),
             mesh_path=dict(mesh_entries[spec.name], launches_per_mesh_tick={
@@ -10049,6 +11957,7 @@ def main() -> int:
             trace_obs_path=trace_obs_entries[spec.name],
             chaos_overload_path=chaos_entries[spec.name],
             fleet_path=fleet_entries[spec.name],
+            crash_path=crash_entries[spec.name],
         ))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": kernels}))

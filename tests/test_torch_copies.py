@@ -30,8 +30,15 @@ EDITED = {
                             "enters the engine's CUDA device on the worker; hands the rebuild "
                             "the host tables copied on the loop thread; says when FAILED "
                             "is terminal",
+    "core/wal.py": "a replay's re-tracked entities get their device baseline cell (F23); a "
+                   "replayed census goes to a sim plane that is live already (F22)",
+    "core/data.py": "an update a custom merge took from another message family enters the "
+                    "update ring as the channel's own type (F20)",
     "core/opshttp.py": "readiness says a terminal FAILED needs a restart, not a rebuild",
-    "sim/plane.py": "census columns arrive as tensors when the guard is off",
+    "sim/plane.py": "census columns arrive as tensors when the guard is off; a census "
+                    "replayed after activation replaces the live population (F22)",
+    "sim/authority.py": "reset_pending: a census taken into the live plane drops the attach "
+                        "queue (F22)",
     "spatial/__init__.py": "exports GPUSpatialController (tpu_controller.py is not ported)",
     "utils/__init__.py": "also exports resolve_device",
     "utils/devices.py": "cuda unless the caller asks for the CPU, never a JAX pin",

@@ -312,5 +312,5 @@ def test_soaks_on_the_card_equal_the_cpu():
                                                                        queries=64))
     assert launches["assign_count"] == launches["aoi"] > 0
     assert entries["nan"]["assign_count"]["nan_rows"] > 0
-    launches, _ = cs.phase_sensor_soak(K, dev, cs.sensor_soak_scenario(256))
+    launches, _ = cs.phase_sensor_soak(K, dev, cs.CpuLeg("12b", entities=256))
     assert launches["assign_count"] == launches["aoi"] == 90
