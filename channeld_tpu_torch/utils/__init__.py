@@ -1,6 +1,5 @@
 from .ranges import RangeSet
 from .idalloc import IdAllocator, hash_string
-from .devices import resolve_device
 from .logger import get_logger, init_logs, security_logger
 
 __all__ = [
@@ -9,6 +8,5 @@ __all__ = [
     "hash_string",
     "get_logger",
     "init_logs",
-    "resolve_device",
     "security_logger",
 ]

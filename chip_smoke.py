@@ -11,7 +11,29 @@
     python3 chip_smoke.py --trace-obs          # phases 1-3, then phase 13 alone
     python3 chip_smoke.py --chaos-overload     # phases 1-3, then phase 14 alone
     python3 chip_smoke.py --fleet              # phases 1-3, then phase 15 alone
-    python3 chip_smoke.py --fed-child CONFIG REPORT   # 15b's gateway "b" (started by 15b)
+    python3 chip_smoke.py --crash              # phases 1-3, then phase 16 alone
+    python3 chip_smoke.py --fleet-live         # phases 1-3, 13b and 13d, then phase 17
+
+The script starts its own children (none needs a card but a ``--cpu-leg``
+child's CUDA sync counters; each loads neither JAX nor the JAX package):
+
+    --fed-child CONFIG REPORT                  # 15b's gateway "b"
+    --crash-child CONFIG REPORT STATE_DIR SEED # 16b's gateway "b", SIGKILLed twice
+    --live-child ROLE GW CONFIG REPORT PARAMS  # phase 17's gateways: ROLE trace (17a's
+                                               # "b"), obs (17b's "b") or global (17c's
+                                               # "b" and "c"); PARAMS the role's JSON
+    --cpu-leg PHASE SCRATCH                    # the CPU leg of 6a, 10a, 11a, 11b, 12b,
+                                               # 14a or 16a at the size pickled in SCRATCH
+    --sim-child WAL AGENTS CENSUS_EVERY DEVICE # 12a's kill leg
+    --sticky-child                             # 10b's sticky CUDA error
+
+A child gateway is driven over its stdin, one JSON command a line
+(``{"cmd": "report"}``; each answers ``OK <cmd>`` on stdout): a ``--fed-child``
+takes force_l3, clear_l3, herd_back, quiesce, report, exit; a
+``--crash-child`` spawn, herd_to, flush_wal, arm_torn, quiesce, report, exit;
+a ``--live-child`` report and exit, and as ``global`` also spawn, herd_to and
+quiesce. A ``--live-child`` prints ``READY`` with a JSON of its boot's parts
+and the modules of JAX or of the JAX package it loaded.
 
 Needs one CUDA card, nvcc, and the ``channeld_tpu_torch`` package beside
 this file; imports nothing of JAX or of ``channeld_tpu``. Phases (each
@@ -71,8 +93,9 @@ prints one line; any failure exits non-zero before the final line):
       the standing-query plane and the sim plane at the gateway
       defaults, 256 followers, 1,024 sensors and subscriptions at
       33-200 ms, the device guard on, 12 GLOBAL ticks on a fixed clock,
-      in-process with stub connections, on ``cuda`` and then on the
-      CPU. Every tick's handovers, spatial entity tables, every
+      in-process with stub connections, on ``cuda`` and, at the same
+      size, on the CPU in a ``--cpu-leg`` child started at phase 4.
+      Every tick's handovers, spatial entity tables, every
       connection's outbound stream, changed query rows and sim columns
       must be equal (the first difference is printed); 2 device reads
       per steady tick and 4 more on a census tick; K1 and K2 once per
@@ -146,8 +169,8 @@ prints one line; any failure exits non-zero before the final line):
       device guard's deadline at the gateway's default 2 s, armed on a
       fixed clock with scripts/device_soak.py's schedule (two transient
       step errors, a 3,500 ms hang whose first rebuild fails, a silent
-      corruption; each on a storm tick), on ``cuda`` and then on the
-      CPU: every tick equal (handovers, tables, outbound streams,
+      corruption; each on a storm tick), on ``cuda`` and on the CPU in a
+      ``--cpu-leg`` child started at phase 8: every tick equal (handovers, tables, outbound streams,
       changed rows, sim columns, the guard's state and ledgers, the
       ladder, whether the tick was served); on both legs recoveries
       transient, hang and corruption once each, equal to the metrics,
@@ -290,10 +313,11 @@ prints one line; any failure exits non-zero before the final line):
       warmup and a 12 s saturation window (every dispatch stalls 90 ms,
       every 6th message 12 ms), then recovery until L0 and 1 s quiet; on
       each of the first 3 ticks at L3 a new client's AUTH through the
-      gateway's handler. Card leg against CPU leg, every tick equal
-      (level, pressure, components, transitions, shed ledger, overflow,
-      handovers and the deferred crossings, tables, every outbound stream
-      with the ServerBusyMessage frames); each leg reaches L3 one step at a
+      gateway's handler. Card leg against CPU leg (a ``--cpu-leg`` child
+      started at phase 13), every tick equal (level, pressure, components,
+      transitions, shed ledger, overflow, handovers and the deferred
+      crossings, tables, every outbound stream with the ServerBusyMessage
+      frames); each leg reaches L3 one step at a
       time, never rises once it descends, ends at L0, sheds low-priority
       updates and defers handovers with a ledger equal to
       ``overload_sheds_total``, and loses no entity; 2 device reads a
@@ -353,6 +377,29 @@ prints one line; any failure exits non-zero before the final line):
       touches no device by the script's design: every invariant of the
       script under its own name, at least 8 committed and 1 refused,
       exactly 1 redirect, the census with nothing missing or duplicated.
+16. the crash soak (``core/wal.py``, ``core/snapshot.py`` and the
+    resurrection): a. gateway "b" of scripts/crash_soak.py's world on the
+    device controller, killed twice in-process and restarted from its
+    snapshot and WAL, card leg against CPU leg tick for tick; b.
+    scripts/crash_soak.py's live run with a SIGKILLed ``--crash-child``.
+17. the last live fleet paths, each held to its script's invariants under
+    their names, every gateway on the scripts' Static2DSpatialController
+    (the host grid: no kernel runs, by the scripts' design, and each path
+    is checked to launch none), gateway "a" in-process and the others
+    ``--live-child`` processes whose boot (Popen to READY) is printed:
+   a. scripts/trace_soak.py's phase 2 (bursts 10 + 10, seed 20260803): a
+      committed burst whose trace ids stitch a's and b's spans, the trunk
+      severed mid-burst for a Perfetto-valid ``handover_abort`` dump, the
+      trunk stage measured (with 13b's stages when phase 13 ran);
+   b. scripts/obs_soak.py's phase 2 (8 s at a 200 ms epoch, seed
+      20260804): b's own metric digest equal to the copy stored on a, and
+      every label set of a's /fleet equal to the sum of both digests;
+   c. scripts/global_soak.py's three gateways at its defaults (10 entities
+      a gateway, a hotspot of 36, a kill burst of 10, 4 committed to c,
+      250 ms epochs, death after 4 missed): the hotspot flattened by a
+      leader-planned migration, c SIGKILLed mid-burst, its shard adopted,
+      the redirected client resumed on a survivor, the census; its 14
+      invariants and scripts/check_artifacts.py's bar.
 
 The line before the last is a JSON object with one entry per kernel
 (times measured in this run at the sidecar path's shapes; bound from
@@ -369,7 +416,8 @@ each re-grid of 11a and 11b, ``soak_path`` each at the live tensors of
 ``chaos_overload_path`` at 14a's live tensors on its first overflowing
 tick and its first tick at L2 or above in the saturation window,
 ``fleet_path`` at 15a's live tensors after the inbound herd and after the
-adoption);
+adoption, ``crash_path`` at 16a's; phase 17's paths launch none, each noted
+in ``launches_by_path_notes``);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -382,6 +430,7 @@ import hashlib
 import importlib.util
 import itertools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -390,9 +439,13 @@ import warnings
 from types import SimpleNamespace as NS
 from typing import Optional
 
-import numpy as np
-import torch
+_T_IMPORTS = time.perf_counter()
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
+# Seconds this script's imports of numpy and torch took (the fleet children
+# report it with their boot).
+IMPORT_S = time.perf_counter() - _T_IMPORTS
 SEED = 20261017
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM float32, outside the tensor cores
@@ -1511,7 +1564,8 @@ def gateway_modules(pkg: str = "channeld_tpu_torch") -> NS:
                  opshttp="core.opshttp", failover="core.failover",
                  spatial_pb2="protocol.spatial_pb2", spatial_messages="spatial.messages",
                  server="core.server", protocol="protocol", wire_pb2="protocol.wire_pb2",
-                 anyutil="utils.anyutil", federation="federation")
+                 anyutil="utils.anyutil", federation="federation",
+                 fleet_obs="federation.obs")
     return NS(port=pkg == "channeld_tpu_torch",
               **{k: importlib.import_module(f"{pkg}.{v}") for k, v in names.items()})
 
@@ -1931,37 +1985,47 @@ def profile_gateway(world: GatewayWorld, first: int, n: int = 5) -> dict:
                 top=sorted(rows, key=lambda r: -r[1])[:6])
 
 
-def phase_gateway_lockstep(K, dev, size: dict) -> dict:
-    """6a: the port's gateway on the card against a lockstep CPU run of
-    it, tick for tick. Returns K1/K2 launches on this path."""
-    ticks = size["ticks"]
-    t_phase = time.perf_counter()
+def run_gateway_leg(K, dev, size: dict) -> tuple:
+    """One leg of 6a: (per-tick observations, the leg's report). On the card
+    it also holds K1 and K2 against their plain versions on the live tensors
+    and profiles 5 more ticks."""
+    t_leg = time.perf_counter()
     with FixedClock() as clock:
         world = GatewayWorld(dev, clock, size)
-        setup_s = world.load_s
+        report = dict(load_s=world.load_s)
         K.reset_launch_counts()
-        card = [world.tick(t) for t in range(ticks)]
-        launches = K.launch_counts()
-        for name, count in launches.items():
-            check(count == ticks, f"kernel {name} launched {count} times in {ticks} gateway ticks")
-        gateway_live_kernels(K, world.eng)
-        agents = world.eng.agent_count()
-        prof = profile_gateway(world, ticks)
-        fanout_ms, step_ms = world.fanout_ms, world.step_ms
+        obs = [world.tick(t) for t in range(size["ticks"])]
+        report["launches"] = K.launch_counts()
+        if dev.type == "cuda":
+            gateway_live_kernels(K, world.eng)
+            report["prof"] = profile_gateway(world, size["ticks"])
+        report.update(agents=world.eng.agent_count(), fanout_ms=list(world.fanout_ms))
         world.close()
         del world
-    t_card = time.perf_counter()
-    with FixedClock() as clock:
-        world = GatewayWorld(torch.device("cpu"), clock, size)
-        cpu = []
-        for t in range(ticks):
-            cpu.append(world.tick(t))
-            where = first_gateway_diff(card[t], cpu[t])
-            check(where is None, f"gateway tick {t}: cuda and cpu differ: {where}")
-        cpu_fanout = world.fanout_ms
-        world.close()
-        del world
-    secs = (time.perf_counter() - t_phase, t_card - t_phase)
+    report["secs"] = time.perf_counter() - t_leg
+    return obs, report
+
+
+def phase_gateway_lockstep(K, dev, cpu_leg: "CpuLeg") -> dict:
+    """6a: the port's gateway on the card against a lockstep CPU run of it
+    at the same size (``cpu_leg.size``) in ``cpu_leg``'s child, tick for
+    tick. Returns K1/K2 launches on this path."""
+    size = cpu_leg.size
+    ticks = size["ticks"]
+    t_phase = time.perf_counter()
+    try:
+        card, rc = run_gateway_leg(K, dev, size)
+        cpu, rp = cpu_leg.result()
+    finally:
+        cpu_leg.close()
+    launches, prof = rc["launches"], rc["prof"]
+    for name, count in launches.items():
+        check(count == ticks, f"kernel {name} launched {count} times in {ticks} gateway ticks")
+    check(len(card) == len(cpu), f"6a: {len(card)} card and {len(cpu)} cpu ticks")
+    for t in range(ticks):
+        where = first_gateway_diff(card[t], cpu[t])
+        check(where is None, f"gateway tick {t}: cuda and cpu differ: {where}")
+    agents, fanout_ms, cpu_fanout = rc["agents"], rc["fanout_ms"], rp["fanout_ms"]
 
     census_ticks = [t for t, o in enumerate(card) if o["census"]]
     steady = [t for t in range(1, ticks) if t not in census_ticks]
@@ -1980,7 +2044,8 @@ def phase_gateway_lockstep(K, dev, size: dict) -> dict:
           f"the CPU leg tick for tick: handovers ({handovers}), entity tables, every "
           f"connection's outbound stream, changed query rows, sim columns bit for bit; "
           f"launches {launches}; device_step_deadline_s {GATEWAY_DEADLINE_S} on both legs; "
-          f"phase {secs[0]:.1f} s (card leg {secs[1]:.1f} s, load_config {setup_s:.2f} s)")
+          f"phase {time.perf_counter() - t_phase:.1f} s (card leg {rc['secs']:.1f} s, cpu leg "
+          f"{rp['secs']:.1f} s in a --cpu-leg child, load_config {rc['load_s']:.2f} s)")
     for label, legs in (("cuda", card), ("cpu", cpu)):
         print(f"gateway per tick on {label} (ticks 1-{ticks - 1}): tick "
               f"{tick_stats([o['tick_ms'] for o in legs[1:]])}; GLOBAL tick "
@@ -3596,46 +3661,58 @@ def outages(obs: list) -> list:
     return runs
 
 
-def phase_recovery_lockstep(K, dev, size: dict) -> dict:
+def run_recovery_leg(K, dev, size: dict, snapshot_path: str) -> tuple:
+    """One leg of 10a: (per-tick observations, the leg's report). On the card
+    K1 and K2 are held against their plain versions on the first tick the
+    guard serves after each rebuild."""
+    t_leg = time.perf_counter()
+    with FixedClock() as clock:
+        world = RecoveryWorld(dev, clock, size, snapshot_path)
+        guard = world.P.guard.guard
+        K.reset_launch_counts()
+        obs, checked = [], []
+        for t in range(size["ticks"]):
+            rebuilds = len(world.verified)
+            obs.append(world.tick(t))
+            if dev.type == "cuda" and obs[-1]["served"] and checked and checked[-1] is None:
+                uncounted(K, lambda: gateway_live_kernels(K, world.eng))
+                checked[-1] = t
+            if len(world.verified) > rebuilds:
+                checked.append(None)
+        report = dict(
+            guard=guard.report(), verified=list(world.verified),
+            rebuild_ms=list(world.rebuild_ms), snapshots=list(world.snapshots),
+            census=world.census(), metrics=world.metric_deltas(),
+            engine_ticks=world.engine_ticks, launches=K.launch_counts(), checked=checked,
+            agents=world.eng.agent_count())
+        world.close()
+        del world
+    report["secs"] = time.perf_counter() - t_leg
+    return obs, report
+
+
+def phase_recovery_lockstep(K, dev, cpu_leg: "CpuLeg") -> dict:
     """10a: the device soak's schedule through the port's gateway on the
-    card and on the CPU, tick for tick. Returns K1/K2 launches on this
+    card and, at the same size (``cpu_leg.size``), on the CPU in
+    ``cpu_leg``'s child, tick for tick. Returns K1/K2 launches on this
     path."""
     import os
     import shutil
     import tempfile
 
+    size = cpu_leg.size
     ticks, scratch = size["ticks"], tempfile.mkdtemp(prefix="recovery-")
     legs, report = {}, {}
     t_phase = time.perf_counter()
     try:
-        for label, leg_dev in (("cuda", dev), ("cpu", torch.device("cpu"))):
-            t_leg = time.perf_counter()
-            with FixedClock() as clock:
-                world = RecoveryWorld(leg_dev, clock, size, os.path.join(scratch, f"{label}.snap"))
-                guard = world.P.guard.guard
-                K.reset_launch_counts()
-                obs, checked = [], []
-                for t in range(ticks):
-                    rebuilds = len(world.verified)
-                    obs.append(world.tick(t))
-                    if leg_dev.type == "cuda" and obs[-1]["served"] and checked and checked[-1] is None:
-                        uncounted(K, lambda: gateway_live_kernels(K, world.eng))
-                        checked[-1] = t
-                    if len(world.verified) > rebuilds:
-                        checked.append(None)
-                launches = K.launch_counts()
-                report[label] = dict(
-                    guard=guard.report(), verified=list(world.verified),
-                    rebuild_ms=list(world.rebuild_ms), snapshots=list(world.snapshots),
-                    census=world.census(), metrics=world.metric_deltas(),
-                    engine_ticks=world.engine_ticks, launches=launches, checked=checked,
-                    secs=time.perf_counter() - t_leg, agents=world.eng.agent_count())
-                world.close()
-                del world
-            legs[label] = obs
+        legs["cuda"], report["cuda"] = run_recovery_leg(K, dev, size,
+                                                        os.path.join(scratch, "cuda.snap"))
+        legs["cpu"], report["cpu"] = cpu_leg.result()
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
+        cpu_leg.close()
     card, cpu = legs["cuda"], legs["cpu"]
+    check(len(card) == len(cpu), f"10a: {len(card)} card and {len(cpu)} cpu ticks")
     for t in range(ticks):
         where = first_gateway_diff(card[t], cpu[t])
         check(where is None, f"recovery tick {t}: cuda and cpu differ: {where}")
@@ -3685,7 +3762,7 @@ def phase_recovery_lockstep(K, dev, size: dict) -> dict:
           f"fatal and each recovery read back; K1 and K2 exact on the first tick after each "
           f"rebuild (ticks {r['checked']}); launches {launches} in {r['engine_ticks']} engine "
           f"ticks; phase {time.perf_counter() - t_phase:.1f} s (card leg {report['cuda']['secs']:.1f}"
-          f" s, cpu leg {report['cpu']['secs']:.1f} s)")
+          f" s, cpu leg {report['cpu']['secs']:.1f} s in a --cpu-leg child)")
     causes = ["transient", "hang", "corruption"]
     print("recovery outages (unserved ticks; card and cpu alike): " + "; ".join(
         f"{cause} ticks {a}-{b} ({b - a + 1} held or failed)" for cause, (a, b) in zip(causes, runs)))
@@ -7156,18 +7233,20 @@ def phase_obs_live(K, dev, n_dev: int, p: dict) -> dict:
 
 def phase_trace_obs(K, dev) -> tuple:
     """13a-13e on the cells world at MeshDevices = min(cards, 8). Returns
-    ({path: launches}, {kernel: {case: entry}})."""
+    ({path: launches}, {kernel: {case: entry}}, 13b's stages and whether it
+    ran the batched ingest, which 17a's stage check reads)."""
     n_dev = min(torch.cuda.device_count(), MESH_SHARDS)
     launches, kernels = phase_trace_lockstep(K, dev, trace_lockstep_scenario(), n_dev)
     tp, op = trace_params(), obs_params()
-    phase_trace_live(K, dev, n_dev, tp)
+    live = phase_trace_live(K, dev, n_dev, tp)
     overheads = phase_overheads(K, dev, tp, op)
     obs = phase_obs_live(K, dev, n_dev, op)
     entries = {name: {"13a_cells_shard": kernels[name],
                       **{f"13c_{label}_tables": o["trace"]["kernels"][name]
                          for label, o in overheads.items()}}
                for name in kernels}
-    return {"trace_soak": launches, "obs_soak": obs["launches"]}, entries
+    return ({"trace_soak": launches, "obs_soak": obs["launches"]}, entries,
+            dict(stages=live["stages"], batched_ingest=live["batched_ingest"]))
 
 
 # ---- phase 14: the live chaos soak and the overload ladder -------------------
@@ -7974,22 +8053,30 @@ def ladder_line(transitions) -> str:
     return ", ".join(f"L{frm}->L{to} @{t:g} s" for frm, to, t in transitions) or "no move"
 
 
-def phase_overload_lockstep(K, dev, p: dict, n_dev: int) -> tuple:
-    """14a: ``OverloadWorld`` on the card against a lockstep CPU leg, tick for
-    tick, both held to the ladder's invariants. Returns (K1/K2 launches,
-    the kernels' entries on the overflow tick and the saturation tick)."""
-    import shutil
-    import tempfile
+def overload_lockstep_size(scratch: str, n_dev: Optional[int] = None, **kw) -> dict:
+    """14a's size: ``overload_lockstep_params(**kw)`` and its cells config at
+    MeshDevices = n_dev (default min(cards, 8)), written into ``scratch``."""
+    if n_dev is None:
+        n_dev = min(torch.cuda.device_count(), MESH_SHARDS)
+    p = overload_lockstep_params(**kw)
+    return dict(params=p, n_dev=n_dev,
+                config=cells_config(n_dev, scratch, overload_scenario(p)["config_overrides"]))
 
+
+def phase_overload_lockstep(K, dev, cpu_leg: "CpuLeg") -> tuple:
+    """14a: ``OverloadWorld`` on the card against a lockstep CPU leg at the
+    same size (``cpu_leg.size``) in ``cpu_leg``'s child, tick for tick, both
+    held to the ladder's invariants. Returns (K1/K2 launches, the kernels'
+    entries on the overflow tick and the saturation tick)."""
     P = gateway_modules()
-    scratch = tempfile.mkdtemp(prefix="overload-lockstep-")
+    size = cpu_leg.size
+    p, n_dev = size["params"], size["n_dev"]
     t_phase = time.perf_counter()
     try:
-        config = cells_config(n_dev, scratch, overload_scenario(p)["config_overrides"])
-        card, rc = run_overload_lockstep(P, dev, p, config, K)
-        cpu, rp = run_overload_lockstep(P, torch.device("cpu"), p, config)
+        card, rc = run_overload_lockstep(P, dev, p, size["config"], K)
+        cpu, rp = cpu_leg.result()
     finally:
-        shutil.rmtree(scratch, ignore_errors=True)
+        cpu_leg.close()
     check(len(card) == len(cpu), f"14a: {len(card)} card and {len(cpu)} cpu ticks")
     for t in range(len(card)):
         where = first_gateway_diff(card[t], cpu[t])
@@ -8027,7 +8114,7 @@ def phase_overload_lockstep(K, dev, p: dict, n_dev: int) -> tuple:
           f"ledger, overflow, handovers and the deferred, tables, every outbound stream); 2 "
           f"device reads and 2 engine transfers a tick; launches {rc['launches']}; phase "
           f"{time.perf_counter() - t_phase:.1f} s (card leg {rc['secs']:.1f} s, cpu leg "
-          f"{rp['secs']:.1f} s)")
+          f"{rp['secs']:.1f} s in a --cpu-leg child)")
     for leg, obs in (("cuda", card), ("cpu", cpu)):
         print(f"14a on {leg}: tick (host clock) {tick_stats([o['tick_ms'] for o in obs[1:]])}")
     entries: dict = {}
@@ -8124,13 +8211,13 @@ def phase_overload_live(K, dev, n_dev: int, p: dict) -> dict:
     return r
 
 
-def phase_chaos_overload(K, dev) -> tuple:
-    """14a-14c on the cells world at MeshDevices = min(cards, 8) and the
-    gateway's tables. Returns ({path: launches}, {kernel: {case: entry}})."""
+def phase_chaos_overload(K, dev, cpu_leg: "CpuLeg") -> tuple:
+    """14a (its CPU leg in ``cpu_leg``'s child, ``CpuLeg("14a")``) and 14b-14c
+    on the cells world at MeshDevices = min(cards, 8) and the gateway's
+    tables. Returns ({path: launches}, {kernel: {case: entry}})."""
     n_dev = min(torch.cuda.device_count(), MESH_SHARDS)
     t_phase = time.perf_counter()
-    launches, entries = phase_overload_lockstep(
-        K, dev, overload_lockstep_params(**GATEWAY_CAPACITIES), n_dev)
+    launches, entries = phase_overload_lockstep(K, dev, cpu_leg)
     chaos = phase_chaos_live(K, dev, n_dev, chaos_params(duration_s=60.0, **GATEWAY_CAPACITIES))
     overload = phase_overload_live(K, dev, n_dev, overload_params(
         warmup_s=6.0, saturation_s=20.0, quiesce_s=4.0, **GATEWAY_CAPACITIES))
@@ -9095,13 +9182,13 @@ def fed_auth_frame(P, pit: str) -> bytes:
 
 async def fed_boot_gateway(P, gw_id: str, fed_cfg: dict, params: FedSoakParams, stop,
                            scratch: str, expect_cells: int = 8, settings_hook=None,
-                           pre_start_hook=None) -> dict:
+                           pre_start_hook=None, world: Optional[dict] = None) -> dict:
     """scripts/federation_soak.py's ``boot_gateway`` through one package's
     modules: every singleton reset, the soak's pins (then
     ``settings_hook(global_settings)``), listeners on loopback, the master
-    possessing GLOBAL and one spatial server claiming the local block over
-    TCP, ``pre_start_hook()``, the federation plane armed and started (its
-    trunks)."""
+    possessing GLOBAL and one spatial server claiming the local block of
+    ``world`` (default WORLD_SPATIAL) over TCP, ``pre_start_hook()``, the
+    federation plane armed and started (its trunks)."""
     import asyncio
     import os
 
@@ -9117,7 +9204,7 @@ async def fed_boot_gateway(P, gw_id: str, fed_cfg: dict, params: FedSoakParams, 
     P.ddos.init_anti_ddos()
     spatial_path = os.path.join(scratch, f"fed_soak_spatial_{gw_id}_{os.getpid()}.json")
     with open(spatial_path, "w") as f:
-        json.dump(WORLD_SPATIAL, f)
+        json.dump(world if world is not None else WORLD_SPATIAL, f)
     P.controller.init_spatial_controller(spatial_path)
     ctl = P.controller.get_spatial_controller()
     P.federation.init_federation(fed_cfg, gw_id, ctl)
@@ -9394,10 +9481,9 @@ def fed_child(config: str, report_path: str) -> int:
     return 0
 
 
-async def fed_redirect_client(P, host: str, port: int, pit: str, result: dict, stop) -> None:
-    """scripts/federation_soak.py's ``redirect_client``: connect to gateway
-    a, wait for a ClientRedirectMessage, follow it to gateway b and record
-    whether the resume was seamless."""
+async def wait_redirect(P, host: str, port: int, pit: str, result: dict, stop) -> None:
+    """scripts/global_soak.py's ``wait_redirect``: connect to gateway a,
+    record the ClientRedirectMessage under ``redirect`` and stop there."""
     import asyncio
 
     MT = P.types.MessageType
@@ -9405,8 +9491,7 @@ async def fed_redirect_client(P, host: str, port: int, pit: str, result: dict, s
     await soak_auth(P, reader, writer, pit, timeout=8.0)
     result["authed_a"] = True
     dec = P.protocol.FrameDecoder()
-    redirect = None
-    while redirect is None and not stop.is_set():
+    while "redirect" not in result and not stop.is_set():
         try:
             data = await asyncio.wait_for(reader.read(65536), timeout=0.5)
         except asyncio.TimeoutError:
@@ -9418,25 +9503,30 @@ async def fed_redirect_client(P, host: str, port: int, pit: str, result: dict, s
         for packet in dec.decode_packets(data):
             for mp in packet.messages:
                 if mp.msgType == MT.CLIENT_REDIRECT:
-                    redirect = P.control_pb2.ClientRedirectMessage()
-                    redirect.ParseFromString(mp.msgBody)
+                    rd = P.control_pb2.ClientRedirectMessage()
+                    rd.ParseFromString(mp.msgBody)
+                    result["redirect"] = dict(gateway=rd.gatewayId, addr=rd.addr,
+                                              entity=rd.entityId, channel=rd.channelId)
     writer.close()
-    if redirect is None:
-        result["redirected"] = False
-        return
-    result["redirected"] = True
-    result["redirect"] = dict(gateway=redirect.gatewayId, addr=redirect.addr,
-                              entity=redirect.entityId, channel=redirect.channelId)
-    r_host, _, r_port = redirect.addr.rpartition(":")
-    reader2, writer2 = await asyncio.open_connection(r_host or host, int(r_port))
-    writer2.write(fed_auth_frame(P, pit))
-    await writer2.drain()
-    dec2 = P.protocol.FrameDecoder()
+
+
+async def resume_on(P, host: str, port: int, pit: str, result: dict, suffix: str = "") -> None:
+    """scripts/global_soak.py's ``resume_on``: dial a gateway with the same
+    PIT and record whether the session resumed through recovery
+    (``auth_result{suffix}``, ``should_recover``, ``recovery_end``, the
+    recovered channels)."""
+    import asyncio
+
+    MT = P.types.MessageType
+    reader, writer = await asyncio.open_connection(host, port)
+    writer.write(fed_auth_frame(P, pit))
+    await writer.drain()
+    dec = P.protocol.FrameDecoder()
     deadline = time.monotonic() + 10.0
     recovery_channels = []
     while time.monotonic() < deadline:
         try:
-            data = await asyncio.wait_for(reader2.read(65536), timeout=1.0)
+            data = await asyncio.wait_for(reader.read(65536), timeout=1.0)
         except asyncio.TimeoutError:
             continue
         except (ConnectionError, OSError):
@@ -9444,14 +9534,14 @@ async def fed_redirect_client(P, host: str, port: int, pit: str, result: dict, s
         if not data:
             break
         done = False
-        for packet in dec2.decode_packets(data):
+        for packet in dec.decode_packets(data):
             for mp in packet.messages:
                 if mp.msgType == MT.AUTH:
                     ar = P.control_pb2.AuthResultMessage()
                     ar.ParseFromString(mp.msgBody)
-                    result["auth_result_b"] = int(ar.result)
+                    result[f"auth_result{suffix}"] = int(ar.result)
                     result["should_recover"] = bool(ar.shouldRecover)
-                    result["conn_id_b"] = ar.connId
+                    result[f"conn_id{suffix}"] = ar.connId
                 elif mp.msgType == MT.RECOVERY_CHANNEL_DATA:
                     rm = P.control_pb2.ChannelDataRecoveryMessage()
                     rm.ParseFromString(mp.msgBody)
@@ -9462,15 +9552,27 @@ async def fed_redirect_client(P, host: str, port: int, pit: str, result: dict, s
         if done:
             break
     result["recovery_channels"] = recovery_channels
-    writer2.close()
+    writer.close()
+
+
+async def fed_redirect_client(P, host: str, port: int, pit: str, result: dict, stop) -> None:
+    """scripts/federation_soak.py's ``redirect_client``: connect to gateway
+    a, wait for a ClientRedirectMessage, follow it to gateway b and record
+    whether the resume was seamless."""
+    await wait_redirect(P, host, port, pit, result, stop)
+    result["redirected"] = "redirect" in result
+    if result["redirected"]:
+        r_host, _, r_port = result["redirect"]["addr"].rpartition(":")
+        await resume_on(P, r_host or host, int(r_port), pit, result, suffix="_b")
 
 
 class FedChild:
-    """scripts/federation_soak.py's Child: the stdin/stdout handle of the
-    ``--fed-child`` process."""
+    """scripts/federation_soak.py's Child: the stdin/stdout handle of a
+    child gateway process (with the time just before its start and its
+    log, where the caller keeps them)."""
 
-    def __init__(self, proc):
-        self.proc = proc
+    def __init__(self, proc, t0: Optional[float] = None, log: Optional[str] = None):
+        self.proc, self.t0, self.log = proc, t0, log
 
     async def _readline(self, timeout: float) -> str:
         import asyncio
@@ -9724,15 +9826,7 @@ async def run_fed_soak(P, p: FedSoakParams, scratch: str) -> dict:
         return report
     finally:
         stop.set()
-        if child_proc.poll() is None:
-            with contextlib.suppress(BrokenPipeError, OSError):
-                child_proc.stdin.write('{"cmd": "exit"}\n')
-                child_proc.stdin.flush()
-            try:
-                child_proc.wait(timeout=8)
-            except subprocess.TimeoutExpired:
-                child_proc.kill()
-                child_proc.wait()
+        stop_processes([child_proc])
         if gw is not None:
             fed_teardown_gateway(P, gw)
 
@@ -11320,16 +11414,7 @@ async def run_crash_soak(P, p: CrashSoakParams, scratch: str) -> dict:
         stop.set()
         if snap_task is not None:
             snap_task.cancel()
-        for proc in procs:
-            if proc.poll() is None:
-                with contextlib.suppress(BrokenPipeError, OSError):
-                    proc.stdin.write('{"cmd": "exit"}\n')
-                    proc.stdin.flush()
-                try:
-                    proc.wait(timeout=8)
-                except subprocess.TimeoutExpired:
-                    proc.kill()
-                    proc.wait()
+        stop_processes(procs)
         if gw is not None:
             fed_teardown_gateway(P, gw)
         gs.global_death_miss_epochs = p.death_miss_epochs
@@ -11386,9 +11471,16 @@ def phase_crash_live(p: CrashSoakParams) -> dict:
 
 
 def cpu_leg_size(phase: str, scratch: str, **kw) -> dict:
-    """The size of a lockstep phase whose CPU leg runs in a child: ``11a``,
-    ``11b`` (its mesh config written into ``scratch``), ``12b`` and
+    """The size of a lockstep phase whose CPU leg runs in a child: ``6a``,
+    ``10a``, ``11a``, ``11b`` (its mesh config written into ``scratch``),
+    ``12b``, ``14a`` (its cells config written into ``scratch``) and
     ``16a``, each from its size function with ``kw``."""
+    if phase == "6a":
+        return gateway_size(**kw)
+    if phase == "10a":
+        return recovery_size(**kw)
+    if phase == "14a":
+        return overload_lockstep_size(scratch, **kw)
     if phase == "11a":
         return elastic_size(**kw)
     if phase == "11b":
@@ -11413,7 +11505,13 @@ def cpu_leg_child(phase: str, scratch: str) -> int:
     with open(os.path.join(scratch, "size.pickle"), "rb") as f:
         size = pickle.load(f)
     cpu = torch.device("cpu")
-    if phase in ("11a", "11b"):
+    if phase == "6a":
+        result = run_gateway_leg(K, cpu, size)
+    elif phase == "10a":
+        result = run_recovery_leg(K, cpu, size, os.path.join(scratch, "cpu.snap"))
+    elif phase == "14a":
+        result = run_overload_lockstep(gateway_modules(), cpu, size["params"], size["config"])
+    elif phase in ("11a", "11b"):
         result = run_elastic_leg(K, "cpu", cpu, size, phase)
     elif phase == "12b":
         P = gateway_modules()
@@ -11606,6 +11704,1011 @@ def phase_crash(K, dev, cpu_leg: CpuLeg) -> tuple:
     return {"crash_lockstep": launches}, entries
 
 
+# ---- phase 17: the last live fleet paths through the port --------------------
+# Phase 2 of scripts/trace_soak.py and of scripts/obs_soak.py, and
+# scripts/global_soak.py's three gateways. Every gateway boots through
+# scripts/federation_soak.py's boot_gateway, whose world is a
+# Static2DSpatialController: the host grid, which touches no device by the
+# scripts' own design, so no kernel runs on these paths. Gateway "a" runs in
+# this process on its asyncio loop; the others are ``--live-child`` processes
+# of this script (they load neither JAX nor the JAX package).
+
+LIVE_CHILD_ROLES = ("trace", "obs", "global")
+FLEET_LIVE_NOTE = ("phase 17: every gateway on the script's Static2DSpatialController (the host "
+                   "grid), which runs no kernel by the script's design")
+# The trunk timings both soaks' phase 2 boot their gateways with.
+PHASE2_TRUNK = dict(heartbeat_ms=200, trunk_timeout_ms=1200, handover_timeout_ms=1500)
+# The invariants of each path, under the scripts' names (TRACE_r11.json's and
+# OBS_r15.json's federation checks; all of SOAK_GLOBAL_r12.json's).
+TRACE_FED_INVARIANTS = ("cross_gateway_trace_stitched", "cross_gateway_committed",
+                        "trunk_stage_measured", "handover_abort_anomaly_dumped")
+OBS_FED_INVARIANTS = ("fleet_digest_exact", "fleet_labelsets_checked", "fleet_json_and_leader")
+GLOBAL_INVARIANTS = (
+    "shard_migrations_committed", "imbalance_flattened_below_enter", "c_declared_dead",
+    "shard_adopted", "every_entity_on_exactly_one_survivor",
+    "a_migrations_ledger_matches_metric", "b_migrations_ledger_matches_metric",
+    "a_adoptions_ledger_matches_metric", "b_adoptions_ledger_matches_metric",
+    "a_deaths_ledger_matches_metric", "b_deaths_ledger_matches_metric",
+    "client_redirect_received", "redirect_resumed_on_adopter_without_reauth",
+    "nothing_left_in_flight")
+GLOBAL_ESTART = 0x00080000  # scripts/global_soak.py's first entity channel id
+HOST_GRID = "StaticGrid2DSpatialController"
+
+
+def trace_fed_params(**kw) -> dict:
+    """scripts/trace_soak.py's TraceSoakParams for its phase 2."""
+    return dict(dict(fed_burst=10, fed_sever_burst=10, seed=TRACE_SOAK_SEED), **kw)
+
+
+def obs_fed_params(**kw) -> dict:
+    """scripts/obs_soak.py's ObsSoakParams for its phase 2."""
+    return dict(dict(fed_run_s=8.0, fed_epoch_ms=200, seed=OBS_SOAK_SEED), **kw)
+
+
+def obs_fed_settings_hook(epoch_ms: int):
+    """scripts/obs_soak.py's phase-2 settings hook: the SLO plane and the
+    control plane re-armed."""
+    def hook(gs) -> None:
+        gs.slo_enabled = True
+        gs.global_control_enabled = True
+        gs.global_epoch_ms = epoch_ms
+
+    return hook
+
+
+async def global_boot(P, gw_id: str, fed_cfg: dict, p: GlobalSoakParams, stop,
+                      scratch: str) -> dict:
+    """scripts/global_soak.py's ``boot3``: gateway ``gw_id``'s block of
+    WORLD_3 with the control plane armed."""
+    fp = FedSoakParams(heartbeat_ms=p.heartbeat_ms, trunk_timeout_ms=p.trunk_timeout_ms,
+                       handover_timeout_ms=p.handover_timeout_ms, global_tick_ms=p.global_tick_ms)
+    return await fed_boot_gateway(P, gw_id, fed_cfg, fp, stop, scratch, expect_cells=8,
+                                  settings_hook=global_settings_hook(p), world=WORLD_3)
+
+
+def global_control_report(P, baseline: dict) -> dict:
+    """scripts/global_soak.py's ``control_report``: the control plane's
+    report and its metrics' deltas since ``baseline``."""
+    inv = P.invariants
+    d = inv.delta(inv.scrape(), baseline)
+    migrations = {dict(labels)["result"]: int(value) for (name, labels), value in d.items()
+                  if name == "global_migrations_total" and value}
+    rep = P.federation.control.report()
+    rep["metric_migrations"] = migrations
+    rep["metric_adoptions"] = int(inv.sample_total(d, "gateway_adoptions_total"))
+    rep["metric_deaths"] = int(inv.sample_total(d, "gateway_deaths_total"))
+    return rep
+
+
+def entity_alive(P, eid: int) -> bool:
+    """scripts/global_soak.py's ``get_alive``."""
+    ch = P.channel.get_channel(eid)
+    return ch is not None and not ch.is_removing()
+
+
+def entity_forensics(P, eids) -> dict:
+    """scripts/global_soak.py's ``entity_forensics``: for each id, whether
+    its entity channel lives, what the placement ledger says and which
+    local cells' data hold a row."""
+    gs = P.settings.global_settings
+    ledger = getattr(P.controller.get_spatial_controller(), "_data_cell", {})
+    out: dict = {}
+    for eid in eids:
+        rows = []
+        for cid, ch in P.channel.all_channels().items():
+            if gs.spatial_channel_id_start <= cid < gs.entity_channel_id_start \
+                    and not ch.is_removing():
+                ents = getattr(ch.get_data_message(), "entities", None)
+                if ents is not None and eid in ents:
+                    rows.append(cid)
+        out[str(eid)] = {"channel": entity_alive(P, eid), "ledger": ledger.get(eid), "rows": rows}
+    return out
+
+
+# scripts/obs_soak.py's sample line of the Prometheus exposition.
+_EXPO_RE = re.compile(r"^([a-zA-Z_][a-zA-Z0-9_]*)(\{[^}]*\})?\s+([0-9.eE+-]+|NaN|[+-]Inf)$")
+
+
+def parse_exposition(text: str) -> dict:
+    """scripts/obs_soak.py's ``parse_exposition``: {(name, labels): value}
+    of every sample line."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("#") or not line.strip():
+            continue
+        m = _EXPO_RE.match(line.strip())
+        if m:
+            out[(m.group(1), m.group(2) or "")] = float(m.group(3))
+    return out
+
+
+def fleet_exactness(merge, b_self: dict, b_stored: dict, a_digest: dict, rendered: dict) -> tuple:
+    """scripts/obs_soak.py's two exactness legs: b's own digest equals the
+    copy stored on a, and every counter family and label set of a's
+    rendered /fleet (``rendered``, parsed) equals the sum of a's and b's
+    digests (``merge``: federation/obs.py's ``merge_digests``). Returns
+    (mismatches, label sets checked)."""
+    mismatches = []
+    for section in ("counters", "gauges"):
+        for family, rows in b_self[section].items():
+            stored_rows = b_stored.get(section, {}).get(family, {})
+            for key, v in rows.items():
+                if abs(stored_rows.get(key, 0.0) - v) > 1e-9:
+                    mismatches.append(f"{section}:{family}{key} self={v} "
+                                      f"stored={stored_rows.get(key)}")
+    merged = merge([a_digest, b_stored])
+    checked = 0
+    for family, rows in merged["counters"].items():
+        for key, v in rows.items():
+            pairs = json.loads(key)
+            labels = ("{" + ",".join(f'{k}="{val}"' for k, val in pairs) + "}") if pairs else ""
+            got = rendered.get((f"fleet_{family}_total", labels))
+            checked += 1
+            if got is None or abs(got - v) > 1e-9:
+                mismatches.append(f"/fleet fleet_{family}_total{labels} got={got} want={v}")
+    return mismatches, checked
+
+
+class ChildNotReady(PhaseFailed):
+    """A phase-17 child that never printed READY: the one fault a retry may
+    cover (as tests/test_global_control.py retries an infra failure once)."""
+
+
+def spawn_live_child(role: str, gw_id: str, cfg_path: str, report_path: str, params: dict,
+                     scratch: str) -> FedChild:
+    """Start ``chip_smoke.py --live-child ROLE GW CONFIG REPORT PARAMS`` (its
+    standard error into ``scratch``); the handle keeps the time just before
+    the start (``t0``) and the log's path."""
+    import os
+
+    log_path = os.path.join(scratch, f"live_child_{role}_{gw_id}.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--live-child", role, gw_id, cfg_path,
+             report_path, json.dumps(params)],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=log, text=True)
+    return FedChild(proc, t0, log_path)
+
+
+async def wait_ready(children: dict, timeout: float) -> dict:
+    """Wait for every child's READY line together: {gateway: its boot report
+    (READY's JSON) with ``boot_s``, Popen to READY}."""
+    import asyncio
+
+    async def one(gw: str, child) -> tuple:
+        try:
+            line = await child.wait_for("READY", timeout)
+        except (RuntimeError, TimeoutError) as e:
+            with open(child.log) as f:
+                tail = f.read()[-600:]
+            raise ChildNotReady(f"gateway {gw}: the --live-child never printed READY ({e}): "
+                                f"{tail}")
+        info = json.loads(line[len("READY"):].strip() or "{}")
+        return gw, dict(info, boot_s=round(time.perf_counter() - child.t0, 3))
+
+    return dict(await asyncio.gather(*(one(gw, c) for gw, c in children.items())))
+
+
+def stop_processes(procs) -> None:
+    """scripts/*_soak.py's teardown of their child gateways: ``exit`` on
+    stdin, then a kill after 8 s."""
+    for proc in procs:
+        if proc.poll() is None:
+            with contextlib.suppress(BrokenPipeError, OSError):
+                proc.stdin.write('{"cmd": "exit"}\n')
+                proc.stdin.flush()
+            try:
+                proc.wait(timeout=8)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+
+async def live_child_main(role: str, gw_id: str, config: str, report_path: str,
+                          params: dict) -> None:
+    """Gateway ``gw_id`` of phase 17 through the port, driven over stdin:
+    ``trace`` (17a's "b": scripts/trace_soak.py's ``remote_main``, the
+    recorder on; report), ``obs`` (17b's "b": scripts/obs_soak.py's
+    ``remote_main``, the SLO and control planes on; report writes
+    ``build_local_digest()``) or ``global`` (17c's "b" and "c":
+    scripts/global_soak.py's ``remote_main``; spawn, herd_to, quiesce,
+    report). Every role answers exit. READY carries a JSON of the boot's
+    parts (this script's numpy and torch imports, the port's modules, the
+    gateway's boot) and the modules of JAX or of the JAX package loaded;
+    every report carries the latter too."""
+    import asyncio
+    import os
+
+    from random import Random
+
+    t0 = time.perf_counter()
+    P = gateway_modules()
+    modules_s = time.perf_counter() - t0
+    with open(config) as f:
+        fed_cfg = json.load(f)
+    stop = asyncio.Event()
+    scratch = os.path.dirname(os.path.abspath(report_path))
+    journal = P.failover.journal
+    t1 = time.perf_counter()
+    if role == "trace":
+        gw = await fed_boot_gateway(P, gw_id, fed_cfg, FedSoakParams(**PHASE2_TRUNK), stop,
+                                    scratch)
+        P.settings.global_settings.trace_enabled = True
+        P.tracing.recorder.configure(enabled=True, ring_spans=16384, dump_path=scratch,
+                                     origin=gw_id)
+    elif role == "obs":
+        gw = await fed_boot_gateway(P, gw_id, fed_cfg, FedSoakParams(**PHASE2_TRUNK), stop,
+                                    scratch, settings_hook=obs_fed_settings_hook(
+                                        int(params["fed_epoch_ms"])))
+        P.slo.slo.configure(enabled=True)
+    elif role == "global":
+        p = GlobalSoakParams(**params)
+        gw = await global_boot(P, gw_id, fed_cfg, p, stop, scratch)
+    else:
+        raise ValueError(f"no live child role {role!r}")
+    plane, ctl = gw["plane"], gw["ctl"]
+    baseline = P.invariants.scrape()
+    jitter_task = None
+    if role == "global":
+        sim = FedSim(P, ctl, Random(p.seed ^ ord(gw_id)))
+        x0, x1 = GLOBAL_XR[gw_id]
+
+        async def jitter_loop():
+            while not stop.is_set():
+                sim.adopt_scan()
+                if sim.local_ids():
+                    sim.jitter(x0, x1, *GLOBAL_ZR)
+                await asyncio.sleep(0.2)
+
+        jitter_task = asyncio.ensure_future(jitter_loop())
+    print("READY " + json.dumps(dict(modules=foreign_modules(), imports_s=round(IMPORT_S, 3),
+                                     modules_s=round(modules_s, 3),
+                                     gateway_s=round(time.perf_counter() - t1, 3))), flush=True)
+    loop = asyncio.get_running_loop()
+    reader = asyncio.StreamReader()
+    await loop.connect_read_pipe(lambda: asyncio.StreamReaderProtocol(reader), sys.stdin)
+    while True:
+        line = await reader.readline()
+        if not line:
+            break
+        try:
+            cmd = json.loads(line)
+        except ValueError:
+            continue
+        name = cmd.get("cmd")
+        if name == "spawn" and role == "global":
+            sim.create_entities(int(cmd["n"]), x0, x1, *GLOBAL_ZR,
+                                base=GLOBAL_BASE[gw_id] + int(cmd.get("offset", 0)))
+            print(f"OK spawn {cmd['n']}", flush=True)
+        elif name == "herd_to" and role == "global":
+            sim.adopt_scan()
+            moved = sim.herd(sim.local_ids()[: int(cmd.get("n", 8))], *GLOBAL_XR[cmd["gw"]],
+                             *GLOBAL_ZR)
+            print(f"OK herd_to {len(moved)}", flush=True)
+        elif name == "quiesce" and role == "global":
+            jitter_task.cancel()
+            deadline = time.monotonic() + float(cmd.get("drain_s", 10.0))
+            while time.monotonic() < deadline and (plane._pending or plane._parked
+                                                   or journal.in_flight_count()):
+                await asyncio.sleep(0.1)
+            print("OK quiesce", flush=True)
+        elif name == "report":
+            report = dict(gateway=gw_id, modules=foreign_modules(), spatial=type(ctl).__name__)
+            if role == "trace":
+                report.update(ledger=dict(plane.ledger), spans=[
+                    {"name": s["name"], "trace": s["trace"], "tick": s["tick"]}
+                    for s in P.tracing.recorder.snapshot() if s.get("trace")])
+            elif role == "obs":
+                report["digest"] = P.fleet_obs.build_local_digest()
+            else:
+                placement = fed_local_placement(P)
+                report.update(
+                    ledger=dict(plane.ledger), control=global_control_report(P, baseline),
+                    placement=placement,
+                    forensics=entity_forensics(P, [int(e) for e in placement
+                                                   if not e.startswith("__")]),
+                    pending=len(plane._pending), parked=len(plane._parked),
+                    journal=journal.report(), events=plane.events[-400:])
+            with open(report_path, "w") as f:
+                json.dump(report, f)
+            print("OK report", flush=True)
+        elif name == "exit":
+            break
+    stop.set()
+    if jitter_task is not None:
+        jitter_task.cancel()
+    fed_teardown_gateway(P, gw)
+
+
+def live_child(role: str, gw_id: str, config: str, report_path: str, params: str) -> int:
+    """``chip_smoke.py --live-child ROLE GW CONFIG REPORT PARAMS``: one of
+    phase 17's child gateways (PARAMS: the role's parameters as JSON)."""
+    import asyncio
+
+    asyncio.run(live_child_main(role, gw_id, config, report_path, json.loads(params)))
+    return 0
+
+
+async def trace_fed_live(P, p: dict, scratch: str) -> dict:
+    """17a: scripts/trace_soak.py's ``run_federation_phase`` through the
+    port. Gateway "a" in-process (the recorder armed with origin "a", its
+    dumps into ``scratch``) and gateway "b" a ``--live-child trace``
+    process: a committed burst across the trunk, the trunk severed while a
+    handover is pending, the drain, b's spans; the result under the
+    script's keys, with the child's boot, its modules and both
+    controllers."""
+    import asyncio
+    import os
+
+    from random import Random
+
+    t_start = time.monotonic()
+    ports = dict(zip(("a_trunk", "a_client", "b_trunk", "b_client"), fed_free_ports(4)))
+    fed_cfg = fed_config(ports)
+    cfg_path = os.path.join(scratch, "trace_fed_cfg.json")
+    report_path = os.path.join(scratch, "trace_fed_b.json")
+    dump_dir = os.path.join(scratch, "dumps")
+    os.makedirs(dump_dir, exist_ok=True)
+    with open(cfg_path, "w") as f:
+        json.dump(fed_cfg, f)
+    child = spawn_live_child("trace", "b", cfg_path, report_path, p, scratch)
+    stop = asyncio.Event()
+    gw = None
+    try:
+        boot = await wait_ready({"b": child}, 60.0)
+        gw = await fed_boot_gateway(P, "a", fed_cfg, FedSoakParams(**PHASE2_TRUNK), stop, scratch)
+        plane, ctl = gw["plane"], gw["ctl"]
+        P.settings.global_settings.trace_enabled = True
+        recorder = P.tracing.recorder
+        recorder.configure(enabled=True, ring_spans=16384, dump_path=dump_dir,
+                           anomaly_cooldown_s=0.5, origin="a")
+        # This process ran other trunks before: the trunk stage of this
+        # phase is the delta since a's boot (in the script, a plain scrape).
+        baseline = P.invariants.scrape()
+        deadline = time.monotonic() + 15.0
+        while time.monotonic() < deadline and plane.link_to("b") is None:
+            await asyncio.sleep(0.05)
+        if plane.link_to("b") is None:
+            raise PhaseFailed("17a: trunk to b never came up")
+
+        sim = FedSim(P, ctl, Random(p["seed"] ^ 0xF2))
+        sim.create_entities(p["fed_burst"] + p["fed_sever_burst"] + 4, -98.0, -2.0, -98.0, 98.0)
+        await asyncio.sleep(0.5)
+
+        # -- committed burst: one trace id per batch crosses the trunk --
+        sim.herd(sim.entity_ids[: p["fed_burst"]], 2.0, 98.0, -98.0, 98.0)
+        cdeadline = time.monotonic() + 20.0
+        while time.monotonic() < cdeadline and plane.ledger.get("committed", 0) < p["fed_burst"]:
+            await asyncio.sleep(0.05)
+        committed = plane.ledger.get("committed", 0)
+
+        # -- sever mid-burst: the handover_abort anomaly dump --
+        sim.herd(sim.local_ids()[: p["fed_sever_burst"]], 2.0, 98.0, -98.0, 98.0)
+        sdeadline = time.monotonic() + 5.0
+        severed = False
+        while time.monotonic() < sdeadline:
+            link = plane.link_to("b")
+            if plane._pending and link is not None:
+                link.sever_for_test()
+                severed = True
+                break
+            await asyncio.sleep(0.001)
+        ddeadline = time.monotonic() + 30.0
+        while time.monotonic() < ddeadline and (plane._pending or plane._parked):
+            await asyncio.sleep(0.1)
+        await asyncio.sleep(1.0)
+
+        await child.cmd("report", timeout=15.0)
+        with open(report_path) as f:
+            b_report = json.load(f)
+        a_spans = [{"name": s["name"], "trace": s["trace"], "tick": s["tick"]}
+                   for s in recorder.snapshot() if s.get("trace")]
+        b_spans = b_report["spans"]
+        a_traces = {s["trace"] for s in a_spans if s["name"] in ("fed.prepare", "fed.commit")}
+        b_traces = {s["trace"] for s in b_spans if s["name"] in ("fed.apply", "fed.refuse")}
+        stitched = sorted(a_traces & b_traces)
+        example = None
+        if stitched:
+            tid = stitched[0]
+            example = {"trace_id": tid,
+                       "a_spans": sorted(s["name"] for s in a_spans if s["trace"] == tid),
+                       "b_spans": sorted(s["name"] for s in b_spans if s["trace"] == tid)}
+        abort_dumps = [{"trigger": a["trigger"], "detail": a["detail"],
+                        "path": os.path.basename(a["path"]),
+                        "perfetto_valid": check_perfetto(a["path"])[0]}
+                       for a in recorder.anomalies
+                       if a["trigger"] == "handover_abort" and "path" in a]
+        inv = P.invariants
+        trunk_stats = stage_stats(P, inv.delta(inv.scrape(), baseline)).get("trunk", {})
+        return {"trunk_stage": trunk_stats, "committed": committed, "severed": severed,
+                "aborted": plane.ledger.get("aborted", 0), "stitched_traces": len(stitched),
+                "example": example, "abort_dumps": abort_dumps,
+                "trunk_stage_samples": int(trunk_stats.get("count", 0)),
+                "b_ledger": b_report["ledger"], "boot": boot,
+                "b_modules": b_report["modules"], "spatial": [type(ctl).__name__,
+                                                              b_report["spatial"]],
+                "duration_s": round(time.monotonic() - t_start, 2)}
+    finally:
+        stop.set()
+        stop_processes([child.proc])
+        if gw is not None:
+            fed_teardown_gateway(P, gw)
+
+
+def trace_fed_checks(r: dict, live: dict) -> list:
+    """17a's checks of one result, as (name, held, detail): the trace soak's
+    phase-2 invariants under their names; ``every_tick_stage_measured`` over
+    13b's stages (``live``: its stages and whether the native codec ran the
+    batched ingest) with the trunk stage, ``ingest`` expected only with the
+    native codec (F19); the child a gateway of the port with no module of
+    JAX or of the JAX package; both gateways on the host grid."""
+    stages = dict(live["stages"])
+    if r["trunk_stage"]:
+        stages["trunk"] = r["trunk_stage"]
+    expected = [s for s in TRACE_STAGES if s != "ingest" or live["batched_ingest"]] + ["trunk"]
+    modules = (r["boot"]["b"].get("modules"), r["b_modules"])
+    return [
+        ("every_tick_stage_measured", all(s in stages for s in expected),
+         f"stages seen: {sorted(stages)}, expected {expected}"),
+        ("cross_gateway_trace_stitched", r["stitched_traces"] > 0, r["stitched_traces"]),
+        ("cross_gateway_committed", r["committed"] > 0, r["committed"]),
+        ("trunk_stage_measured", r["trunk_stage_samples"] > 0, r["trunk_stage_samples"]),
+        ("handover_abort_anomaly_dumped",
+         bool(r["abort_dumps"]) and all(d["perfetto_valid"] for d in r["abort_dumps"]),
+         r["abort_dumps"]),
+        ("child_imports_no_jax", modules == ([], []), modules),
+        ("both_gateways_on_the_host_grid", r["spatial"] == [HOST_GRID] * 2, r["spatial"])]
+
+
+async def obs_fed_live(P, p: dict, scratch: str) -> dict:
+    """17b: scripts/obs_soak.py's ``run_federation_phase`` through the port.
+    Gateway "a" in-process (the SLO plane and the control plane on, epoch
+    ``fed_epoch_ms``, the ops surface on an ephemeral port of loopback) and
+    gateway "b" a ``--live-child obs`` process: 8 entities, 4 herded across,
+    ``fed_run_s`` of traffic, the quiesce and two more epochs, then both
+    exactness legs over b's own digest, the copy stored on a and a's
+    rendered /fleet; the result under the script's keys, with the child's
+    boot, its modules and both controllers."""
+    import asyncio
+    import os
+
+    from random import Random
+
+    t_start = time.monotonic()
+    P.fleet_obs.reset_fleet_obs()  # no digest an earlier fleet of this process stored
+    fleet = P.fleet_obs.fleet
+    ports = dict(zip(("a_trunk", "a_client", "b_trunk", "b_client"), fed_free_ports(4)))
+    fed_cfg = fed_config(ports)
+    cfg_path = os.path.join(scratch, "obs_fed_cfg.json")
+    report_path = os.path.join(scratch, "obs_fed_b.json")
+    with open(cfg_path, "w") as f:
+        json.dump(fed_cfg, f)
+    child = spawn_live_child("obs", "b", cfg_path, report_path, p, scratch)
+    stop = asyncio.Event()
+    gw = None
+    try:
+        boot = await wait_ready({"b": child}, 60.0)
+        gw = await fed_boot_gateway(P, "a", fed_cfg, FedSoakParams(**PHASE2_TRUNK), stop, scratch,
+                                    settings_hook=obs_fed_settings_hook(p["fed_epoch_ms"]))
+        plane = gw["plane"]
+        P.slo.slo.configure(enabled=True)
+        ops = P.opshttp.serve_ops(0, host="127.0.0.1")
+        deadline = time.monotonic() + 15.0
+        while time.monotonic() < deadline and plane.link_to("b") is None:
+            await asyncio.sleep(0.05)
+        if plane.link_to("b") is None:
+            raise PhaseFailed("17b: trunk to b never came up")
+
+        # Cross-gateway traffic so the digests carry real numbers.
+        sim = FedSim(P, gw["ctl"], Random(p["seed"] ^ 0xFED))
+        sim.create_entities(8, -98.0, -2.0, -98.0, 98.0)
+        await asyncio.sleep(0.5)
+        sim.herd(sim.entity_ids[:4], 2.0, 98.0, -98.0, 98.0)
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < p["fed_run_s"]:
+            await asyncio.sleep(0.2)
+        # Quiesce: the digest families go static, then two more epochs so
+        # that b's last export reflects the static state.
+        await asyncio.sleep(max(4 * p["fed_epoch_ms"] / 1000.0, 1.0))
+        deadline = time.monotonic() + 10.0
+        while time.monotonic() < deadline and "b" not in fleet.digests:
+            await asyncio.sleep(0.1)
+        if "b" not in fleet.digests:
+            raise PhaseFailed("17b: b's metric digest never arrived")
+
+        await child.cmd("report", timeout=15.0)
+        with open(report_path) as f:
+            b_report = json.load(f)
+        b_stored = fleet.digests["b"][0]
+        code, text = ops_get(ops.port, "/fleet", timeout=5.0)
+        mismatches, checked = fleet_exactness(
+            P.fleet_obs.merge_digests, b_report["digest"], b_stored, fleet.refresh_local(),
+            parse_exposition(text) if code == 200 else {})
+        code_json, fleet_json = ops_get(ops.port, "/fleet?format=json")
+        return {
+            "digest_exact": not mismatches, "mismatches": mismatches[:20],
+            "labelsets_checked": checked, "gateways_in_fleet": sorted(fleet.digests),
+            "fleet_json_ok": (code_json == 200
+                              and fleet_json.get("gateways", {}).get("b", {}).get("up") is True),
+            "leader": fleet_json.get("leader", "") if code_json == 200 else "",
+            "committed_handovers": plane.ledger.get("committed", 0),
+            "trunk_rtt_slo_tracked": "trunk_rtt" in P.slo.slo.status(),
+            "boot": boot, "b_modules": b_report["modules"],
+            "spatial": [type(gw["ctl"]).__name__, b_report["spatial"]],
+            "duration_s": round(time.monotonic() - t_start, 2)}
+    finally:
+        stop.set()
+        stop_processes([child.proc])
+        P.opshttp.reset_ops()
+        P.slo.reset_slo()
+        P.fleet_obs.reset_fleet_obs()
+        if gw is not None:
+            fed_teardown_gateway(P, gw)
+
+
+def obs_fed_checks(r: dict) -> list:
+    """17b's checks of one result, as (name, held, detail): the obs soak's
+    phase-2 invariants under their names, the child a gateway of the port
+    with no module of JAX or of the JAX package, both gateways on the host
+    grid."""
+    modules = (r["boot"]["b"].get("modules"), r["b_modules"])
+    return [
+        ("fleet_digest_exact", r["digest_exact"], r["mismatches"]),
+        ("fleet_labelsets_checked", r["labelsets_checked"] > 20, r["labelsets_checked"]),
+        ("fleet_json_and_leader", r["fleet_json_ok"] and r["leader"] != "",
+         {k: r[k] for k in ("fleet_json_ok", "leader", "gateways_in_fleet")}),
+        ("child_imports_no_jax", modules == ([], []), modules),
+        ("both_gateways_on_the_host_grid", r["spatial"] == [HOST_GRID] * 2, r["spatial"])]
+
+
+async def run_global_soak(P, p: GlobalSoakParams, scratch: str) -> dict:
+    """17c: scripts/global_soak.py's ``run_global_soak`` through the port.
+    Gateway "a" (the leader) in-process on this asyncio loop, gateways "b"
+    and "c" ``--live-child global`` processes, all on WORLD_3's
+    Static2DSpatialController: the hotspot on b flattened by a
+    leader-planned migration, c SIGKILLed while the a->c burst is in flight,
+    c declared dead and its shard adopted, the redirected client resumed on
+    a survivor, the census over the survivors. The report under the
+    script's keys (the 14 invariants under their names), with both
+    children's boots."""
+    import asyncio
+    import dataclasses as dc
+    import os
+    import signal
+
+    from random import Random
+
+    control, journal = P.federation.control, P.failover.journal
+    t_start = time.monotonic()
+    ports = dict(zip(("a_trunk", "a_client", "b_trunk", "b_client", "c_trunk", "c_client"),
+                     fed_free_ports(6)))
+    fed_cfg = fed_config3(ports)
+    cfg_path = os.path.join(scratch, "global_soak_cfg.json")
+    b_report_path = os.path.join(scratch, "global_soak_b.json")
+    c_report_path = os.path.join(scratch, "global_soak_c.json")
+    with open(cfg_path, "w") as f:
+        json.dump(fed_cfg, f)
+    params = dc.asdict(p)
+    b = spawn_live_child("global", "b", cfg_path, b_report_path, params, scratch)
+    c = spawn_live_child("global", "c", cfg_path, c_report_path, params, scratch)
+    stop = asyncio.Event()
+    gw = client_task = None
+    timeline: list = []
+    notes: list = []
+
+    def mark(phase: str, **kw) -> None:
+        timeline.append({"t": round(time.monotonic() - t_start, 2), "phase": phase, **kw})
+
+    try:
+        boot = await wait_ready({"b": b, "c": c}, p.child_boot_timeout_s)
+        gw = await global_boot(P, "a", fed_cfg, p, stop, scratch)
+        plane, ctl = gw["plane"], gw["ctl"]
+        baseline = P.invariants.scrape()
+
+        deadline = time.monotonic() + 15.0
+        while time.monotonic() < deadline and (plane.link_to("b") is None
+                                               or plane.link_to("c") is None):
+            await asyncio.sleep(0.05)
+        if plane.link_to("b") is None or plane.link_to("c") is None:
+            raise PhaseFailed("17c: the trunk mesh never came up")
+        mark("trunk_mesh_up", leader=control.leader())
+
+        sim = FedSim(P, ctl, Random(p.seed ^ 0xA))
+        sim.create_entities(p.base_entities, *GLOBAL_XR["a"], *GLOBAL_ZR, base=GLOBAL_BASE["a"])
+        await b.cmd("spawn", n=p.base_entities)
+        await c.cmd("spawn", n=p.base_entities)
+        estart = GLOBAL_ESTART
+        expected_ids = {str(estart + 1 + GLOBAL_BASE[g] + i)
+                        for g in ("a", "b", "c") for i in range(p.base_entities)}
+        # A few control epochs to see everyone's vectors and replicas.
+        await asyncio.sleep(p.epoch_ms * 4 / 1000.0)
+        mark("boot", entities=len(expected_ids))
+
+        # ---- phase 1: hotspot on b -> the leader flattens it ----
+        await b.cmd("spawn", n=p.hotspot, offset=100)
+        expected_ids |= {str(estart + 1 + GLOBAL_BASE["b"] + 100 + i) for i in range(p.hotspot)}
+        end = time.monotonic() + p.phase_timeout_s
+        while time.monotonic() < end and control.ledger.get("committed", 0) < 1:
+            await asyncio.sleep(0.1)
+        if control.ledger.get("committed", 0) < 1:
+            notes.append(f"no committed shard migration: ledger={control.ledger} "
+                         f"imbalance={control.imbalance}")
+        fdeadline = time.monotonic() + p.phase_timeout_s
+        while time.monotonic() < fdeadline and (control.imbalance >= p.imbalance_enter
+                                                or control._plans or control._drain is not None):
+            await asyncio.sleep(0.2)
+        committed_migrations = control.ledger.get("committed", 0)
+        flattened_imbalance = control.imbalance
+        mark("hotspot_flattened", committed=committed_migrations,
+             imbalance=round(flattened_imbalance, 3), ledger=dict(control.ledger))
+
+        # ---- phase 2: commit a->c handovers, anchor a client on one of them ----
+        local_a = [e for e in sim.local_ids() if e < estart + 1 + GLOBAL_BASE["b"]]
+        committed_before = plane.ledger.get("committed", 0)
+        herd_ids = local_a[: p.committed_to_c]
+        anchor_eid = herd_ids[0]
+        redirect_result: dict = {}
+        client_task = asyncio.ensure_future(wait_redirect(
+            P, "127.0.0.1", gw["client_port"], "global-client-0", redirect_result, stop))
+        cdeadline = time.monotonic() + 10.0
+        anchor_conn = None
+        while time.monotonic() < cdeadline and anchor_conn is None:
+            for conn in P.connection.all_connections().values():
+                if getattr(conn, "pit", "") == "global-client-0" and not conn.is_closing():
+                    anchor_conn = conn
+                    break
+            await asyncio.sleep(0.05)
+        if anchor_conn is None:
+            raise PhaseFailed("17c: the anchored client never authed")
+        plane.set_client_anchor(anchor_conn, anchor_eid)
+        sim.herd(herd_ids, *GLOBAL_XR["c"], *GLOBAL_ZR)
+        hdeadline = time.monotonic() + p.phase_timeout_s
+        while time.monotonic() < hdeadline and (
+                plane.ledger.get("committed", 0) < committed_before + len(herd_ids)):
+            await asyncio.sleep(0.1)
+        rdeadline = time.monotonic() + p.phase_timeout_s
+        while time.monotonic() < rdeadline and "redirect" not in redirect_result:
+            await asyncio.sleep(0.1)
+        if "redirect" not in redirect_result:
+            notes.append(f"redirect never arrived: {redirect_result}")
+        # At least one control epoch, so that c's replica (the staged handle
+        # and the committed entities too) reaches the survivors.
+        await asyncio.sleep(p.epoch_ms * 3 / 1000.0)
+        mark("committed_into_c", committed=plane.ledger.get("committed", 0) - committed_before,
+             redirect=redirect_result.get("redirect"))
+
+        # ---- phase 3: SIGKILL c mid-handover-burst ----
+        sim.adopt_scan()
+        local_a = [e for e in sim.local_ids() if entity_alive(P, e)]
+        sim.herd(local_a[: p.kill_burst], *GLOBAL_XR["c"], *GLOBAL_ZR)
+        kdeadline = time.monotonic() + 5.0
+        killed_mid_burst = False
+        while time.monotonic() < kdeadline:
+            if any(bt.peer == "c" for bt in plane._pending.values()):
+                c.proc.send_signal(signal.SIGKILL)
+                killed_mid_burst = True
+                break
+            await asyncio.sleep(0)
+        if not killed_mid_burst:
+            c.proc.send_signal(signal.SIGKILL)
+            notes.append("kill raced: no batch toward c in flight at kill")
+        t_kill = time.monotonic()
+        mark("sigkill_c", mid_burst=killed_mid_burst)
+
+        # Death declaration and adoption.
+        adeadline = time.monotonic() + p.phase_timeout_s * 2
+        while time.monotonic() < adeadline and "c" not in control.dead:
+            await asyncio.sleep(0.1)
+        if "c" not in control.dead:
+            raise PhaseFailed(f"17c: c never declared dead: report={control.report()}")
+        t_dead = time.monotonic()
+        adopter = None
+        adeadline = time.monotonic() + p.phase_timeout_s
+        while time.monotonic() < adeadline and adopter is None:
+            for ev in control.events:
+                if ev.get("kind") == "gateway_dead" and ev["dead"] == "c":
+                    adopter = ev["adopter"]
+                    break
+            await asyncio.sleep(0.1)
+        if adopter is None:
+            raise PhaseFailed("17c: no adoption assignment observed")
+        if adopter == "a":
+            wdeadline = time.monotonic() + p.phase_timeout_s
+            while time.monotonic() < wdeadline and control.adoptions < 1:
+                await asyncio.sleep(0.1)
+        else:
+            await asyncio.sleep(p.epoch_ms * 6 / 1000.0)
+        mark("adopted", adopter=adopter, deaths=control.deaths)
+
+        # ---- phase 4: the redirect client resumes on a survivor ----
+        resume_result: dict = {}
+        resume_s: dict = {}
+        if redirect_result.get("redirect"):
+            # The redirect's target (c) is dead: a well-behaved client falls
+            # back to the surviving gateways in directory order.
+            for target in ("a", "b"):
+                port = int(fed_cfg["gateways"][target]["client"].rpartition(":")[2])
+                t0 = time.monotonic()
+                try:
+                    await resume_on(P, "127.0.0.1", port, "global-client-0", resume_result)
+                except (ConnectionError, OSError, TimeoutError) as e:
+                    resume_result.setdefault("errors", []).append(f"{target}: {e}")
+                    continue
+                finally:
+                    resume_s[target] = round(time.monotonic() - t0, 3)
+                if resume_result.get("should_recover"):
+                    resume_result["resumed_on"] = target
+                    break
+        mark("client_resumed", **{k: v for k, v in resume_result.items()
+                                  if k != "recovery_channels"})
+
+        # ---- quiesce and census across the survivors ----
+        await b.cmd("quiesce", timeout=p.phase_timeout_s + 5.0, drain_s=p.phase_timeout_s)
+        qdeadline = time.monotonic() + p.phase_timeout_s
+        while time.monotonic() < qdeadline and (
+                plane._pending or plane._parked or journal.in_flight_count()):
+            await asyncio.sleep(0.1)
+        await asyncio.sleep(p.quiesce_s)
+        await b.cmd("report", timeout=15.0)
+        with open(b_report_path) as f:
+            b_report = json.load(f)
+        a_placement = fed_local_placement(P)
+        b_placement = dict(b_report["placement"])
+        local_dups_a = a_placement.pop("__local_dups__", [])
+        local_dups_b = b_placement.pop("__local_dups__", [])
+        a_control = global_control_report(P, baseline)
+
+        inv = P.invariants.InvariantChecker()
+        inv.expect_gt("shard_migrations_committed", committed_migrations, 0)
+        inv.check("imbalance_flattened_below_enter", flattened_imbalance < p.imbalance_enter,
+                  f"imbalance={flattened_imbalance} enter={p.imbalance_enter}")
+        inv.check("c_declared_dead", "c" in control.dead, "")
+        inv.expect_gt("shard_adopted", a_control["adoptions"] + b_report["control"]["adoptions"],
+                      0)
+        counts: dict = {}
+        for eid, cell in a_placement.items():
+            counts.setdefault(eid, []).append(("a", cell))
+        for eid, cell in b_placement.items():
+            counts.setdefault(eid, []).append(("b", cell))
+        missing = sorted(e for e in expected_ids if e not in counts)
+        duplicated = {e: w for e, w in counts.items() if len(w) > 1}
+        unexpected = sorted(e for e in counts if e not in expected_ids)
+        inv.expect_equal("every_entity_on_exactly_one_survivor",
+                         (missing, duplicated, unexpected, local_dups_a, local_dups_b),
+                         ([], {}, [], [], []))
+        for key, ledger in (("migrations", "ledger"), ("adoptions", "adoptions"),
+                            ("deaths", "deaths")):
+            inv.expect_equal(f"a_{key}_ledger_matches_metric", a_control[f"metric_{key}"],
+                             a_control[ledger])
+            inv.expect_equal(f"b_{key}_ledger_matches_metric",
+                             b_report["control"][f"metric_{key}"], b_report["control"][ledger])
+        inv.check("client_redirect_received", bool(redirect_result.get("redirect")),
+                  str(redirect_result))
+        inv.check("redirect_resumed_on_adopter_without_reauth",
+                  resume_result.get("should_recover", False)
+                  and resume_result.get("auth_result", -1) == 0
+                  and resume_result.get("recovery_end", False), str(resume_result))
+        inv.expect_equal("nothing_left_in_flight",
+                         (len(plane._pending), len(plane._parked), b_report["pending"],
+                          b_report["parked"], journal.in_flight_count()), (0, 0, 0, 0, 0))
+        suspects = list(duplicated) + missing
+        report = {
+            "kind": "global_soak", "duration_s": round(time.monotonic() - t_start, 2),
+            "entities": len(expected_ids),
+            "knobs": {"epoch_ms": p.epoch_ms, "death_miss_epochs": p.death_miss_epochs,
+                      "imbalance_enter": p.imbalance_enter,
+                      "trunk_timeout_ms": p.trunk_timeout_ms},
+            "directory": fed_cfg, "timeline": timeline,
+            "migration": {"committed": committed_migrations,
+                          "imbalance_after": round(flattened_imbalance, 4),
+                          "leader_ledger": dict(control.ledger)},
+            "adoption": {"dead": "c", "adopter": adopter, "killed_mid_burst": killed_mid_burst,
+                         "a": {k: a_control[k] for k in ("adoptions", "deaths", "counters")},
+                         "b": {k: b_report["control"][k]
+                               for k in ("adoptions", "deaths", "counters")},
+                         "declared_dead_after_s": round(t_dead - t_kill, 3)},
+            "redirect": {"issued": redirect_result.get("redirect"),
+                         "resume": {k: v for k, v in resume_result.items()
+                                    if k != "recovery_channels"},
+                         "resume_s": resume_s},
+            "gateways": {"a": {"ledger": dict(plane.ledger), "control": a_control,
+                               "journal": journal.report(), "events": plane.events[-400:],
+                               "spatial": type(ctl).__name__},
+                         "b": {k: v for k, v in b_report.items() if k != "placement"}},
+            "census": {"expected": len(expected_ids), "on_a": len(a_placement),
+                       "on_b": len(b_placement), "missing": missing,
+                       "duplicated": {str(k): v for k, v in duplicated.items()},
+                       "unexpected": unexpected,
+                       "forensics": {"a": entity_forensics(P, [int(e) for e in suspects]),
+                                     "b": {str(e): b_report.get("forensics", {}).get(str(e))
+                                           for e in suspects}}},
+            "boot": boot,
+            "invariants": inv.summary(),
+        }
+        if notes:
+            report["notes"] = notes
+        return report
+    finally:
+        stop.set()
+        if client_task is not None:
+            client_task.cancel()
+        stop_processes([b.proc, c.proc])
+        if gw is not None:
+            fed_teardown_gateway(P, gw)
+
+
+def check_global_soak(doc: dict) -> list:
+    """scripts/check_artifacts.py's ``_check_global_soak``: the global soak's
+    acceptance bar beyond key presence (the migration, exactly-one-survivor,
+    ledger == metrics and redirect-resume checks present; the census clean;
+    a committed migration). Returns the errors."""
+    errors: list = []
+    names = {c.get("name") for c in doc.get("invariants", {}).get("checks", [])}
+    for required in ("shard_migrations_committed", "imbalance_flattened_below_enter",
+                     "every_entity_on_exactly_one_survivor",
+                     "redirect_resumed_on_adopter_without_reauth"):
+        if required not in names:
+            errors.append(f"missing invariant check {required!r}")
+    if not any(n and n.endswith("_ledger_matches_metric") for n in names):
+        errors.append("no ledger==metrics invariant checks")
+    census = doc.get("census", {})
+    if census.get("missing") or census.get("duplicated") or census.get("unexpected"):
+        errors.append(f"adoption census not clean: {census}")
+    if not doc.get("migration", {}).get("committed"):
+        errors.append("no committed cross-gateway shard migration")
+    return errors
+
+
+def global_soak_checks(r: dict) -> list:
+    """17c's checks of one report, as (name, held, detail): every invariant
+    of scripts/global_soak.py under its own name (all 14 present), the copy
+    of scripts/check_artifacts.py's bar, tests/test_global_control.py's one
+    adoption, both children gateways of the port with no module of JAX or
+    of the JAX package (c's as its READY line said: it is killed before
+    any report), every gateway on the host grid."""
+    out = [(c["name"], c["ok"], c.get("detail", "")) for c in r["invariants"]["checks"]]
+    names = [name for name, _, _ in out]
+    ad, b = r["adoption"], r["gateways"]["b"]
+    modules = {"b": (r["boot"]["b"].get("modules"), b.get("modules")),
+               "c": (r["boot"]["c"].get("modules"),)}
+    spatial = (r["gateways"]["a"].get("spatial"), b.get("spatial"))
+    return out + [
+        ("all_14_invariants_checked", names == list(GLOBAL_INVARIANTS), names),
+        ("check_artifacts_global_soak", check_global_soak(r) == [], check_global_soak(r)),
+        ("exactly_one_adoption", ad["a"]["adoptions"] + ad["b"]["adoptions"] == 1,
+         (ad["a"]["adoptions"], ad["b"]["adoptions"])),
+        ("children_import_no_jax",
+         modules == {"b": ([], []), "c": ([],)}, modules),
+        ("every_gateway_on_the_host_grid", spatial == (HOST_GRID,) * 2, spatial)]
+
+
+def run_live(what: str, make) -> dict:
+    """``asyncio.run(make())``, retried once (and said so) when a child never
+    reached READY; any other failure stands."""
+    import asyncio
+
+    try:
+        return asyncio.run(make())
+    except ChildNotReady as e:
+        print(f"{what}: retried once, a child never reached READY: {e}")
+        return asyncio.run(make())
+
+
+def boot_line(boot: dict) -> str:
+    """The children's boots: Popen to READY, and its parts."""
+    return "; ".join(f"{gw} {b['boot_s']:.2f} s (numpy and torch imports {b['imports_s']:.2f} "
+                     f"s, the port's modules {b['modules_s']:.2f} s, the gateway's boot "
+                     f"{b['gateway_s']:.2f} s)" for gw, b in sorted(boot.items()))
+
+
+def phase_trace_fed(P, p: dict, scratch: str, live: dict) -> dict:
+    """17a: ``trace_fed_live`` held to the trace soak's phase-2 invariants."""
+    t_phase = time.perf_counter()
+    r = run_live("17a", lambda: trace_fed_live(P, p, scratch))
+    for name, ok, detail in trace_fed_checks(r, live):
+        check(ok, f"17a: {name}: {str(detail)[:300]}")
+    t = r["trunk_stage"]
+    print(f"17a trace federation live: scripts/trace_soak.py's phase 2 through the port, "
+          f"gateway a in-process and gateway b a `chip_smoke.py --live-child trace` process (no "
+          f"module of JAX or of the JAX package loaded), both on WORLD_SPATIAL's "
+          f"Static2DSpatialController (the host grid: no device, by the script's design); "
+          f"bursts {p['fed_burst']} + {p['fed_sever_burst']}, seed {p['seed']}; every check "
+          f"held: " + ", ".join(name for name, _, _ in trace_fed_checks(r, live))
+          + f" (the stages with 13b's); stitched traces {r['stitched_traces']}, committed {r['committed']}, severed "
+          f"{r['severed']}, aborted {r['aborted']}; example {r['example']}; trunk stage "
+          f"{t['count']} samples, mean / p50 / p99 {t['mean_ms']:.4f} / {t['p50_ms']:.4f} / "
+          f"{t['p99_ms']:.4f} ms; {len(r['abort_dumps'])} handover_abort dumps Perfetto-valid; "
+          f"b's ledger {r['b_ledger']}; child boot {boot_line(r['boot'])}; soak "
+          f"{r['duration_s']} s, phase {time.perf_counter() - t_phase:.1f} s")
+    return r
+
+
+def phase_obs_fed(P, p: dict, scratch: str) -> dict:
+    """17b: ``obs_fed_live`` held to the obs soak's phase-2 invariants."""
+    t_phase = time.perf_counter()
+    r = run_live("17b", lambda: obs_fed_live(P, p, scratch))
+    for name, ok, detail in obs_fed_checks(r):
+        check(ok, f"17b: {name}: {str(detail)[:300]}")
+    print(f"17b obs federation live: scripts/obs_soak.py's phase 2 through the port, gateway a "
+          f"in-process (ops surface on loopback) and gateway b a `chip_smoke.py --live-child "
+          f"obs` process (no module of JAX or of the JAX package loaded), both on "
+          f"WORLD_SPATIAL's Static2DSpatialController (the host grid: no device, by the "
+          f"script's design), the SLO and control planes on at a {p['fed_epoch_ms']} ms epoch, "
+          f"{p['fed_run_s']:g} s of traffic, seed {p['seed']}; every check held: "
+          + ", ".join(name for name, _, _ in obs_fed_checks(r))
+          + f"; digest exact on both legs, {r['labelsets_checked']} label sets of /fleet "
+          f"checked, gateways in the fleet {r['gateways_in_fleet']}, leader "
+          f"{r['leader']!r}; committed_handovers {r['committed_handovers']}, "
+          f"trunk_rtt_slo_tracked {r['trunk_rtt_slo_tracked']}; child boot "
+          f"{boot_line(r['boot'])}; soak {r['duration_s']} s, phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return r
+
+
+def phase_global_live(P, p: GlobalSoakParams, scratch: str) -> dict:
+    """17c: ``run_global_soak`` held to every invariant of the script and to
+    scripts/check_artifacts.py's bar."""
+    t_phase = time.perf_counter()
+    r = run_live("17c", lambda: run_global_soak(P, p, scratch))
+    for name, ok, detail in global_soak_checks(r):
+        check(ok, f"17c: {name}: {str(detail)[:300]}")
+    ad, mig, rd, cen = r["adoption"], r["migration"], r["redirect"], r["census"]
+    gws = {"a": r["gateways"]["a"]["control"], "b": r["gateways"]["b"]["control"]}
+    print(f"17c global live: scripts/global_soak.py's run_global_soak through the port, "
+          f"gateway a (the leader) in-process and gateways b and c `chip_smoke.py --live-child "
+          f"global` processes (no module of JAX or of the JAX package loaded), all on WORLD_3's "
+          f"Static2DSpatialController (the host grid: no device, by the script's design); "
+          f"{p.base_entities} entities a gateway, a hotspot of {p.hotspot}, a kill burst of "
+          f"{p.kill_burst}, {p.committed_to_c} committed to c, epoch {p.epoch_ms} ms, death "
+          f"after {p.death_miss_epochs} missed epochs; every invariant of the script held "
+          f"({len(r['invariants']['checks'])}) and check_artifacts' bar; migrations committed "
+          f"{mig['committed']} (imbalance after {mig['imbalance_after']}, leader ledger "
+          f"{mig['leader_ledger']}); c killed mid-burst {ad['killed_mid_burst']}, declared dead "
+          f"{ad['declared_dead_after_s']} s after the kill, adopted by {ad['adopter']}; "
+          + "; ".join(f"{g}: migrations {c['ledger']} = metric {c['metric_migrations']}, "
+                      f"adoptions {c['adoptions']} = {c['metric_adoptions']}, deaths "
+                      f"{c['deaths']} = {c['metric_deaths']}" for g, c in gws.items())
+          + f"; redirect {rd['issued']}, resumed {rd['resume']}, resume seconds per gateway "
+          f"tried {rd['resume_s']}; census {cen['on_a']} on a + {cen['on_b']} on b of "
+          f"{cen['expected']}, none missing, duplicated or unexpected; timeline "
+          f"{[(m['phase'], m['t']) for m in r['timeline']]}; children's boots "
+          f"{boot_line(r['boot'])}; soak {r['duration_s']} s, phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return r
+
+
+def phase_fleet_live(K, live: dict) -> dict:
+    """17a-17c, each with the kernels' counts set to 0 just before it and
+    read just after: every gateway runs the host grid, so each path must
+    launch no kernel. ``live``: 13b's stages, which phase 13 (or
+    ``--fleet-live``) ran before in this process, as the trace soak runs its
+    phase 1 before its phase 2. Returns {path: launches}."""
+    import shutil
+    import tempfile
+
+    P = gateway_modules()
+    t_phase = time.perf_counter()
+    launches: dict = {}
+    for path, run in (("trace_federation", lambda s: phase_trace_fed(P, trace_fed_params(), s,
+                                                                     live)),
+                      ("obs_federation", lambda s: phase_obs_fed(P, obs_fed_params(), s)),
+                      ("global_soak", lambda s: phase_global_live(P, GlobalSoakParams(), s))):
+        scratch = tempfile.mkdtemp(prefix=f"fleet-live-{path}-")
+        K.reset_launch_counts()
+        try:
+            run(scratch)
+        finally:
+            shutil.rmtree(scratch, ignore_errors=True)
+        launches[path] = K.launch_counts()
+        check(all(n == 0 for n in launches[path].values()),
+              f"17 {path}: kernels launched on a host-grid path: {launches[path]}")
+    print(f"phase 17: launches per path {launches} (every gateway on the host grid); "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main_soaks(agents: int, entities: int) -> int:
     """Phase 12 alone (after the device and build phases):
     ``python3 chip_smoke.py --soaks 1000 4096``."""
@@ -11659,7 +12762,7 @@ def main_chaos_overload() -> int:
         name, _ = phase_device()
         phase_build(K)
         phase_kernels(K, ops, dev)
-        phase_chaos_overload(K, dev)
+        phase_chaos_overload(K, dev, CpuLeg("14a", **GATEWAY_CAPACITIES))
     except PhaseFailed as e:
         report_failure(e)
         return 1
@@ -11714,6 +12817,35 @@ def main_crash() -> int:
     return 0
 
 
+def main_fleet_live() -> int:
+    """Phases 1-3, the trace and obs soaks' phase 1 (13b and 13d), then phase
+    17: ``python3 chip_smoke.py --fleet-live``. The scripts run their phase 2
+    after their phase 1 in one process, and two of 17's checks read what
+    phase 1 leaves: 17a's stage check 13b's stages, 17b's label-set count
+    the ones a's registry holds."""
+    from channeld_tpu_torch.ops import cuda_kernels as K
+    from channeld_tpu_torch.ops import spatial_ops as ops
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t_run = time.perf_counter()
+    try:
+        name, _ = phase_device()
+        phase_build(K)
+        phase_kernels(K, ops, dev)
+        n_dev = min(torch.cuda.device_count(), MESH_SHARDS)
+        live = phase_trace_live(K, dev, n_dev, trace_params())
+        phase_obs_live(K, dev, n_dev, obs_params())
+        phase_fleet_live(K, dict(stages=live["stages"], batched_ingest=live["batched_ingest"]))
+    except PhaseFailed as e:
+        report_failure(e)
+        return 1
+    print(f"chip_smoke --fleet-live: every phase passed in {time.perf_counter() - t_run:.1f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main_gateway(entities: int, ticks: int) -> int:
     """Phase 6a alone at another size (after the device and build
     phases): ``python3 chip_smoke.py --gateway 50000 30``."""
@@ -11724,7 +12856,7 @@ def main_gateway(entities: int, ticks: int) -> int:
     try:
         name, _ = phase_device()
         phase_build(K)
-        phase_gateway_lockstep(K, dev, gateway_size(entities, ticks))
+        phase_gateway_lockstep(K, dev, CpuLeg("6a", entities=entities, ticks=ticks))
     except PhaseFailed as e:
         report_failure(e)
         return 1
@@ -11784,7 +12916,7 @@ def main_recovery(entities: int, ticks: int) -> int:
     try:
         name, _ = phase_device()
         phase_build(K)
-        phase_recovery_lockstep(K, dev, recovery_size(entities, ticks))
+        phase_recovery_lockstep(K, dev, CpuLeg("10a", entities=entities, ticks=ticks))
     except PhaseFailed as e:
         report_failure(e)
         return 1
@@ -11827,6 +12959,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--crash-child"]:
         # 16b's gateway "b", on the crash soak's host grid: no card either.
         return crash_child(sys.argv[2], sys.argv[3], sys.argv[4], int(sys.argv[5]))
+    if sys.argv[1:2] == ["--live-child"]:
+        # Phase 17's gateways "b" and "c", on the scripts' host grid: no card.
+        return live_child(*sys.argv[2:7])
     if sys.argv[1:2] == ["--cpu-leg"]:
         # A lockstep phase's CPU leg, beside the parent's card leg.
         return cpu_leg_child(sys.argv[2], sys.argv[3])
@@ -11855,6 +12990,8 @@ def main() -> int:
         return main_fleet()
     if sys.argv[1:2] == ["--crash"]:
         return main_crash()
+    if sys.argv[1:2] == ["--fleet-live"]:
+        return main_fleet_live()
     if sys.argv[1:2] == ["--sim-child"]:
         return sim_child(sys.argv[2], *map(int, sys.argv[3:5]), *sys.argv[5:6])
     t_run = time.perf_counter()
@@ -11872,11 +13009,16 @@ def main() -> int:
         phase_build(K)
         entries = phase_kernels(K, ops, dev)
         laps("1-3")
+        # Each lockstep phase's CPU leg runs in a child started a phase or
+        # more early, beside phases whose host is mostly idle: 6a's beside
+        # phases 4-5, 10a's beside 8-9, 11a's and 11b's beside 10, 12b's
+        # beside 12a, 14a's beside 13, 16a's beside 15.
+        legs["gateway"] = CpuLeg("6a")
         launches = phase_main_path(K, service, dev)
         laps("4")
         sim_launches, sim_entries = phase_sim_world(K, engine_mod, ops, dev)
         laps("5")
-        gateway_launches = phase_gateway_lockstep(K, dev, gateway_size())
+        gateway_launches = phase_gateway_lockstep(K, dev, legs["gateway"])
         phase_gateway_live()
         phase_gateway_threads(K, engine_mod, ops, dev)
         laps("6")
@@ -11884,6 +13026,7 @@ def main() -> int:
         mesh_engine_launches = phase_mesh_engine(K, engine_mod, ops)
         mesh_gateway_launches = phase_mesh_gateway(K)
         laps("7")
+        legs["recovery"] = CpuLeg("10a")
         engine_launches = phase_engine_adapter(K, engine_size())
         unreal_launches = phase_unreal(K)
         phase_replay_live()
@@ -11891,11 +13034,8 @@ def main() -> int:
         phase_native_codec()
         phase_sidecar(service, dev)
         laps("9")
-        # 11a's and 11b's CPU legs run beside phase 10 (10c's live gateway
-        # mostly waits on its timed faults), 12b's beside 12a, 16a's beside
-        # phase 15.
         legs.update(elastic=CpuLeg("11a"), elastic_mesh=CpuLeg("11b"))
-        recovery_launches = phase_recovery_lockstep(K, dev, recovery_size())
+        recovery_launches = phase_recovery_lockstep(K, dev, legs["recovery"])
         phase_recovery_wedge(K, dev)
         phase_recovery_sticky()
         phase_recovery_live()
@@ -11907,15 +13047,18 @@ def main() -> int:
         legs["sensor"] = CpuLeg("12b")
         soak_launches, soak_entries = phase_soaks(K, dev, legs["sensor"])
         laps("12")
-        trace_obs_launches, trace_obs_entries = phase_trace_obs(K, dev)
+        legs["overload"] = CpuLeg("14a", **GATEWAY_CAPACITIES)
+        trace_obs_launches, trace_obs_entries, trace_live = phase_trace_obs(K, dev)
         laps("13")
-        chaos_launches, chaos_entries = phase_chaos_overload(K, dev)
+        chaos_launches, chaos_entries = phase_chaos_overload(K, dev, legs["overload"])
         laps("14")
         legs["crash"] = CpuLeg("16a")
         fleet_launches, fleet_entries = phase_fleet(K, dev)
         laps("15")
         crash_launches, crash_entries = phase_crash(K, dev, legs["crash"])
         laps("16")
+        fleet_live_launches = phase_fleet_live(K, trace_live)
+        laps("17")
     except PhaseFailed as e:
         report_failure(e)
         return 1
@@ -11944,7 +13087,10 @@ def main() -> int:
                               **{path: n[spec.name] for path, n in trace_obs_launches.items()},
                               **{path: n[spec.name] for path, n in chaos_launches.items()},
                               **{path: n[spec.name] for path, n in fleet_launches.items()},
-                              **{path: n[spec.name] for path, n in crash_launches.items()}},
+                              **{path: n[spec.name] for path, n in crash_launches.items()},
+                              **{path: n[spec.name]
+                                 for path, n in fleet_live_launches.items()}},
+            launches_by_path_notes={path: FLEET_LIVE_NOTE for path in fleet_live_launches},
             library_ms=None, **entries[spec.name],
             sim_path=dict(sim_entries[spec.name], library_ms=None),
             mesh_path=dict(mesh_entries[spec.name], launches_per_mesh_tick={

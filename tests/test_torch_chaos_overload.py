@@ -342,7 +342,7 @@ def test_overload_lockstep_on_the_card():
     cs = chip_smoke()
     K.build()
     launches, entries = cs.phase_overload_lockstep(
-        K, torch.device("cuda", 0), cs.overload_lockstep_params(**LOCKSTEP), 1)
+        K, torch.device("cuda", 0), cs.CpuLeg("14a", n_dev=1, **LOCKSTEP))
     assert launches["assign_count"] == launches["aoi"] > 0
     for name in ("assign_count", "aoi"):
         assert {e["max_abs_err"] for e in entries[name].values()} == {0}

@@ -40,7 +40,6 @@ EDITED = {
     "sim/authority.py": "reset_pending: a census taken into the live plane drops the attach "
                         "queue (F22)",
     "spatial/__init__.py": "exports GPUSpatialController (tpu_controller.py is not ported)",
-    "utils/__init__.py": "also exports resolve_device",
     "utils/devices.py": "cuda unless the caller asks for the CPU, never a JAX pin",
     "utils/logger.py": "its own root logger, so both packages' logs stay apart in one process",
     "ops/engine.py": "the engine on torch (ported)",

@@ -5,7 +5,8 @@ A fresh interpreter imports every module of ``channeld_tpu_torch`` (and
 ``jax`` nor any ``channeld_tpu`` module may be loaded. Without a CUDA
 device, the entry points (the engine, the sidecar, the gateway's spatial
 controller) raise unless they are given the CPU; with one, they land on
-it.
+it. The gateway's host layers import as the reference's do: without the
+device library (ROADMAP F26).
 """
 
 import os
@@ -121,3 +122,26 @@ def test_gateway_entry_point_help_exits_zero():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "-spatial-device" in out.stdout
+
+
+HOST_PROBE = r"""
+import sys
+import channeld_tpu_torch.core.server
+loaded = sorted(m for m in sys.modules
+                if m in ("torch", "jax", "channeld_tpu")
+                or m.startswith(("torch.", "jax.", "channeld_tpu.")))
+assert not loaded, loaded
+print("HOST ONLY")
+"""
+
+
+def test_the_gateway_host_layers_import_without_torch():
+    """``import channeld_tpu_torch.core.server`` in a fresh interpreter
+    leaves ``torch``, ``jax`` and ``channeld_tpu`` unloaded, as
+    ``import channeld_tpu.core.server`` leaves ``jax`` (F26: the ``utils``
+    package re-exported a torch module)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", HOST_PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "HOST ONLY" in out.stdout
