@@ -30,9 +30,9 @@ from dataclasses import dataclass, field
 BASELINE_FILE = "channeld_tpu_torch/analysis/baseline.json"
 
 # Directories and single files scanned for python modules (relative to
-# repo root): the port and the script that drives it on the card.
+# repo root): the port and the scripts that drive it on the card.
 PY_SCAN_DIRS = ("channeld_tpu_torch",)
-PY_SCAN_FILES = ("chip_smoke.py",)
+PY_SCAN_FILES = ("chip_smoke.py", "chip_host.py")
 _SKIP_PARTS = ("__pycache__",)
 _SKIP_SUFFIXES = ("_pb2.py",)
 

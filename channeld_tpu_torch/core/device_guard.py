@@ -66,14 +66,15 @@ import contextlib
 import math
 import time
 from enum import IntEnum
-from typing import Optional
-
-import torch
+from typing import TYPE_CHECKING, Optional
 
 from ..chaos.injector import chaos as _chaos
 from ..utils.logger import get_logger
 from .affinity import affinity as _affinity
 from .settings import global_settings
+
+if TYPE_CHECKING:
+    import torch
 
 logger = get_logger("device_guard")
 
@@ -127,6 +128,8 @@ def classify_failure(exc: BaseException) -> str:
     """'transient' or 'fatal' for one device-step exception."""
     if isinstance(exc, DeviceStepError):
         return "transient" if exc.transient else "fatal"
+    import torch  # deferred: a host-grid gateway never loads the device library
+
     if isinstance(exc, torch.OutOfMemoryError):
         return "transient"
     if is_sticky_cuda_error(exc):
@@ -146,6 +149,8 @@ def is_sticky_cuda_error(exc: BaseException) -> bool:
 def _on_device(device: torch.device):
     """The engine's CUDA device as the worker thread's current device."""
     if device.type == "cuda":
+        import torch
+
         return torch.cuda.device(device)
     return contextlib.nullcontext()
 

@@ -3,14 +3,16 @@
 The JAX package pins its backend to the CPU for tests
 (``channeld_tpu/utils/devices.py``); the port instead runs on the card
 unless the caller explicitly asks for the CPU, and never falls back to
-the CPU on its own.
+the CPU on its own. Torch is imported by the calls, not by the module:
+a host-grid gateway never loads it.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import TYPE_CHECKING, Optional, Union
 
-import torch
+if TYPE_CHECKING:
+    import torch
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -19,6 +21,8 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     Raises RuntimeError when CUDA is wanted (explicitly or by default)
     and no CUDA device is present, and ValueError for any other device
     type."""
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cpu":
         return dev
@@ -40,6 +44,8 @@ def mesh_devices(n: int, device: Optional[Union[str, torch.device]] = None) -> l
     repeated devices is built explicitly with ``parallel.mesh.make_mesh``."""
     if n < 1:
         raise ValueError(f"a mesh needs at least one device, got {n}")
+    import torch
+
     dev = resolve_device(device)
     if dev.type == "cpu":
         return [torch.device("cpu")] * n

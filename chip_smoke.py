@@ -13,15 +13,19 @@
     python3 chip_smoke.py --fleet              # phases 1-3, then phase 15 alone
     python3 chip_smoke.py --crash              # phases 1-3, then phase 16 alone
     python3 chip_smoke.py --fleet-live         # phases 1-3, 13b and 13d, then phase 17
+    python3 chip_smoke.py --edge               # phases 1-3, then phase 18
 
 The script starts its own children (none needs a card but a ``--cpu-leg``
-child's CUDA sync counters; each loads neither JAX nor the JAX package):
+child's CUDA sync counters; each loads neither JAX nor the JAX package). The
+host-grid roles live in ``chip_host.py`` and start before this script imports
+numpy or torch; they load neither:
 
     --fed-child CONFIG REPORT                  # 15b's gateway "b"
     --crash-child CONFIG REPORT STATE_DIR SEED # 16b's gateway "b", SIGKILLed twice
     --live-child ROLE GW CONFIG REPORT PARAMS  # phase 17's gateways: ROLE trace (17a's
                                                # "b"), obs (17b's "b") or global (17c's
                                                # "b" and "c"); PARAMS the role's JSON
+    --edge-child REPORT                        # phase 18's abuse soak, whole
     --cpu-leg PHASE SCRATCH                    # the CPU leg of 6a, 10a, 11a, 11b, 12b,
                                                # 14a or 16a at the size pickled in SCRATCH
     --sim-child WAL AGENTS CENSUS_EVERY DEVICE # 12a's kill leg
@@ -32,8 +36,8 @@ A child gateway is driven over its stdin, one JSON command a line
 takes force_l3, clear_l3, herd_back, quiesce, report, exit; a
 ``--crash-child`` spawn, herd_to, flush_wal, arm_torn, quiesce, report, exit;
 a ``--live-child`` report and exit, and as ``global`` also spawn, herd_to and
-quiesce. A ``--live-child`` prints ``READY`` with a JSON of its boot's parts
-and the modules of JAX or of the JAX package it loaded.
+quiesce. Each host-grid role prints ``READY`` with a JSON of its boot's parts
+and the modules of torch, of JAX or of the JAX package it loaded (none).
 
 Needs one CUDA card, nvcc, and the ``channeld_tpu_torch`` package beside
 this file; imports nothing of JAX or of ``channeld_tpu``. Phases (each
@@ -400,6 +404,15 @@ prints one line; any failure exits non-zero before the final line):
       leader-planned migration, c SIGKILLed mid-burst, its shard adopted,
       the redirected client resumed on a survivor, the census; its 14
       invariants and scripts/check_artifacts.py's bar.
+18. the abuse soak (``core/edge.py``, ``core/ddos.py``): scripts/abuse_soak.py's
+    run_abuse_soak at AbuseSoakParams(), cut nowhere (attack 14 s, quiesce 4
+    s, 8 honest clients at 30 msg/s, 3 slow readers under a 150/s flood of
+    8,192 B, 3 malformed-frame sources, 3 connect-flood IPs, auth deadline
+    1,200 ms), whole in a ``--edge-child`` process that loads no torch (its
+    gateway has no spatial controller, by the script's design, and runs no
+    kernel): its 22 invariants under their names and
+    scripts/check_artifacts.py's bar; the sessions per attacker class, the
+    four edge ledgers beside their metrics, census, delivery and RSS.
 
 The line before the last is a JSON object with one entry per kernel
 (times measured in this run at the sidecar path's shapes; bound from
@@ -416,36 +429,54 @@ each re-grid of 11a and 11b, ``soak_path`` each at the live tensors of
 ``chaos_overload_path`` at 14a's live tensors on its first overflowing
 tick and its first tick at L2 or above in the saturation window,
 ``fleet_path`` at 15a's live tensors after the inbound herd and after the
-adoption, ``crash_path`` at 16a's; phase 17's paths launch none, each noted
-in ``launches_by_path_notes``);
+adoption, ``crash_path`` at 16a's; the paths of phases 17 and 18 launch
+none, each noted in ``launches_by_path_notes``);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
-import contextlib
-import dataclasses
-import gc
-import hashlib
-import importlib.util
-import itertools
-import json
-import re
-import statistics
-import subprocess
-import sys
 import time
-import warnings
-from types import SimpleNamespace as NS
-from typing import Optional
 
-_T_IMPORTS = time.perf_counter()
+_T_IMPORTS = time.perf_counter()  # a host-grid child reports its imports' time
+
+import contextlib  # noqa: E402
+import dataclasses  # noqa: E402
+import gc  # noqa: E402
+import hashlib  # noqa: E402
+import importlib.util  # noqa: E402
+import itertools  # noqa: E402
+import json  # noqa: E402
+import os  # noqa: E402
+import re  # noqa: E402
+import statistics  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+import warnings  # noqa: E402
+from types import SimpleNamespace as NS  # noqa: E402
+from typing import Optional  # noqa: E402
+
+if os.path.dirname(os.path.abspath(__file__)) not in sys.path:
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import chip_host  # noqa: E402
+from chip_host import (  # noqa: E402
+    CLIENT_FSM, CRASH_BASE, CRASH_XR, CRASH_ZR, GLOBAL_BASE, GLOBAL_XR, GLOBAL_ZR, PHASE2_TRUNK,
+    SERVER_FSM, WORLD_3, WORLD_SPATIAL, AbuseSoakParams, CrashSoakParams, FedSim, FedSoakParams,
+    GlobalSoakParams, entity_alive, entity_forensics, fed_boot_gateway, fed_config, fed_config3,
+    fed_free_ports, fed_local_placement, fed_metric_delta, fed_pins, fed_teardown_gateway,
+    fed_trunk_metrics, gateway_modules, global_boot, global_control_report,
+    global_settings_hook, obs_fed_settings_hook, persistence_paths,
+    persistence_report, reset_gateway, soak_auth, soak_frame, soak_read_frames,
+    wal_pre_start_hook, wal_settings_hook)
+
+if __name__ == "__main__" and sys.argv[1:2] and sys.argv[1] in chip_host.ROLES:
+    # A host-grid child gateway (15b, 16b, 17, 18): it runs before numpy and
+    # torch are imported, and never imports either.
+    sys.exit(chip_host.run_role(sys.argv[1:], time.perf_counter() - _T_IMPORTS))
+
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# Seconds this script's imports of numpy and torch took (the fleet children
-# report it with their boot).
-IMPORT_S = time.perf_counter() - _T_IMPORTS
 SEED = 20261017
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM float32, outside the tensor cores
@@ -1543,53 +1574,6 @@ class GatewayConn:
         pass
 
 
-def gateway_modules(pkg: str = "channeld_tpu_torch") -> NS:
-    """The gateway's modules of one package: the port's, or (in the
-    tests, which drive phases 12 and 13 through both) a package with the
-    same module names."""
-    import importlib
-
-    names = dict(channel="core.channel", connection="core.connection", data="core.data",
-                 ddos="core.ddos", recovery="core.connection_recovery",
-                 message="core.message", settings="core.settings", types="core.types",
-                 sub="core.subscription", overload="core.overload", guard="core.device_guard",
-                 wal="core.wal", slo="core.slo", tracing="core.tracing", events="core.events",
-                 control_pb2="protocol.control_pb2", sim_pb2="models.sim_pb2",
-                 sim_models="models.sim", controller="spatial.controller",
-                 balancer="spatial.balancer", partition="spatial.partition",
-                 metrics="core.metrics",
-                 sim_plane="sim.plane", ops="ops.spatial_ops", logger="utils.logger",
-                 queryplane="spatial.queryplane",
-                 snapshot="core.snapshot", chaos="chaos", invariants="chaos.invariants",
-                 opshttp="core.opshttp", failover="core.failover",
-                 spatial_pb2="protocol.spatial_pb2", spatial_messages="spatial.messages",
-                 server="core.server", protocol="protocol", wire_pb2="protocol.wire_pb2",
-                 anyutil="utils.anyutil", federation="federation",
-                 fleet_obs="federation.obs")
-    return NS(port=pkg == "channeld_tpu_torch",
-              **{k: importlib.import_module(f"{pkg}.{v}") for k, v in names.items()})
-
-
-def reset_gateway(P, keep_census: bool = False) -> None:
-    """Every process-wide registry of the port's gateway back to boot
-    (but a census that a WAL replay staged, with ``keep_census``)."""
-    P.channel.reset_channels()
-    P.connection.reset_connections()
-    P.data.reset_registries()
-    P.ddos.reset_ddos()
-    P.recovery.reset_recovery()
-    P.controller.reset_spatial_controller()
-    P.overload.reset_overload()
-    P.guard.reset_device_guard()
-    P.balancer.reset_balancer()
-    P.partition.reset_partition()
-    P.wal.reset_wal()
-    P.slo.reset_slo()
-    P.tracing.reset_tracing()
-    if not keep_census:
-        P.sim_plane.reset_sim()
-    P.events.reset_all()
-    P.settings.reset_global_settings()
 
 
 class EntitySim:
@@ -5923,7 +5907,6 @@ TRACE_CELLS_CONFIG = "config/spatial_tpu_cells_2x2.json"
 SOAK_TABLES = dict(tpu_entity_capacity=256, tpu_query_capacity=32)  # both soaks' live phase
 OVERHEAD_TABLES = dict(tpu_entity_capacity=256, tpu_query_capacity=16)  # their phase 3
 DEFAULT_TABLES = dict(tpu_entity_capacity=1 << 17, tpu_query_capacity=4096)  # the gateway's
-SERVER_FSM, CLIENT_FSM = "config/server_authoritative_fsm.json", "config/client_authoritative_fsm.json"
 
 
 def trace_scenario(tick_budget_every: int = 300, dispatch_every: int = 200) -> dict:
@@ -6281,44 +6264,6 @@ def engine_tick_counter(eng) -> list:
     return ticks
 
 
-def soak_frame(P, msg_type: int, body: bytes, channel_id: int = 0) -> bytes:
-    return P.protocol.encode_packet(P.wire_pb2.Packet(messages=[P.wire_pb2.MessagePack(
-        channelId=channel_id, msgType=msg_type, msgBody=body)]))
-
-
-async def soak_read_frames(P, reader, on_pack, stop) -> None:
-    """Drain a socket into per-MessagePack callbacks until EOF or ``stop``."""
-    dec = P.protocol.FrameDecoder()
-    while not stop.is_set():
-        try:
-            data = await reader.read(65536)
-        except (ConnectionError, OSError):
-            return
-        if not data:
-            return
-        for packet in dec.decode_packets(data):
-            for mp in packet.messages:
-                on_pack(mp)
-
-
-async def soak_auth(P, reader, writer, pit: str, timeout: float = 5.0) -> None:
-    """AUTH and wait for the first frame back."""
-    import asyncio
-
-    writer.write(soak_frame(P, P.types.MessageType.AUTH, P.control_pb2.AuthMessage(
-        playerIdentifierToken=pit, loginToken="soak").SerializeToString()))
-    await writer.drain()
-    dec = P.protocol.FrameDecoder()
-    deadline = time.monotonic() + timeout
-    while True:
-        remaining = deadline - time.monotonic()
-        if remaining <= 0:
-            raise TimeoutError(f"auth timeout for {pit}")
-        data = await asyncio.wait_for(reader.read(65536), timeout=remaining)
-        if not data:
-            raise ConnectionError(f"closed during auth of {pit}")
-        if any(p.messages for p in dec.decode_packets(data)):
-            return
 
 
 class SoakStats:
@@ -8230,141 +8175,6 @@ def phase_chaos_overload(K, dev, cpu_leg: "CpuLeg") -> tuple:
 
 FLEET_SEED = 20260803  # scripts/federation_soak.py's and scripts/global_soak.py's seed
 
-# scripts/federation_soak.py's world: 4x4 cells of 50 m, two server blocks
-# (index 0 = columns 0-1, x < 0, gateway a; index 1 = columns 2-3, gateway b).
-WORLD_SPATIAL = {
-    "SpatialControllerType": "Static2DSpatialController",
-    "Config": {"WorldOffsetX": -100, "WorldOffsetZ": -100, "GridWidth": 50, "GridHeight": 50,
-               "GridCols": 4, "GridRows": 4, "ServerCols": 2, "ServerRows": 1,
-               "ServerInterestBorderSize": 0},
-}
-
-# scripts/global_soak.py's world: 6x4 cells of 50 m, three 2x4 shard blocks
-# (a = columns 0-1, x in [-150, -50); b = columns 2-3; c = columns 4-5).
-WORLD_3 = {
-    "SpatialControllerType": "Static2DSpatialController",
-    "Config": {"WorldOffsetX": -150, "WorldOffsetZ": -100, "GridWidth": 50, "GridHeight": 50,
-               "GridCols": 6, "GridRows": 4, "ServerCols": 3, "ServerRows": 1,
-               "ServerInterestBorderSize": 0},
-}
-# scripts/global_soak.py's per-gateway x ranges (strictly inside each shard), z
-# range and entity-id bases.
-GLOBAL_XR = {"a": (-148.0, -52.0), "b": (-48.0, 48.0), "c": (52.0, 148.0)}
-GLOBAL_ZR = (-98.0, 98.0)
-GLOBAL_BASE = {"a": 0, "b": 1000, "c": 2000}
-
-
-@dataclasses.dataclass
-class FedSoakParams:
-    """scripts/federation_soak.py's FedSoakParams."""
-    entities: int = 48
-    burst: int = 12
-    refusal_burst: int = 6
-    sever_burst: int = 12
-    herd_back: int = 8
-    phase_timeout_s: float = 20.0
-    quiesce_s: float = 3.0
-    child_boot_timeout_s: float = 60.0
-    retry_after_ms: int = 300
-    heartbeat_ms: int = 200
-    trunk_timeout_ms: int = 1200
-    handover_timeout_ms: int = 1500
-    global_tick_ms: int = 20
-    seed: int = 20260803
-    out_path: str = ""
-
-
-@dataclasses.dataclass
-class GlobalSoakParams:
-    """scripts/global_soak.py's GlobalSoakParams."""
-    seed: int = 20260803
-    base_entities: int = 10
-    hotspot: int = 36
-    kill_burst: int = 10
-    committed_to_c: int = 4
-    epoch_ms: int = 250
-    heartbeat_ms: int = 150
-    trunk_timeout_ms: int = 900
-    handover_timeout_ms: int = 1500
-    death_miss_epochs: int = 4
-    imbalance_enter: float = 1.25
-    phase_timeout_s: float = 25.0
-    quiesce_s: float = 2.0
-    child_boot_timeout_s: float = 60.0
-    global_tick_ms: int = 20
-    out_path: str = ""
-
-
-def fed_config(ports: dict) -> dict:
-    """scripts/federation_soak.py's ``_fed_config``: the two-gateway directory."""
-    return {"secret": "fed-soak-secret", "gateways": {
-        "a": {"trunk": f"127.0.0.1:{ports['a_trunk']}",
-              "client": f"127.0.0.1:{ports['a_client']}", "servers": [0]},
-        "b": {"trunk": f"127.0.0.1:{ports['b_trunk']}",
-              "client": f"127.0.0.1:{ports['b_client']}", "servers": [1]}}}
-
-
-def fed_config3(ports: dict) -> dict:
-    """scripts/global_soak.py's ``_fed_config3``: the three-gateway directory."""
-    return {"secret": "global-soak-secret", "gateways": {
-        gw: {"trunk": f"127.0.0.1:{ports[gw + '_trunk']}",
-             "client": f"127.0.0.1:{ports[gw + '_client']}", "servers": [i]}
-        for i, gw in enumerate(("a", "b", "c"))}}
-
-
-def global_settings_hook(p: GlobalSoakParams):
-    """scripts/global_soak.py's ``_settings_hook``: the control plane armed."""
-    def hook(gs) -> None:
-        gs.global_control_enabled = True
-        gs.global_epoch_ms = p.epoch_ms
-        gs.global_imbalance_enter = p.imbalance_enter
-        gs.global_imbalance_exit = p.imbalance_enter * 0.85
-        gs.global_hold_epochs = 2
-        gs.global_min_entity_delta = 8
-        gs.global_death_miss_epochs = p.death_miss_epochs
-        gs.global_budget_per_window = 8
-        gs.global_budget_window_epochs = 120
-        gs.global_cooldown_epochs = 8
-        gs.global_migrate_timeout_ms = 8000
-        gs.global_adopt_claims_timeout_ms = 800
-        gs.failover_enabled = True
-        gs.partition_enabled = False
-
-    return hook
-
-
-def fed_pins(P, p: FedSoakParams) -> None:
-    """scripts/federation_soak.py's ``boot_gateway`` settings (balancer,
-    partitioning, guard, SLO plane, control plane, recorder and WAL pinned
-    off; the ladder on with unreachable thresholds; its trunk and channel
-    timings)."""
-    gs = P.settings.global_settings
-    gs.development = True
-    gs.balancer_enabled = False
-    gs.partition_enabled = False
-    gs.device_guard_enabled = False
-    gs.slo_enabled = False
-    gs.global_control_enabled = False
-    gs.trace_enabled = False
-    gs.wal_path = ""
-    P.tracing.recorder.configure(enabled=False)
-    gs.overload_enabled = True
-    gs.overload_enter_thresholds = (99.0, 99.0, 99.0)
-    gs.overload_down_hold_s = 9999.0
-    gs.overload_retry_after_ms = p.retry_after_ms
-    gs.federation_heartbeat_ms = p.heartbeat_ms
-    gs.federation_trunk_timeout_ms = p.trunk_timeout_ms
-    gs.federation_handover_timeout_ms = p.handover_timeout_ms
-    gs.federation_reconnect_base_ms = 50
-    gs.federation_reconnect_max_ms = 500
-    CT = P.types.ChannelType
-    gs.channel_settings = {
-        CT.GLOBAL: P.settings.ChannelSettings(tick_interval_ms=p.global_tick_ms,
-                                              default_fanout_interval_ms=50),
-        CT.SPATIAL: P.settings.ChannelSettings(tick_interval_ms=50,
-                                               default_fanout_interval_ms=100),
-        CT.ENTITY: P.settings.ChannelSettings(tick_interval_ms=50,
-                                              default_fanout_interval_ms=100)}
 
 
 # 15a's ticks of a fixed 50 ms clock: one control epoch (250 ms) is 5 ticks, the
@@ -9180,305 +8990,6 @@ def fed_auth_frame(P, pit: str) -> bytes:
         playerIdentifierToken=pit, loginToken="fed-soak").SerializeToString())
 
 
-async def fed_boot_gateway(P, gw_id: str, fed_cfg: dict, params: FedSoakParams, stop,
-                           scratch: str, expect_cells: int = 8, settings_hook=None,
-                           pre_start_hook=None, world: Optional[dict] = None) -> dict:
-    """scripts/federation_soak.py's ``boot_gateway`` through one package's
-    modules: every singleton reset, the soak's pins (then
-    ``settings_hook(global_settings)``), listeners on loopback, the master
-    possessing GLOBAL and one spatial server claiming the local block of
-    ``world`` (default WORLD_SPATIAL) over TCP, ``pre_start_hook()``, the
-    federation plane armed and started (its trunks)."""
-    import asyncio
-    import os
-
-    reset_gateway(P)
-    P.failover.reset_failover()
-    P.federation.reset_federation()
-    fed_pins(P, params)
-    if settings_hook is not None:
-        settings_hook(P.settings.global_settings)
-    P.sim_models.register_sim_types()
-    P.connection.init_connections(SERVER_FSM, CLIENT_FSM)
-    P.channel.init_channels()
-    P.ddos.init_anti_ddos()
-    spatial_path = os.path.join(scratch, f"fed_soak_spatial_{gw_id}_{os.getpid()}.json")
-    with open(spatial_path, "w") as f:
-        json.dump(world if world is not None else WORLD_SPATIAL, f)
-    P.controller.init_spatial_controller(spatial_path)
-    ctl = P.controller.get_spatial_controller()
-    P.federation.init_federation(fed_cfg, gw_id, ctl)
-    MT, CT = P.types.MessageType, P.types.ChannelType
-    host = "127.0.0.1"
-    client_port = int(fed_cfg["gateways"][gw_id]["client"].rpartition(":")[2])
-    server_srv = await P.server.start_listening(P.types.ConnectionType.SERVER, "tcp", f"{host}:0")
-    server_port = server_srv.sockets[0].getsockname()[1]
-    client_srv = await P.server.start_listening(P.types.ConnectionType.CLIENT, "tcp",
-                                                f"{host}:{client_port}")
-    tasks = [asyncio.ensure_future(P.server.flush_loop()),
-             asyncio.ensure_future(P.ddos.unauth_reaper_loop()),
-             asyncio.ensure_future(P.recovery.connection_recovery_loop())]
-    writers = []
-    for pit, create in ((f"fed-master-{gw_id}", P.control_pb2.CreateChannelMessage(
-            channelType=CT.GLOBAL)), (f"fed-spatial-{gw_id}", P.control_pb2.CreateChannelMessage(
-            channelType=CT.SPATIAL, subOptions=P.control_pb2.ChannelSubscriptionOptions(
-                dataAccess=P.types.ChannelDataAccess.WRITE_ACCESS)))):
-        reader, writer = await asyncio.open_connection(host, server_port)
-        await soak_auth(P, reader, writer, pit, timeout=8.0)
-        writer.write(soak_frame(P, MT.CREATE_CHANNEL, create.SerializeToString()))
-        await writer.drain()
-        tasks.append(asyncio.ensure_future(soak_read_frames(P, reader, lambda mp: None, stop)))
-        writers.append(writer)
-    gs = P.settings.global_settings
-    start_id, end_id = gs.spatial_channel_id_start, gs.entity_channel_id_start
-    deadline = time.monotonic() + 20.0
-    while time.monotonic() < deadline:
-        cells = [ch for cid, ch in P.channel.all_channels().items() if start_id <= cid < end_id]
-        if len(cells) == expect_cells and all(ch.has_owner() for ch in cells):
-            break
-        await asyncio.sleep(0.05)
-    else:
-        raise RuntimeError(f"gateway {gw_id}: local shard failed to come up")
-    if pre_start_hook is not None:
-        pre_start_hook()
-    plane = P.federation.plane
-    await plane.start()
-    return dict(ctl=ctl, plane=plane, tasks=tasks, writers=writers,
-                servers=[server_srv, client_srv], spatial_path=spatial_path,
-                client_port=client_port)
-
-
-def fed_teardown_gateway(P, gw: dict) -> None:
-    """scripts/federation_soak.py's ``teardown_gateway``."""
-    import os
-
-    P.federation.reset_federation()
-    P.wal.reset_wal()
-    for t in gw.get("tasks", []):
-        t.cancel()
-    for w in gw.get("writers", []):
-        w.close()
-    for s in gw.get("servers", []):
-        s.close()
-    reset_gateway(P)
-    P.failover.reset_failover()
-    with contextlib.suppress(OSError):
-        os.remove(gw.get("spatial_path", ""))
-
-
-class FedSim:
-    """scripts/federation_soak.py's FedSim: entities created in the local
-    shard and moved through the entity channels' merge and notify path;
-    those handed to the peer vanish locally and leave the drive set."""
-
-    def __init__(self, P, ctl, rng):
-        self.P, self.ctl, self.rng = P, ctl, rng
-        self.entity_ids: list = []
-
-    def local_ids(self) -> list:
-        return [e for e in self.entity_ids if self.P.channel.get_channel(e) is not None]
-
-    def adopt_scan(self) -> None:
-        known = set(self.entity_ids)
-        estart = self.P.settings.global_settings.entity_channel_id_start
-        for cid in self.P.channel.all_channels():
-            if cid > estart and cid not in known:
-                self.entity_ids.append(cid)
-
-    def create_entities(self, n: int, x0: float, x1: float, z0: float, z1: float,
-                        base: int = 0) -> None:
-        P = self.P
-        estart = P.settings.global_settings.entity_channel_id_start
-        for i in range(n):
-            eid = estart + 1 + base + i
-            x, z = self.rng.uniform(x0, x1), self.rng.uniform(z0, z1)
-            cell_ch = P.channel.get_channel(self.ctl.get_channel_id(P.controller.SpatialInfo(x, 0, z)))
-            owner = cell_ch.get_owner()
-            ch = P.channel.create_entity_channel(eid, owner)
-            d = P.sim_pb2.SimEntityChannelData()
-            d.state.entityId = eid
-            d.state.transform.position.x = x
-            d.state.transform.position.z = z
-            ch.init_data(d, None)
-            ch.spatial_notifier = self.ctl
-            if owner is not None:
-                P.sub.subscribe_to_channel(owner, ch, None)
-            cell_ch.execute(lambda c, e=eid, dd=d: c.get_data_message().add_entity(e, dd))
-            self.entity_ids.append(eid)
-
-    def move(self, eid: int, x: float, z: float) -> bool:
-        P = self.P
-        ch = P.channel.get_channel(eid)
-        if ch is None or ch.is_removing():
-            return False
-        upd = P.sim_pb2.SimEntityChannelData()
-        upd.state.entityId = eid
-        upd.state.transform.position.x = x
-        upd.state.transform.position.z = z
-
-        def apply(c, u=upd):
-            owner = c.get_owner()
-            c.data.on_update(u, c.get_time(), owner.id if owner is not None else 0, self.ctl)
-
-        ch.execute(apply)
-        return True
-
-    def herd(self, ids: list, x0: float, x1: float, z0: float, z1: float) -> list:
-        return [eid for eid in ids
-                if self.move(eid, self.rng.uniform(x0, x1), self.rng.uniform(z0, z1))]
-
-    def jitter(self, x0: float, x1: float, z0: float, z1: float) -> None:
-        ids = self.local_ids()
-        for eid in self.rng.sample(ids, max(1, len(ids) // 6)):
-            self.move(eid, self.rng.uniform(x0, x1), self.rng.uniform(z0, z1))
-
-
-def fed_local_placement(P) -> dict:
-    """scripts/federation_soak.py's ``local_placement``: entity id -> cell
-    over every local cell (duplicates within the gateway under
-    ``__local_dups__``)."""
-    gs = P.settings.global_settings
-    placement: dict = {}
-    counts: dict = {}
-    for cid, ch in P.channel.all_channels().items():
-        if not gs.spatial_channel_id_start <= cid < gs.entity_channel_id_start:
-            continue
-        ents = getattr(ch.get_data_message(), "entities", None)
-        if ents is None:
-            continue
-        for eid in ents:
-            placement[str(eid)] = cid
-            counts[eid] = counts.get(eid, 0) + 1
-    dups = sorted(e for e, n in counts.items() if n > 1)
-    if dups:
-        placement["__local_dups__"] = dups
-    return placement
-
-
-def fed_metric_delta(P, baseline: dict) -> dict:
-    """federation_handover_total{result} deltas (the ledger's far side)."""
-    inv = P.invariants
-    return {dict(labels)["result"]: int(v) for (name, labels), v in
-            inv.delta(inv.scrape(), baseline).items()
-            if name == "federation_handover_total" and v}
-
-
-def fed_trunk_metrics(P, baseline: dict) -> dict:
-    inv = P.invariants
-    d = inv.delta(inv.scrape(), baseline)
-    return {"trunk_msgs_out": int(inv.sample_total(d, "trunk_msgs_total", direction="out")),
-            "trunk_msgs_in": int(inv.sample_total(d, "trunk_msgs_total", direction="in")),
-            "redirects_total": int(inv.sample_total(d, "redirects_total")),
-            "trunk_rtt_ms_p50": inv.histogram_quantile(d, "trunk_rtt_ms", 0.50),
-            "trunk_rtt_ms_p99": inv.histogram_quantile(d, "trunk_rtt_ms", 0.99)}
-
-
-def fed_free_ports(n: int) -> list:
-    """scripts/federation_soak.py's ``_free_ports``: n distinct free ports."""
-    import socket
-
-    socks, ports = [], []
-    for _ in range(n):
-        s = socket.socket()
-        s.bind(("127.0.0.1", 0))
-        socks.append(s)
-        ports.append(s.getsockname()[1])
-    for s in socks:
-        s.close()
-    return ports
-
-
-def foreign_modules() -> list:
-    """Modules of JAX or of the JAX package loaded in this process."""
-    return sorted(m for m in sys.modules
-                  if m in ("jax", "channeld_tpu") or m.startswith(("jax.", "channeld_tpu.")))
-
-
-async def fed_child_main(config: str, report_path: str) -> None:
-    """scripts/federation_soak.py's ``remote_main`` (gateway "b") through the
-    port, driven over stdin: force_l3, clear_l3, herd_back, quiesce,
-    report, exit. Its report also lists the modules of JAX or of the JAX
-    package it loaded (none)."""
-    import asyncio
-
-    from random import Random
-
-    import os
-
-    P = gateway_modules()
-    with open(config) as f:
-        fed_cfg = json.load(f)
-    p = FedSoakParams()
-    stop = asyncio.Event()
-    scratch = os.path.dirname(os.path.abspath(report_path))
-    gw = await fed_boot_gateway(P, "b", fed_cfg, p, stop, scratch)
-    plane, ctl = gw["plane"], gw["ctl"]
-    journal, governor = P.failover.journal, P.overload.governor
-    sim = FedSim(P, ctl, Random(p.seed ^ 0xB))
-    baseline = P.invariants.scrape()
-    print("READY", flush=True)
-
-    async def jitter_loop():
-        while not stop.is_set():
-            sim.adopt_scan()
-            if sim.local_ids():
-                sim.jitter(2.0, 98.0, -98.0, 98.0)  # stay inside shard b
-            await asyncio.sleep(0.15)
-
-    jitter_task = asyncio.ensure_future(jitter_loop())
-    loop = asyncio.get_running_loop()
-    reader = asyncio.StreamReader()
-    await loop.connect_read_pipe(lambda: asyncio.StreamReaderProtocol(reader), sys.stdin)
-    while True:
-        line = await reader.readline()
-        if not line:
-            break
-        try:
-            cmd = json.loads(line)
-        except ValueError:
-            continue
-        name = cmd.get("cmd")
-        if name == "force_l3":
-            governor._move(3)
-            print("OK force_l3", flush=True)
-        elif name == "clear_l3":
-            governor._move(0, forced=True)
-            print("OK clear_l3", flush=True)
-        elif name == "herd_back":
-            sim.adopt_scan()
-            moved = sim.herd(sim.local_ids()[: int(cmd.get("n", 8))], -98.0, -2.0, -98.0, 98.0)
-            print(f"OK herd_back {len(moved)}", flush=True)
-        elif name == "quiesce":
-            until = time.monotonic() + float(cmd.get("drain_s", 10.0))
-            jitter_task.cancel()
-            while time.monotonic() < until and (plane._pending or plane._parked
-                                                or journal.in_flight_count()):
-                await asyncio.sleep(0.1)
-            print("OK quiesce", flush=True)
-        elif name == "report":
-            report = dict(gateway="b", ledger=dict(plane.ledger), busy_frames=plane.busy_frames,
-                          metric_delta=fed_metric_delta(P, baseline),
-                          trunk=fed_trunk_metrics(P, baseline), placement=fed_local_placement(P),
-                          pending=len(plane._pending), parked=len(plane._parked),
-                          journal=journal.report(), events=plane.events[-200:],
-                          overload_transitions=governor.transitions,
-                          modules=foreign_modules(), spatial=type(ctl).__name__)
-            with open(report_path, "w") as f:
-                json.dump(report, f)
-            print("OK report", flush=True)
-        elif name == "exit":
-            break
-    stop.set()
-    jitter_task.cancel()
-    fed_teardown_gateway(P, gw)
-
-
-def fed_child(config: str, report_path: str) -> int:
-    """``chip_smoke.py --fed-child CONFIG REPORT``: 15b's gateway "b"."""
-    import asyncio
-
-    asyncio.run(fed_child_main(config, report_path))
-    return 0
 
 
 async def wait_redirect(P, host: str, port: int, pit: str, result: dict, stop) -> None:
@@ -9598,6 +9109,13 @@ class FedChild:
         return await self.wait_for(f"OK {name}", timeout)
 
 
+def child_boot(child: FedChild, line: str) -> dict:
+    """A host-grid child's boot from its READY line: the JSON's parts (and
+    its foreign modules) with ``boot_s``, Popen to READY."""
+    info = json.loads(line[len("READY"):].strip() or "{}")
+    return dict(info, boot_s=round(time.perf_counter() - child.t0, 3))
+
+
 async def run_fed_soak(P, p: FedSoakParams, scratch: str) -> dict:
     """scripts/federation_soak.py's ``run_fed_soak`` through the port: gateway
     "a" in-process on this asyncio loop, gateway "b" a ``--fed-child`` process
@@ -9620,11 +9138,12 @@ async def run_fed_soak(P, p: FedSoakParams, scratch: str) -> dict:
     with open(cfg_path, "w") as f:
         json.dump(fed_cfg, f)
     here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
     with open(log_path, "w") as log:
         child_proc = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--fed-child", cfg_path, report_path],
             cwd=here, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=log, text=True)
-    child = FedChild(child_proc)
+    child = FedChild(child_proc, t0)
     stop = asyncio.Event()
     gw = None
     timeline: list = []
@@ -9635,7 +9154,7 @@ async def run_fed_soak(P, p: FedSoakParams, scratch: str) -> dict:
 
     try:
         try:
-            await child.wait_for("READY", p.child_boot_timeout_s)
+            boot = child_boot(child, await child.wait_for("READY", p.child_boot_timeout_s))
         except (RuntimeError, TimeoutError) as e:
             with open(log_path) as f:
                 tail = f.read()[-600:]
@@ -9807,6 +9326,7 @@ async def run_fed_soak(P, p: FedSoakParams, scratch: str) -> dict:
                           "metric_delta": a_metric, "trunk": fed_trunk_metrics(P, baseline),
                           "spatial": type(ctl).__name__},
             "gateway_b": b_report,
+            "boot": {"b": boot},
             "census": {"expected": len(expected), "on_a": len(a_placement),
                        "on_b": len(b_placement), "missing": missing,
                        "duplicated": {str(k): v for k, v in duplicated.items()}},
@@ -9835,7 +9355,7 @@ def fed_soak_checks(r: dict) -> list:
     """15b's checks of one report, as (name, held, detail): every invariant
     of scripts/federation_soak.py under its own name, then
     tests/test_federation.py::test_federation_smoke_soak's bars, the child
-    a gateway of the port with no module of JAX or of the JAX package."""
+    a gateway of the port with no module of torch, of JAX or of the JAX package."""
     out = [(c["name"], c["ok"], c.get("detail", "")) for c in r["invariants"]["checks"]]
     st, census, b = r["stats"], r["census"], r["gateway_b"]
     return out + [
@@ -9875,14 +9395,15 @@ def phase_fed_live(p: FedSoakParams) -> dict:
     st, a, b = r["stats"], r["gateway_a"], r["gateway_b"]
     print(f"15b federation live: scripts/federation_soak.py's run_fed_soak through the port, "
           f"gateway a in-process and gateway b a `chip_smoke.py --fed-child` process (no module "
-          f"of JAX or of the JAX package loaded), both on WORLD_SPATIAL's "
+          f"of torch, of JAX or of the JAX package loaded), both on WORLD_SPATIAL's "
           f"Static2DSpatialController: this fleet touches no device, by the script's own "
           f"design; {p.entities} entities, bursts {p.burst} / {p.refusal_burst} / "
           f"{p.sever_burst} / {p.herd_back}; every invariant of the script held "
           f"({len(r['invariants']['checks'])}); stats {st}; trunk a {a['trunk']}; census "
           f"{r['census']['on_a']} on a + {r['census']['on_b']} on b of "
           f"{r['census']['expected']}, none missing or duplicated; timeline "
-          f"{[(m['phase'], m['t']) for m in r['timeline']]}; soak {r['duration_s']} s, phase "
+          f"{[(m['phase'], m['t']) for m in r['timeline']]}; child boot "
+          f"{boot_line(r['boot'])}; soak {r['duration_s']} s, phase "
           f"{time.perf_counter() - t_phase:.1f} s")
     return r
 
@@ -9898,65 +9419,6 @@ def phase_fleet(K, dev) -> tuple:
 
 # ---- phase 16: the crash soak: a GPU-controlled gateway SIGKILLed and restarted ----
 
-# scripts/crash_soak.py's per-gateway x ranges (strictly inside each half of
-# WORLD_SPATIAL), z range and entity-id bases.
-CRASH_XR = {"a": (-98.0, -2.0), "b": (2.0, 98.0)}
-CRASH_ZR = (-98.0, 98.0)
-CRASH_BASE = {"a": 0, "b": 1000}
-
-
-@dataclasses.dataclass
-class CrashSoakParams:
-    """scripts/crash_soak.py's CrashSoakParams."""
-    seed: int = 20260804
-    base_entities: int = 12
-    committed_each_way: int = 4
-    kill_burst: int = 8
-    phases: tuple = ("reclaim", "adopt")
-    epoch_ms: int = 250
-    epoch_ms_b: int = 10_000
-    death_miss_epochs: int = 4
-    heartbeat_ms: int = 150
-    trunk_timeout_ms: int = 900
-    handover_timeout_ms: int = 1500
-    global_tick_ms: int = 20
-    fsync_ms: float = 10.0
-    snapshot_interval_s: float = 2.0
-    restart_deadline_s: float = 90.0
-    phase_timeout_s: float = 30.0
-    quiesce_s: float = 2.0
-    child_boot_timeout_s: float = 90.0
-    out_path: str = ""
-    state_dir: str = ""
-
-
-def persistence_paths(state_dir: str, gw_id: str) -> tuple:
-    """scripts/crash_soak.py's ``persistence_paths``: (snapshot, WAL)."""
-    import os
-
-    return (os.path.join(state_dir, f"gw_{gw_id}.snap"),
-            os.path.join(state_dir, f"gw_{gw_id}.wal"))
-
-
-def wal_settings_hook(gw_id: str, state_dir: str, p: CrashSoakParams):
-    """scripts/crash_soak.py's ``wal_settings_hook``: the control plane armed
-    (gateway a's epoch 250 ms, b's 10 s), failover on, partitioning off, the
-    snapshot and the WAL armed."""
-    snap_path, wal_path = persistence_paths(state_dir, gw_id)
-
-    def hook(gs) -> None:
-        gs.global_control_enabled = True
-        gs.global_epoch_ms = p.epoch_ms if gw_id == "a" else p.epoch_ms_b
-        gs.global_death_miss_epochs = p.death_miss_epochs
-        gs.global_min_entity_delta = 10_000
-        gs.failover_enabled = True
-        gs.partition_enabled = False
-        gs.snapshot_path = snap_path
-        gs.snapshot_interval_s = p.snapshot_interval_s
-        gs.wal_path = wal_path
-        gs.wal_fsync_ms = p.fsync_ms
-
-    return hook
 
 
 # 16a's ticks of a fixed 50 ms clock: stub a's control epoch (250 ms) is 5
@@ -10996,134 +10458,6 @@ def crash_checks(obs: list, r: dict) -> list:
 # ---- 16b: scripts/crash_soak.py's live two-process run through the port ------
 
 
-def wal_pre_start_hook(P, gw_id: str, state_dir: str, sink: dict):
-    """scripts/crash_soak.py's ``wal_pre_start_hook``: replay the snapshot
-    and the WAL (a no-op on a virgin state dir) and start the journal
-    writer, before the plane starts."""
-    def hook() -> None:
-        snap_path, wal_path = persistence_paths(state_dir, gw_id)
-        t0 = time.monotonic()
-        sink["replay"] = P.wal.boot_replay(snap_path, wal_path)
-        sink["replay"]["wall_s"] = round(time.monotonic() - t0, 3)
-        P.wal.wal.start(wal_path, initial_seq=sink["replay"].get("max_seq", 0))
-
-    return hook
-
-
-def wal_metric_delta(P, baseline: dict) -> dict:
-    """scripts/crash_soak.py's ``wal_metric_delta``: wal_records_total{kind},
-    wal_replayed_total{kind} and resurrection_total{outcome} since
-    ``baseline``."""
-    inv = P.invariants
-    out: dict = {"records": {}, "replayed": {}, "resurrection": {}}
-    for (name, labels), value in inv.delta(inv.scrape(), baseline).items():
-        if not value:
-            continue
-        if name == "wal_records_total":
-            out["records"][dict(labels)["kind"]] = int(value)
-        elif name == "wal_replayed_total":
-            out["replayed"][dict(labels)["kind"]] = int(value)
-        elif name == "resurrection_total":
-            out["resurrection"][dict(labels)["outcome"]] = int(value)
-    return out
-
-
-def persistence_report(P, baseline: dict, replay: dict) -> dict:
-    """scripts/crash_soak.py's ``persistence_report``."""
-    return {"wal": P.wal.wal.report(), "replay": replay,
-            "metric": wal_metric_delta(P, baseline),
-            "resurrections": dict(P.federation.control.resurrections)}
-
-
-async def crash_child_main(config: str, report_path: str, state_dir: str, seed: int) -> None:
-    """scripts/crash_soak.py's ``remote_main`` (gateway "b", the crash victim)
-    through the port, driven over stdin: spawn, herd_to, flush_wal,
-    arm_torn, quiesce, report, exit. Its report also lists the modules of
-    JAX or of the JAX package it loaded (none) and its controller."""
-    import asyncio
-    import os
-
-    from random import Random
-
-    P = gateway_modules()
-    baseline = P.invariants.scrape()  # before any WAL/replay counter moves
-    with open(config) as f:
-        fed_cfg = json.load(f)
-    p = CrashSoakParams()
-    fp = FedSoakParams(heartbeat_ms=p.heartbeat_ms, trunk_timeout_ms=p.trunk_timeout_ms,
-                       handover_timeout_ms=p.handover_timeout_ms, global_tick_ms=p.global_tick_ms)
-    stop = asyncio.Event()
-    sink: dict = {"replay": {}}
-    scratch = os.path.dirname(os.path.abspath(report_path))
-    gw = await fed_boot_gateway(P, "b", fed_cfg, fp, stop, scratch,
-                                settings_hook=wal_settings_hook("b", state_dir, p),
-                                pre_start_hook=wal_pre_start_hook(P, "b", state_dir, sink))
-    plane, ctl = gw["plane"], gw["ctl"]
-    journal, wal = P.failover.journal, P.wal.wal
-    snap_path, _ = persistence_paths(state_dir, "b")
-    snap_task = asyncio.ensure_future(P.snapshot.snapshot_loop(snap_path, p.snapshot_interval_s))
-    sim = FedSim(P, ctl, Random(seed ^ 0xB))
-    print("READY", flush=True)
-    loop = asyncio.get_running_loop()
-    reader = asyncio.StreamReader()
-    await loop.connect_read_pipe(lambda: asyncio.StreamReaderProtocol(reader), sys.stdin)
-    while True:
-        line = await reader.readline()
-        if not line:
-            break
-        try:
-            cmd = json.loads(line)
-        except ValueError:
-            continue
-        name = cmd.get("cmd")
-        if name == "spawn":
-            sim.create_entities(int(cmd["n"]), *CRASH_XR["b"], *CRASH_ZR,
-                                base=CRASH_BASE["b"] + int(cmd.get("offset", 0)))
-            print(f"OK spawn {cmd['n']}", flush=True)
-        elif name == "herd_to":
-            sim.adopt_scan()
-            moved = sim.herd(sim.local_ids()[: int(cmd.get("n", 4))], *CRASH_XR[cmd["gw"]],
-                             *CRASH_ZR)
-            print(f"OK herd_to {len(moved)}", flush=True)
-        elif name == "flush_wal":
-            ok = await asyncio.to_thread(wal.flush, 10.0)
-            print(f"OK flush_wal {ok}", flush=True)
-        elif name == "arm_torn":
-            P.chaos.arm({"seed": seed, "faults": [
-                {"point": "wal.torn_write", "every_n": 1, "max_fires": 1}]})
-            wal.log_flip([], 0)  # the record that tears
-            await asyncio.to_thread(wal.flush, 5.0)
-            print("OK arm_torn", flush=True)
-        elif name == "quiesce":
-            deadline = time.monotonic() + float(cmd.get("drain_s", 10.0))
-            while time.monotonic() < deadline and (plane._pending or plane._parked
-                                                   or journal.in_flight_count()):
-                await asyncio.sleep(0.1)
-            print("OK quiesce", flush=True)
-        elif name == "report":
-            report = dict(gateway="b", ledger=dict(plane.ledger),
-                          persistence=persistence_report(P, baseline, sink["replay"]),
-                          placement=fed_local_placement(P), pending=len(plane._pending),
-                          parked=len(plane._parked), journal=journal.report(),
-                          events=plane.events[-300:], modules=foreign_modules(),
-                          spatial=type(ctl).__name__)
-            with open(report_path, "w") as f:
-                json.dump(report, f)
-            print("OK report", flush=True)
-        elif name == "exit":
-            break
-    stop.set()
-    snap_task.cancel()
-    fed_teardown_gateway(P, gw)
-
-
-def crash_child(config: str, report_path: str, state_dir: str, seed: int) -> int:
-    """``chip_smoke.py --crash-child CONFIG REPORT STATE_DIR SEED``: 16b's
-    gateway "b"."""
-    import asyncio
-
-    asyncio.run(crash_child_main(config, report_path, state_dir, seed))
-    return 0
 
 
 async def run_crash_soak(P, p: CrashSoakParams, scratch: str) -> dict:
@@ -11156,6 +10490,7 @@ async def run_crash_soak(P, p: CrashSoakParams, scratch: str) -> dict:
     here = os.path.dirname(os.path.abspath(__file__))
 
     def spawn_child(generation: int):
+        t_spawn[generation] = time.perf_counter()
         with open(f"{b_report_path}.b{generation}.log", "w") as log:
             return subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--crash-child", cfg_path,
@@ -11163,8 +10498,10 @@ async def run_crash_soak(P, p: CrashSoakParams, scratch: str) -> dict:
                 cwd=here, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=log, text=True)
 
     generation = 0
+    t_spawn: dict = {}
+    boots: dict = {}
     procs = [spawn_child(generation)]
-    b = FedChild(procs[-1])
+    b = FedChild(procs[-1], t_spawn[generation])
     stop = asyncio.Event()
     gw = snap_task = None
     timeline: list = []
@@ -11204,13 +10541,14 @@ async def run_crash_soak(P, p: CrashSoakParams, scratch: str) -> dict:
         generation += 1
         t0 = time.monotonic()
         procs.append(spawn_child(generation))
-        b = FedChild(procs[-1])
-        await b.wait_for("READY", p.child_boot_timeout_s)
+        b = FedChild(procs[-1], t_spawn[generation])
+        boots[f"b{generation}"] = child_boot(b, await b.wait_for("READY",
+                                                                 p.child_boot_timeout_s))
         ev["restart_s"] = round(time.monotonic() - t0, 2)
 
     try:
         try:
-            await b.wait_for("READY", p.child_boot_timeout_s)
+            boots["b0"] = child_boot(b, await b.wait_for("READY", p.child_boot_timeout_s))
         except (RuntimeError, TimeoutError) as e:
             with open(f"{b_report_path}.b0.log") as f:
                 tail = f.read()[-600:]
@@ -11401,6 +10739,7 @@ async def run_crash_soak(P, p: CrashSoakParams, scratch: str) -> dict:
             "gateways": {"a": {"ledger": dict(plane.ledger), "spatial": type(ctl).__name__},
                          "b": {k: v for k, v in b_report.items()
                                if k not in ("placement", "events")}},
+            "boot": boots,
             "census": {"expected": len(expected_ids), "on_a": len(a_placement),
                        "on_b": len(b_placement), "missing": missing,
                        "duplicated": {str(k): v for k, v in duplicated.items()},
@@ -11424,7 +10763,7 @@ def crash_soak_checks(r: dict) -> list:
     """16b's checks of one report, as (name, held, detail): every invariant
     of scripts/crash_soak.py under its own name, then the crashes in the
     script's order (one reclaimed, then one adopted), the child a gateway
-    of the port on the host grid with no module of JAX or of the JAX
+    of the port on the host grid with no module of torch, of JAX or of the JAX
     package."""
     out = [(c["name"], c["ok"], c.get("detail", "")) for c in r["invariants"]["checks"]]
     b = r["gateways"]["b"]
@@ -11456,13 +10795,14 @@ def phase_crash_live(p: CrashSoakParams) -> dict:
         check(ok, f"16b: {name}: {str(detail)[:300]}")
     print(f"16b crash soak live: scripts/crash_soak.py's run_crash_soak through the port, "
           f"gateway a in-process and gateway b a `chip_smoke.py --crash-child` process (no "
-          f"module of JAX or of the JAX package loaded), both on WORLD_SPATIAL's "
+          f"module of torch, of JAX or of the JAX package loaded), both on WORLD_SPATIAL's "
           f"Static2DSpatialController with the WAL and the snapshot armed; {r['entities']} "
           f"entities, kill burst {p.kill_burst}; crashes {r['crashes']}; every invariant of the "
           f"script held ({len(r['invariants']['checks'])}); resurrections {r['resurrection']}; "
           f"WAL b {r['wal']['b']}; census {r['census']['on_a']} on a + {r['census']['on_b']} on "
           f"b of {r['census']['expected']}, none missing, duplicated or unexpected; timeline "
-          f"{[(m['phase'], m['t']) for m in r['timeline']]}; soak {r['duration_s']} s, phase "
+          f"{[(m['phase'], m['t']) for m in r['timeline']]}; child boots (b0 the first, b1 "
+          f"and b2 the restarts) {boot_line(r['boot'])}; soak {r['duration_s']} s, phase "
           f"{time.perf_counter() - t_phase:.1f} s")
     return r
 
@@ -11711,13 +11051,11 @@ def phase_crash(K, dev, cpu_leg: CpuLeg) -> tuple:
 # Static2DSpatialController: the host grid, which touches no device by the
 # scripts' own design, so no kernel runs on these paths. Gateway "a" runs in
 # this process on its asyncio loop; the others are ``--live-child`` processes
-# of this script (they load neither JAX nor the JAX package).
+# of this script (they load neither torch, JAX nor the JAX package).
 
 LIVE_CHILD_ROLES = ("trace", "obs", "global")
 FLEET_LIVE_NOTE = ("phase 17: every gateway on the script's Static2DSpatialController (the host "
                    "grid), which runs no kernel by the script's design")
-# The trunk timings both soaks' phase 2 boot their gateways with.
-PHASE2_TRUNK = dict(heartbeat_ms=200, trunk_timeout_ms=1200, handover_timeout_ms=1500)
 # The invariants of each path, under the scripts' names (TRACE_r11.json's and
 # OBS_r15.json's federation checks; all of SOAK_GLOBAL_r12.json's).
 TRACE_FED_INVARIANTS = ("cross_gateway_trace_stitched", "cross_gateway_committed",
@@ -11745,64 +11083,6 @@ def obs_fed_params(**kw) -> dict:
     return dict(dict(fed_run_s=8.0, fed_epoch_ms=200, seed=OBS_SOAK_SEED), **kw)
 
 
-def obs_fed_settings_hook(epoch_ms: int):
-    """scripts/obs_soak.py's phase-2 settings hook: the SLO plane and the
-    control plane re-armed."""
-    def hook(gs) -> None:
-        gs.slo_enabled = True
-        gs.global_control_enabled = True
-        gs.global_epoch_ms = epoch_ms
-
-    return hook
-
-
-async def global_boot(P, gw_id: str, fed_cfg: dict, p: GlobalSoakParams, stop,
-                      scratch: str) -> dict:
-    """scripts/global_soak.py's ``boot3``: gateway ``gw_id``'s block of
-    WORLD_3 with the control plane armed."""
-    fp = FedSoakParams(heartbeat_ms=p.heartbeat_ms, trunk_timeout_ms=p.trunk_timeout_ms,
-                       handover_timeout_ms=p.handover_timeout_ms, global_tick_ms=p.global_tick_ms)
-    return await fed_boot_gateway(P, gw_id, fed_cfg, fp, stop, scratch, expect_cells=8,
-                                  settings_hook=global_settings_hook(p), world=WORLD_3)
-
-
-def global_control_report(P, baseline: dict) -> dict:
-    """scripts/global_soak.py's ``control_report``: the control plane's
-    report and its metrics' deltas since ``baseline``."""
-    inv = P.invariants
-    d = inv.delta(inv.scrape(), baseline)
-    migrations = {dict(labels)["result"]: int(value) for (name, labels), value in d.items()
-                  if name == "global_migrations_total" and value}
-    rep = P.federation.control.report()
-    rep["metric_migrations"] = migrations
-    rep["metric_adoptions"] = int(inv.sample_total(d, "gateway_adoptions_total"))
-    rep["metric_deaths"] = int(inv.sample_total(d, "gateway_deaths_total"))
-    return rep
-
-
-def entity_alive(P, eid: int) -> bool:
-    """scripts/global_soak.py's ``get_alive``."""
-    ch = P.channel.get_channel(eid)
-    return ch is not None and not ch.is_removing()
-
-
-def entity_forensics(P, eids) -> dict:
-    """scripts/global_soak.py's ``entity_forensics``: for each id, whether
-    its entity channel lives, what the placement ledger says and which
-    local cells' data hold a row."""
-    gs = P.settings.global_settings
-    ledger = getattr(P.controller.get_spatial_controller(), "_data_cell", {})
-    out: dict = {}
-    for eid in eids:
-        rows = []
-        for cid, ch in P.channel.all_channels().items():
-            if gs.spatial_channel_id_start <= cid < gs.entity_channel_id_start \
-                    and not ch.is_removing():
-                ents = getattr(ch.get_data_message(), "entities", None)
-                if ents is not None and eid in ents:
-                    rows.append(cid)
-        out[str(eid)] = {"channel": entity_alive(P, eid), "ledger": ledger.get(eid), "rows": rows}
-    return out
 
 
 # scripts/obs_soak.py's sample line of the Prometheus exposition.
@@ -11885,8 +11165,7 @@ async def wait_ready(children: dict, timeout: float) -> dict:
                 tail = f.read()[-600:]
             raise ChildNotReady(f"gateway {gw}: the --live-child never printed READY ({e}): "
                                 f"{tail}")
-        info = json.loads(line[len("READY"):].strip() or "{}")
-        return gw, dict(info, boot_s=round(time.perf_counter() - child.t0, 3))
+        return gw, child_boot(child, line)
 
     return dict(await asyncio.gather(*(one(gw, c) for gw, c in children.items())))
 
@@ -11906,129 +11185,6 @@ def stop_processes(procs) -> None:
                 proc.wait()
 
 
-async def live_child_main(role: str, gw_id: str, config: str, report_path: str,
-                          params: dict) -> None:
-    """Gateway ``gw_id`` of phase 17 through the port, driven over stdin:
-    ``trace`` (17a's "b": scripts/trace_soak.py's ``remote_main``, the
-    recorder on; report), ``obs`` (17b's "b": scripts/obs_soak.py's
-    ``remote_main``, the SLO and control planes on; report writes
-    ``build_local_digest()``) or ``global`` (17c's "b" and "c":
-    scripts/global_soak.py's ``remote_main``; spawn, herd_to, quiesce,
-    report). Every role answers exit. READY carries a JSON of the boot's
-    parts (this script's numpy and torch imports, the port's modules, the
-    gateway's boot) and the modules of JAX or of the JAX package loaded;
-    every report carries the latter too."""
-    import asyncio
-    import os
-
-    from random import Random
-
-    t0 = time.perf_counter()
-    P = gateway_modules()
-    modules_s = time.perf_counter() - t0
-    with open(config) as f:
-        fed_cfg = json.load(f)
-    stop = asyncio.Event()
-    scratch = os.path.dirname(os.path.abspath(report_path))
-    journal = P.failover.journal
-    t1 = time.perf_counter()
-    if role == "trace":
-        gw = await fed_boot_gateway(P, gw_id, fed_cfg, FedSoakParams(**PHASE2_TRUNK), stop,
-                                    scratch)
-        P.settings.global_settings.trace_enabled = True
-        P.tracing.recorder.configure(enabled=True, ring_spans=16384, dump_path=scratch,
-                                     origin=gw_id)
-    elif role == "obs":
-        gw = await fed_boot_gateway(P, gw_id, fed_cfg, FedSoakParams(**PHASE2_TRUNK), stop,
-                                    scratch, settings_hook=obs_fed_settings_hook(
-                                        int(params["fed_epoch_ms"])))
-        P.slo.slo.configure(enabled=True)
-    elif role == "global":
-        p = GlobalSoakParams(**params)
-        gw = await global_boot(P, gw_id, fed_cfg, p, stop, scratch)
-    else:
-        raise ValueError(f"no live child role {role!r}")
-    plane, ctl = gw["plane"], gw["ctl"]
-    baseline = P.invariants.scrape()
-    jitter_task = None
-    if role == "global":
-        sim = FedSim(P, ctl, Random(p.seed ^ ord(gw_id)))
-        x0, x1 = GLOBAL_XR[gw_id]
-
-        async def jitter_loop():
-            while not stop.is_set():
-                sim.adopt_scan()
-                if sim.local_ids():
-                    sim.jitter(x0, x1, *GLOBAL_ZR)
-                await asyncio.sleep(0.2)
-
-        jitter_task = asyncio.ensure_future(jitter_loop())
-    print("READY " + json.dumps(dict(modules=foreign_modules(), imports_s=round(IMPORT_S, 3),
-                                     modules_s=round(modules_s, 3),
-                                     gateway_s=round(time.perf_counter() - t1, 3))), flush=True)
-    loop = asyncio.get_running_loop()
-    reader = asyncio.StreamReader()
-    await loop.connect_read_pipe(lambda: asyncio.StreamReaderProtocol(reader), sys.stdin)
-    while True:
-        line = await reader.readline()
-        if not line:
-            break
-        try:
-            cmd = json.loads(line)
-        except ValueError:
-            continue
-        name = cmd.get("cmd")
-        if name == "spawn" and role == "global":
-            sim.create_entities(int(cmd["n"]), x0, x1, *GLOBAL_ZR,
-                                base=GLOBAL_BASE[gw_id] + int(cmd.get("offset", 0)))
-            print(f"OK spawn {cmd['n']}", flush=True)
-        elif name == "herd_to" and role == "global":
-            sim.adopt_scan()
-            moved = sim.herd(sim.local_ids()[: int(cmd.get("n", 8))], *GLOBAL_XR[cmd["gw"]],
-                             *GLOBAL_ZR)
-            print(f"OK herd_to {len(moved)}", flush=True)
-        elif name == "quiesce" and role == "global":
-            jitter_task.cancel()
-            deadline = time.monotonic() + float(cmd.get("drain_s", 10.0))
-            while time.monotonic() < deadline and (plane._pending or plane._parked
-                                                   or journal.in_flight_count()):
-                await asyncio.sleep(0.1)
-            print("OK quiesce", flush=True)
-        elif name == "report":
-            report = dict(gateway=gw_id, modules=foreign_modules(), spatial=type(ctl).__name__)
-            if role == "trace":
-                report.update(ledger=dict(plane.ledger), spans=[
-                    {"name": s["name"], "trace": s["trace"], "tick": s["tick"]}
-                    for s in P.tracing.recorder.snapshot() if s.get("trace")])
-            elif role == "obs":
-                report["digest"] = P.fleet_obs.build_local_digest()
-            else:
-                placement = fed_local_placement(P)
-                report.update(
-                    ledger=dict(plane.ledger), control=global_control_report(P, baseline),
-                    placement=placement,
-                    forensics=entity_forensics(P, [int(e) for e in placement
-                                                   if not e.startswith("__")]),
-                    pending=len(plane._pending), parked=len(plane._parked),
-                    journal=journal.report(), events=plane.events[-400:])
-            with open(report_path, "w") as f:
-                json.dump(report, f)
-            print("OK report", flush=True)
-        elif name == "exit":
-            break
-    stop.set()
-    if jitter_task is not None:
-        jitter_task.cancel()
-    fed_teardown_gateway(P, gw)
-
-
-def live_child(role: str, gw_id: str, config: str, report_path: str, params: str) -> int:
-    """``chip_smoke.py --live-child ROLE GW CONFIG REPORT PARAMS``: one of
-    phase 17's child gateways (PARAMS: the role's parameters as JSON)."""
-    import asyncio
-
-    asyncio.run(live_child_main(role, gw_id, config, report_path, json.loads(params)))
-    return 0
 
 
 async def trace_fed_live(P, p: dict, scratch: str) -> dict:
@@ -12251,7 +11407,7 @@ async def obs_fed_live(P, p: dict, scratch: str) -> dict:
 def obs_fed_checks(r: dict) -> list:
     """17b's checks of one result, as (name, held, detail): the obs soak's
     phase-2 invariants under their names, the child a gateway of the port
-    with no module of JAX or of the JAX package, both gateways on the host
+    with no module of torch, of JAX or of the JAX package, both gateways on the host
     grid."""
     modules = (r["boot"]["b"].get("modules"), r["b_modules"])
     return [
@@ -12598,9 +11754,11 @@ def run_live(what: str, make) -> dict:
 
 def boot_line(boot: dict) -> str:
     """The children's boots: Popen to READY, and its parts."""
-    return "; ".join(f"{gw} {b['boot_s']:.2f} s (numpy and torch imports {b['imports_s']:.2f} "
-                     f"s, the port's modules {b['modules_s']:.2f} s, the gateway's boot "
-                     f"{b['gateway_s']:.2f} s)" for gw, b in sorted(boot.items()))
+    return "; ".join(f"{gw} {b['boot_s']:.2f} s (the script's imports {b['imports_s']:.2f} s, "
+                     f"the port's host modules {b['modules_s']:.2f} s, the gateway's boot "
+                     + ("in the soak" if b["gateway_s"] is None else f"{b['gateway_s']:.2f} s")
+                     + f"; torch {'loaded' if 'torch' in b['modules'] else 'not loaded'})"
+                     for gw, b in sorted(boot.items()))
 
 
 def phase_trace_fed(P, p: dict, scratch: str, live: dict) -> dict:
@@ -12612,7 +11770,7 @@ def phase_trace_fed(P, p: dict, scratch: str, live: dict) -> dict:
     t = r["trunk_stage"]
     print(f"17a trace federation live: scripts/trace_soak.py's phase 2 through the port, "
           f"gateway a in-process and gateway b a `chip_smoke.py --live-child trace` process (no "
-          f"module of JAX or of the JAX package loaded), both on WORLD_SPATIAL's "
+          f"module of torch, of JAX or of the JAX package loaded), both on WORLD_SPATIAL's "
           f"Static2DSpatialController (the host grid: no device, by the script's design); "
           f"bursts {p['fed_burst']} + {p['fed_sever_burst']}, seed {p['seed']}; every check "
           f"held: " + ", ".join(name for name, _, _ in trace_fed_checks(r, live))
@@ -12633,7 +11791,7 @@ def phase_obs_fed(P, p: dict, scratch: str) -> dict:
         check(ok, f"17b: {name}: {str(detail)[:300]}")
     print(f"17b obs federation live: scripts/obs_soak.py's phase 2 through the port, gateway a "
           f"in-process (ops surface on loopback) and gateway b a `chip_smoke.py --live-child "
-          f"obs` process (no module of JAX or of the JAX package loaded), both on "
+          f"obs` process (no module of torch, of JAX or of the JAX package loaded), both on "
           f"WORLD_SPATIAL's Static2DSpatialController (the host grid: no device, by the "
           f"script's design), the SLO and control planes on at a {p['fed_epoch_ms']} ms epoch, "
           f"{p['fed_run_s']:g} s of traffic, seed {p['seed']}; every check held: "
@@ -12658,7 +11816,7 @@ def phase_global_live(P, p: GlobalSoakParams, scratch: str) -> dict:
     gws = {"a": r["gateways"]["a"]["control"], "b": r["gateways"]["b"]["control"]}
     print(f"17c global live: scripts/global_soak.py's run_global_soak through the port, "
           f"gateway a (the leader) in-process and gateways b and c `chip_smoke.py --live-child "
-          f"global` processes (no module of JAX or of the JAX package loaded), all on WORLD_3's "
+          f"global` processes (no module of torch, of JAX or of the JAX package loaded), all on WORLD_3's "
           f"Static2DSpatialController (the host grid: no device, by the script's design); "
           f"{p.base_entities} entities a gateway, a hotspot of {p.hotspot}, a kill burst of "
           f"{p.kill_burst}, {p.committed_to_c} committed to c, epoch {p.epoch_ms} ms, death "
@@ -12708,6 +11866,179 @@ def phase_fleet_live(K, live: dict) -> dict:
           f"{time.perf_counter() - t_phase:.1f} s")
     return launches
 
+
+
+# ---- phase 18: the abuse soak (the edge plane) through the port --------------
+# scripts/abuse_soak.py's run_abuse_soak, the live acceptance of the edge plane
+# (doc/edge_hardening.md): slow readers, malformed-frame sessions and a
+# connect flood at once against an honest fleet. By the script's design its
+# gateway has no spatial controller and its side planes are pinned off, so it
+# runs no kernel. It runs whole in a ``--edge-child`` process (chip_host.py),
+# which loads no torch: its RSS is a gateway's own, as in the JAX run.
+
+EDGE_NOTE = ("phase 18: the edge plane's gateway has no spatial controller, by the script's "
+             "design, and runs in a child that loads no torch")
+EDGE_LEDGERS = (("quarantine", "conn_quarantine_total{reason}"),
+                ("malformed", "malformed_frames_total{stage}"),
+                ("egress_drops", "egress_dropped_total{reason}"),
+                ("reaps", "conn_reaped_total{reason}"))
+
+
+def check_abuse_soak(doc: dict) -> list:
+    """scripts/check_artifacts.py's ``_check_abuse_soak``: the abuse soak's
+    acceptance bar beyond key presence (three attacker classes, the honest
+    census and delivery clean, the slow readers disconnected, the flood
+    banned, four ledger==metric checks, RSS bounded). Returns the errors."""
+    errors: list = []
+    names = {c.get("name") for c in doc.get("invariants", {}).get("checks", [])}
+    for required in ("honest_census_exact", "honest_delivery_exact",
+                     "slow_readers_structurally_disconnected", "malformed_counted_at_framing",
+                     "flood_sources_banned", "rss_growth_bounded_mb"):
+        if required not in names:
+            errors.append(f"missing invariant check {required!r}")
+    ledger_checks = {n for n in names if n and n.endswith("_ledger_matches_metric")}
+    if len(ledger_checks) < 4:
+        errors.append("fewer than 4 ledger==metric invariant checks "
+                      f"({sorted(ledger_checks)})")
+    classes = doc.get("attackers", {}).get("classes", [])
+    if len(classes) < 3:
+        errors.append(f"fewer than 3 attacker classes ({classes})")
+    census = doc.get("census", {})
+    if census.get("survivors") != census.get("expected") or census.get("honest_disconnects"):
+        errors.append(f"honest census not clean: {census}")
+    delivery = doc.get("delivery", {})
+    if delivery.get("missing") or not delivery.get("frames_sent"):
+        errors.append(f"delivery accounting not clean: {delivery}")
+    rss = doc.get("rss", {})
+    if rss.get("growth_mb") is None or rss.get("bound_mb") is None \
+            or rss["growth_mb"] > rss["bound_mb"]:
+        errors.append(f"rss bound not proven: {rss}")
+    return errors
+
+
+def abuse_soak_checks(r: dict) -> list:
+    """Phase 18's checks of one report, as (name, held, detail): every
+    invariant of scripts/abuse_soak.py under its own name (all 22 present,
+    in its order), the copy of scripts/check_artifacts.py's bar, and the
+    child a gateway of the port with no module of torch, of JAX or of the
+    JAX package loaded (at its READY line and at its end)."""
+    out = [(c["name"], c["ok"], c.get("detail", "")) for c in r["invariants"]["checks"]]
+    names = [name for name, _, _ in out]
+    modules = (r["boot"].get("modules"), r.get("modules"))
+    return out + [
+        ("all_22_invariants_checked", names == list(chip_host.ABUSE_INVARIANTS), names),
+        ("check_artifacts_abuse_soak", check_abuse_soak(r) == [], check_abuse_soak(r)),
+        ("child_loads_no_torch_and_no_jax", modules == ([], []), modules)]
+
+
+def run_edge_child(scratch: str) -> dict:
+    """``chip_smoke.py --edge-child REPORT`` run to its end: the soak's
+    report with the child's boot (READY's parts and ``boot_s``, Popen to
+    READY). Fails if the child does not boot or does not end."""
+    p = AbuseSoakParams()
+    log_path = os.path.join(scratch, "edge_child.log")
+    report_path = os.path.join(scratch, "edge_report.json")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--edge-child", report_path],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdin=subprocess.DEVNULL,
+            stdout=subprocess.PIPE, stderr=log, text=True)
+    try:
+        line = proc.stdout.readline()
+        boot_s = time.perf_counter() - t0
+        out, _ = proc.communicate(timeout=p.attack_s + p.quiesce_s + 90.0)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise PhaseFailed("18: the --edge-child did not end in time")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(log_path) as f:
+        tail = f.read()[-600:]
+    check(line.startswith("READY"), f"18: the --edge-child never printed READY: {tail}")
+    check(proc.returncode == 0 and "OK report" in out,
+          f"18: the --edge-child exited {proc.returncode}: {tail}")
+    with open(report_path) as f:
+        r = json.load(f)
+    r["boot"] = dict(json.loads(line[len("READY"):]), boot_s=round(boot_s, 3))
+    return r
+
+
+def phase_edge_live(K) -> dict:
+    """Phase 18: ``run_abuse_soak`` at AbuseSoakParams(), cut nowhere, in a
+    ``--edge-child``, held to every invariant of the script and to
+    scripts/check_artifacts.py's bar, with the kernels' counts set to 0
+    just before it and read just after. Returns {path: launches}."""
+    import shutil
+    import tempfile
+
+    p = AbuseSoakParams()
+    t_phase = time.perf_counter()
+    scratch = tempfile.mkdtemp(prefix="edge-live-")
+    K.reset_launch_counts()
+    try:
+        r = run_edge_child(scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    launches = K.launch_counts()
+    for name, ok, detail in abuse_soak_checks(r):
+        check(ok, f"18: {name}: {str(detail)[:300]}")
+    check(all(n == 0 for n in launches.values()),
+          f"18: kernels launched on the edge path: {launches}")
+    a, e, m = r["attackers"], r["edge"], r["metrics"]
+    print(f"18 abuse soak live: scripts/abuse_soak.py's run_abuse_soak through the port in a "
+          f"`chip_smoke.py --edge-child` process (no module of torch, of JAX or of the JAX "
+          f"package loaded), the gateway with no spatial controller and its side planes off, "
+          f"by the script's design; AbuseSoakParams() cut nowhere: attack {p.attack_s:g} s, "
+          f"quiesce {p.quiesce_s:g} s, {p.honest} honest clients at {p.msg_rate:g} msg/s, "
+          f"{p.slow_readers} slow readers under a {p.flood_rate:g}/s flood of "
+          f"{p.flood_payload} B, {p.malformed} malformed-frame sources, {p.flood_ips} "
+          f"connect-flood IPs, auth deadline {p.auth_deadline_ms} ms, seed {p.seed:#x}; every "
+          f"invariant of the script held ({len(r['invariants']['checks'])}) and "
+          f"check_artifacts' bar")
+    print(f"18 sessions per attacker class: slow readers {a['slow_reader']} (from "
+          f"{chip_host.ATTACKER_SOURCES['slow_reader']}x), malformed frames "
+          f"{a['malformed_frame']} (from {chip_host.ATTACKER_SOURCES['malformed_frame']}x), "
+          f"connect flood {a['connect_flood']} (from "
+          f"{chip_host.ATTACKER_SOURCES['connect_flood']}x); banned {e['banned_ips']}")
+    print("18 edge ledgers beside their metrics: " + "; ".join(
+        f"{led} {e[led]} = {metric} {m[led]}" for led, metric in EDGE_LEDGERS))
+    print(f"18 census {len(r['census']['survivors'])} survivors = expected "
+          f"{len(r['census']['expected'])} (master + {p.honest} honest), honest disconnects "
+          f"{r['census']['honest_disconnects']}; delivery {r['delivery']['frames_drained']} "
+          f"drained of {r['delivery']['frames_sent']} sent, missing "
+          f"{r['delivery']['missing']}; RSS base / peak / final {r['rss']['base_mb']} / "
+          f"{r['rss']['peak_mb']} / {r['rss']['final_mb']} MB, growth "
+          f"{r['rss']['growth_mb']} MB against {r['rss']['bound_mb']} MB")
+    print(f"phase 18: launches {launches} ({EDGE_NOTE}); soak {r['duration_s']} s "
+          f"(gateway and fleet up in {r['up_s']} s); child boot {boot_line({'edge': r['boot']})}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    return {"abuse_soak": launches}
+
+
+def main_edge() -> int:
+    """Phases 1-3, then phase 18: ``python3 chip_smoke.py --edge``."""
+    from channeld_tpu_torch.ops import cuda_kernels as K
+    from channeld_tpu_torch.ops import spatial_ops as ops
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t_run = time.perf_counter()
+    try:
+        name, _ = phase_device()
+        phase_build(K)
+        phase_kernels(K, ops, dev)
+        phase_edge_live(K)
+    except PhaseFailed as e:
+        report_failure(e)
+        return 1
+    print(f"chip_smoke --edge: every phase passed in {time.perf_counter() - t_run:.1f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
 
 def main_soaks(agents: int, entities: int) -> int:
     """Phase 12 alone (after the device and build phases):
@@ -12952,16 +12283,6 @@ def main_elastic(entities: int, ticks: int) -> int:
 
 
 def main() -> int:
-    if sys.argv[1:2] == ["--fed-child"]:
-        # 15b's gateway "b": the federation soak's host grid touches no device
-        # by the script's design, so this role needs no card.
-        return fed_child(sys.argv[2], sys.argv[3])
-    if sys.argv[1:2] == ["--crash-child"]:
-        # 16b's gateway "b", on the crash soak's host grid: no card either.
-        return crash_child(sys.argv[2], sys.argv[3], sys.argv[4], int(sys.argv[5]))
-    if sys.argv[1:2] == ["--live-child"]:
-        # Phase 17's gateways "b" and "c", on the scripts' host grid: no card.
-        return live_child(*sys.argv[2:7])
     if sys.argv[1:2] == ["--cpu-leg"]:
         # A lockstep phase's CPU leg, beside the parent's card leg.
         return cpu_leg_child(sys.argv[2], sys.argv[3])
@@ -12992,6 +12313,8 @@ def main() -> int:
         return main_crash()
     if sys.argv[1:2] == ["--fleet-live"]:
         return main_fleet_live()
+    if sys.argv[1:2] == ["--edge"]:
+        return main_edge()
     if sys.argv[1:2] == ["--sim-child"]:
         return sim_child(sys.argv[2], *map(int, sys.argv[3:5]), *sys.argv[5:6])
     t_run = time.perf_counter()
@@ -13059,6 +12382,8 @@ def main() -> int:
         laps("16")
         fleet_live_launches = phase_fleet_live(K, trace_live)
         laps("17")
+        edge_launches = phase_edge_live(K)
+        laps("18")
     except PhaseFailed as e:
         report_failure(e)
         return 1
@@ -13089,8 +12414,10 @@ def main() -> int:
                               **{path: n[spec.name] for path, n in fleet_launches.items()},
                               **{path: n[spec.name] for path, n in crash_launches.items()},
                               **{path: n[spec.name]
-                                 for path, n in fleet_live_launches.items()}},
-            launches_by_path_notes={path: FLEET_LIVE_NOTE for path in fleet_live_launches},
+                                 for path, n in fleet_live_launches.items()},
+                              **{path: n[spec.name] for path, n in edge_launches.items()}},
+            launches_by_path_notes={**{path: FLEET_LIVE_NOTE for path in fleet_live_launches},
+                                    **{path: EDGE_NOTE for path in edge_launches}},
             library_ms=None, **entries[spec.name],
             sim_path=dict(sim_entries[spec.name], library_ms=None),
             mesh_path=dict(mesh_entries[spec.name], launches_per_mesh_tick={

@@ -26,7 +26,8 @@ EDITED = {
     "__main__.py": "no pin of JAX to the CPU before the gateway starts",
     "core/settings.py": "-spatial-device (the engine's torch device); -profile gpu in the help",
     "core/profiling.py": "-profile gpu is torch.profiler, not jax.profiler",
-    "core/device_guard.py": "reads a tick through the consume blob; torch failure classes; "
+    "core/device_guard.py": "reads a tick through the consume blob; torch failure classes "
+                            "(torch imported by the calls that need it, F27); "
                             "enters the engine's CUDA device on the worker; hands the rebuild "
                             "the host tables copied on the loop thread; says when FAILED "
                             "is terminal",
@@ -40,7 +41,8 @@ EDITED = {
     "sim/authority.py": "reset_pending: a census taken into the live plane drops the attach "
                         "queue (F22)",
     "spatial/__init__.py": "exports GPUSpatialController (tpu_controller.py is not ported)",
-    "utils/devices.py": "cuda unless the caller asks for the CPU, never a JAX pin",
+    "utils/devices.py": "cuda unless the caller asks for the CPU, never a JAX pin; torch "
+                        "imported by the calls (F27)",
     "utils/logger.py": "its own root logger, so both packages' logs stay apart in one process",
     "ops/engine.py": "the engine on torch (ported)",
     "ops/service.py": "the sidecar on the torch engine (ported)",

@@ -171,8 +171,9 @@ def test_port_copies_of_the_fleet_soaks_equal_the_scripts():
 
 def test_fed_child_imports_neither_jax_nor_the_jax_package(tmp_path):
     """``chip_smoke.py --fed-child CONFIG REPORT`` (15b's gateway "b", which
-    needs no card): it boots its shard on the host grid, reports, exits,
-    and no module of JAX or of the JAX package was loaded in its process."""
+    needs no card): it boots its shard on the host grid, says READY with its
+    boot's parts, reports, exits, and no module of JAX, of the JAX package
+    or of torch was loaded in its process (ROADMAP F27)."""
     cs = chip_smoke()
     ports = dict(zip(("a_trunk", "a_client", "b_trunk", "b_client"), cs.fed_free_ports(4)))
     config, report = tmp_path / "fed.json", tmp_path / "report.json"
@@ -184,12 +185,13 @@ def test_fed_child_imports_neither_jax_nor_the_jax_package(tmp_path):
              str(report)], cwd=REPO, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=log,
             text=True, env=env)
     try:
-        lines = []
+        ready = None
         deadline = time.monotonic() + 60.0
-        while time.monotonic() < deadline and "READY" not in lines:
+        while time.monotonic() < deadline and ready is None:
             line = proc.stdout.readline()
             assert line, (tmp_path / "child.log").read_text()[-2000:]
-            lines.append(line.strip())
+            if line.startswith("READY"):
+                ready = json.loads(line[len("READY"):])
         for cmd in ("report", "exit"):
             proc.stdin.write(json.dumps({"cmd": cmd}) + "\n")
             proc.stdin.flush()
@@ -198,8 +200,10 @@ def test_fed_child_imports_neither_jax_nor_the_jax_package(tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+    assert ready["modules"] == [] and min(ready[k] for k in ("imports_s", "modules_s",
+                                                             "gateway_s")) > 0
     r = json.loads(report.read_text())
-    assert r["modules"] == []
+    assert r["modules"] == [] and r["boot"] == ready
     assert r["spatial"] == "StaticGrid2DSpatialController"
     assert r["gateway"] == "b" and r["pending"] == r["parked"] == 0
 

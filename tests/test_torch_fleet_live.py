@@ -257,8 +257,9 @@ REPORT_KEYS = {"trace": {"ledger", "spans"}, "obs": {"digest"},
 def test_live_child_boots_reports_and_imports_neither_jax_nor_the_jax_package(role, tmp_path):
     """``chip_smoke.py --live-child ROLE GW CONFIG REPORT PARAMS`` (no card):
     it boots its shard on the host grid on ephemeral ports, says READY with
-    its boot's parts, reports, exits; no module of JAX or of the JAX package
-    is loaded in its process. Each case is killed after 60 s."""
+    its boot's parts, reports, exits; no module of JAX, of the JAX package or
+    of torch is loaded in its process (ROADMAP F27). Each case is killed
+    after 60 s."""
     cs = chip_smoke()
     gw, params = CHILDREN[role]
     if role == "global":
@@ -295,7 +296,7 @@ def test_live_child_boots_reports_and_imports_neither_jax_nor_the_jax_package(ro
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    assert ready["modules"] == []
+    assert ready["modules"] == [] and "torch" not in ready["modules"]
     assert min(ready[k] for k in ("imports_s", "modules_s", "gateway_s")) > 0
     r = json.loads(report.read_text())
     assert r["modules"] == [] and r["spatial"] == HOST_GRID and r["gateway"] == gw

@@ -6,7 +6,9 @@ A fresh interpreter imports every module of ``channeld_tpu_torch`` (and
 device, the entry points (the engine, the sidecar, the gateway's spatial
 controller) raise unless they are given the CPU; with one, they land on
 it. The gateway's host layers import as the reference's do: without the
-device library (ROADMAP F26).
+device library (ROADMAP F26); so do the spatial package, the device guard,
+the device pick and the modules that import them, a gateway on the host
+grid and ``-h`` (F27), while the GPU controller still loads torch.
 """
 
 import os
@@ -145,3 +147,89 @@ def test_the_gateway_host_layers_import_without_torch():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "HOST ONLY" in out.stdout
+
+
+# The port's modules whose counterparts load no JAX, which loaded torch at
+# import until F27 was repaired: the spatial package (through
+# gpu_controller's import of core.device_guard), the modules that import it,
+# core.device_guard and utils.devices. Each pair: (port module, JAX module).
+F27_MODULES = [(f"spatial{m}", f"spatial{m}") for m in (
+    "", ".balancer", ".celltree", ".controller", ".entity", ".grid", ".messages",
+    ".partition")] + [
+    ("spatial.gpu_controller", "spatial.tpu_controller"), ("core.device_guard",) * 2,
+    ("models.sim",) * 2, ("models.engine_adapter",) * 2, ("compat.unreal",) * 2,
+    ("utils.devices",) * 2]
+
+F27_PROBE = r"""
+import importlib, runpy, sys
+for name in {names!r}:
+    importlib.import_module(name)
+{extra}
+loaded = sorted(m for m in sys.modules if m == {lib!r} or m.startswith({lib!r} + "."))
+assert not loaded, loaded[:5]
+print("NO", {lib!r})
+"""
+
+HOST_GRID_AND_HELP = r"""
+from channeld_tpu_torch.core import channel
+from channeld_tpu_torch.core.message import init_message_map
+from channeld_tpu_torch.spatial import controller
+
+init_message_map()
+channel.init_channels()
+controller.init_spatial_controller("config/spatial_static_2x2.json")
+assert type(controller.get_spatial_controller()).__name__ == "StaticGrid2DSpatialController"
+sys.argv = ["channeld_tpu_torch", "-h"]
+try:
+    runpy.run_module("channeld_tpu_torch", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    assert e.code in (0, None), e.code
+"""
+
+
+def run_probe(code: str, marker: str) -> None:
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert marker in out.stdout
+
+
+def test_host_modules_host_grid_and_help_load_no_torch():
+    """F27: in a fresh interpreter, the port modules of ``F27_MODULES``, a
+    gateway's host-grid controller (config/spatial_static_2x2.json) and
+    ``python -m channeld_tpu_torch -h`` leave torch unloaded, as their JAX
+    counterparts leave JAX."""
+    run_probe(F27_PROBE.format(names=[f"channeld_tpu_torch.{p}" for p, _ in F27_MODULES],
+                               extra=HOST_GRID_AND_HELP, lib="torch"), "NO torch")
+
+
+def test_the_jax_counterparts_load_no_jax():
+    """The list above is honest: each JAX counterpart loads no JAX."""
+    run_probe(F27_PROBE.format(names=[f"channeld_tpu.{j}" for _, j in F27_MODULES], extra="",
+                               lib="jax"), "NO jax")
+
+
+DEVICE_GRID_PROBE = r"""
+import sys
+from channeld_tpu_torch.core import channel
+from channeld_tpu_torch.core.message import init_message_map
+from channeld_tpu_torch.core.settings import global_settings
+from channeld_tpu_torch.spatial import controller
+
+init_message_map()
+channel.init_channels()
+assert "torch" not in sys.modules
+global_settings.spatial_device = "cpu"
+controller.init_spatial_controller("config/spatial_tpu_4x4.json")
+ctl = controller.get_spatial_controller()
+assert type(ctl).__name__ == "GPUSpatialController", type(ctl)
+assert ctl.engine.device.type == "cpu" and "torch" in sys.modules
+print("DEVICE GRID")
+"""
+
+
+def test_the_device_controller_loads_torch():
+    """The GPU controller (config/spatial_tpu_4x4.json) still loads torch,
+    at its config's load, and builds its engine where it is told."""
+    run_probe(DEVICE_GRID_PROBE, "DEVICE GRID")
