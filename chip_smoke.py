@@ -14,6 +14,7 @@
     python3 chip_smoke.py --crash              # phases 1-3, then phase 16 alone
     python3 chip_smoke.py --fleet-live         # phases 1-3, 13b and 13d, then phase 17
     python3 chip_smoke.py --edge               # phases 1-3, then phase 18
+    python3 chip_smoke.py --failover-balance   # phases 1-3, then phase 19
 
 The script starts its own children (none needs a card but a ``--cpu-leg``
 child's CUDA sync counters; each loads neither JAX nor the JAX package). The
@@ -27,7 +28,8 @@ numpy or torch; they load neither:
                                                # "b" and "c"); PARAMS the role's JSON
     --edge-child REPORT                        # phase 18's abuse soak, whole
     --cpu-leg PHASE SCRATCH                    # the CPU leg of 6a, 10a, 11a, 11b, 12b,
-                                               # 14a or 16a at the size pickled in SCRATCH
+                                               # 14a, 16a or 19a at the size pickled in
+                                               # SCRATCH
     --sim-child WAL AGENTS CENSUS_EVERY DEVICE # 12a's kill leg
     --sticky-child                             # 10b's sticky CUDA error
 
@@ -413,6 +415,28 @@ prints one line; any failure exits non-zero before the final line):
     kernel): its 22 invariants under their names and
     scripts/check_artifacts.py's bar; the sessions per attacker class, the
     four edge ledgers beside their metrics, census, delivery and RSS.
+19. the failover and balance soaks on the device controller
+    (``core/failover.py``, ``spatial/balancer.py``,
+    ``core/connection_recovery.py``), on config/spatial_tpu_cells_2x2.json at
+    MeshDevices = min(cards, 8) and the gateway's tables:
+   a. both scripts' runs in-process on a fixed clock whose ``time.sleep``
+      moves it (a master and 4 recoverable server stubs, the scripts' pins,
+      knobs and weather, their phases shortened), against a ``--cpu-leg
+      19a`` child tick for tick: scripts/failover_soak.py's two kills (the
+      first mid-handover burst, the second during the first failover
+      epoch) with the probes at an orphaned cell, and
+      scripts/balance_soak.py's hotspot migrations and its destination
+      killed inside the widened freeze window; every invariant of each
+      script on both legs, 2 device reads a tick, K1 and K2 once per shard
+      a tick and exact on each kill tick, the first tick after each
+      re-host and each migration's resolving tick;
+   b. scripts/failover_soak.py's run_failover_soak live through the port
+      at FailoverSoakParams() (TCP listeners on loopback, the engine on the
+      card), its 19 invariants and check_artifacts' keys;
+   c. scripts/balance_soak.py's run_balance_soak live at
+      BalanceSoakParams(), the kill mid-migration on, its 16 invariants and
+      check_artifacts' keys; K1 and K2 once per shard on every engine tick
+      of b and c.
 
 The line before the last is a JSON object with one entry per kernel
 (times measured in this run at the sidecar path's shapes; bound from
@@ -429,7 +453,8 @@ each re-grid of 11a and 11b, ``soak_path`` each at the live tensors of
 ``chaos_overload_path`` at 14a's live tensors on its first overflowing
 tick and its first tick at L2 or above in the saturation window,
 ``fleet_path`` at 15a's live tensors after the inbound herd and after the
-adoption, ``crash_path`` at 16a's; the paths of phases 17 and 18 launch
+adoption, ``crash_path`` at 16a's, ``failover_balance_path`` at 19a's
+kill, re-host and migration ticks; the paths of phases 17 and 18 launch
 none, each noted in ``launches_by_path_notes``);
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -6278,12 +6303,15 @@ class SoakStats:
         self.recovery_latencies: list = []
 
 
-async def soak_boot_world(P, host: str, server_port: int, stats: SoakStats, stop) -> list:
+async def soak_boot_world(P, host: str, server_port: int, stats: SoakStats, stop,
+                          on_server_pack=None) -> list:
     """scripts/chaos_soak.py's _boot_world: the master possesses GLOBAL (its
     drain unpacks every routed forward into ``stats.drained``) and 4 spatial
-    servers claim their blocks through CREATE_CHANNEL over TCP; returns the
-    drain task and the streams of each socket (a stream writer nothing
-    refers to closes its socket) once all 16 cells are owned."""
+    servers claim their blocks through CREATE_CHANNEL over TCP (each server's
+    drain hands every MessagePack to ``on_server_pack``, as the failover soak
+    re-wraps it); returns the drain task and the streams of each socket (a
+    stream writer nothing refers to closes its socket), the master's first,
+    once all 16 cells are owned."""
     import asyncio
     import struct
 
@@ -6317,8 +6345,8 @@ async def soak_boot_world(P, host: str, server_port: int, stats: SoakStats, stop
             channelType=CT.SPATIAL, subOptions=P.control_pb2.ChannelSubscriptionOptions(
                 dataAccess=P.types.ChannelDataAccess.WRITE_ACCESS)).SerializeToString()))
         await w.drain()
-        socks.append((asyncio.ensure_future(soak_read_frames(P, r, lambda mp: None, stop)),
-                      r, w))
+        socks.append((asyncio.ensure_future(
+            soak_read_frames(P, r, on_server_pack or (lambda mp: None), stop)), r, w))
     s = P.settings.global_settings
     deadline = time.monotonic() + 20.0
     while time.monotonic() < deadline:
@@ -10813,8 +10841,8 @@ def phase_crash_live(p: CrashSoakParams) -> dict:
 def cpu_leg_size(phase: str, scratch: str, **kw) -> dict:
     """The size of a lockstep phase whose CPU leg runs in a child: ``6a``,
     ``10a``, ``11a``, ``11b`` (its mesh config written into ``scratch``),
-    ``12b``, ``14a`` (its cells config written into ``scratch``) and
-    ``16a``, each from its size function with ``kw``."""
+    ``12b``, ``14a`` and ``19a`` (their cells configs written into
+    ``scratch``) and ``16a``, each from its size function with ``kw``."""
     if phase == "6a":
         return gateway_size(**kw)
     if phase == "10a":
@@ -10829,6 +10857,8 @@ def cpu_leg_size(phase: str, scratch: str, **kw) -> dict:
         return sensor_soak_scenario(**kw)
     if phase == "16a":
         return crash_size(**kw)
+    if phase == "19a":
+        return loss_lockstep_size(scratch, **kw)
     raise ValueError(f"no CPU leg for phase {phase!r}")
 
 
@@ -10860,6 +10890,8 @@ def cpu_leg_child(phase: str, scratch: str) -> int:
                               sensor_soak_run(K, size, {}))
     elif phase == "16a":
         result = run_crash_leg(gateway_modules(), cpu, size, scratch)
+    elif phase == "19a":
+        result = run_loss_lockstep(gateway_modules(), cpu, size)
     else:
         raise ValueError(f"no CPU leg for phase {phase!r}")
     out = os.path.join(scratch, "leg.pickle")
@@ -12019,6 +12051,1213 @@ def phase_edge_live(K) -> dict:
     return {"abuse_soak": launches}
 
 
+# ---- phase 19: the failover and balance soaks on the GPU controller ----------
+#
+# scripts/failover_soak.py loses two spatial servers for good (the first
+# mid-handover burst, the second during the first failover epoch) and proves
+# the re-host, the journal and the ownerless-drop accounting;
+# scripts/balance_soak.py herds the world into one server's quadrant, proves
+# the balancer's planned migrations, then kills a migration's destination
+# inside its freeze window. Both boot scripts/chaos_soak.py's gateway with the
+# device controller on the cells plane, so K1 and K2 run on every engine tick.
+# Each script's run, from its warmup to its books, is one generator here
+# (``failover_schedule``, ``balance_schedule``) that yields the seconds the
+# script sleeps: 19a drives it on a fixed clock through ``LossWorld`` (stub
+# servers, one GLOBAL tick at a time) against a CPU leg; 19b and 19c drive it
+# live (``LiveLoss``: TCP listeners, real sockets, asyncio sleeps).
+
+FAILOVER_INVARIANTS = (
+    "one_server_lost_event_per_kill", "server_lost_metric_matches_ledger",
+    "all_cells_owned_after_failover", "every_orphan_cell_rehosted",
+    "failover_pass_under_deadline", "every_kill_orphaned_cells",
+    "rehost_within_window_plus_deadline", "rehost_accounting_exact",
+    "journal_metric_matches_ledger", "journal_prepared_equals_committed_plus_aborted",
+    "journal_nothing_in_flight", "no_lost_entity_tracking", "every_entity_in_exactly_one_cell",
+    "every_entity_channel_has_live_owner", "ownerless_drops_exact", "ownerless_window_probed",
+    "global_tick_p99_bounded", "post_failover_tick_p99_bounded", "handovers_after_failover")
+BALANCE_INVARIANTS = (
+    "no_migration_while_balanced", "hotspot_migrations_committed",
+    "steady_state_entity_imbalance_under_threshold", "migration_metric_matches_ledger",
+    "migrations_planned_equals_committed_plus_aborted", "no_migration_left_in_flight",
+    "no_frozen_crossing_left_behind", "per_epoch_commits_within_budget",
+    "no_cell_migrates_twice_within_cooldown", "kill_mid_migration_landed",
+    "crash_mid_migration_aborts_to_old_owner", "no_lost_entity_tracking",
+    "every_entity_in_exactly_one_cell", "journal_prepared_equals_committed_plus_aborted",
+    "journal_nothing_in_flight", "global_tick_p99_bounded")
+# scripts/check_artifacts.py's required keys of SOAK_FAILOVER_* and SOAK_BALANCE_*.
+ARTIFACT_KEYS = {"failover_soak": {"kind", "invariants", "failover", "journal", "kills"},
+                 "balance_soak": {"kind", "invariants", "balancer", "journal", "kill"}}
+BALANCER_KNOBS = ("imbalance_enter", "imbalance_exit", "hold_ticks", "epoch_ticks",
+                  "budget_per_epoch", "cooldown_ticks", "min_entity_delta", "freeze_min_ticks")
+FAILOVER_KILLS = ((1, "kill-1-mid-handover-burst"), (2, "kill-2-during-failover"))
+PROBE_PREFIX = b"orfn"  # the failover soak's probe frames
+
+
+def failover_scenario() -> dict:
+    """scripts/failover_soak.py's default_scenario: ambient stalls only (the
+    transport fault is the deliberate server kill)."""
+    return {"name": "failover-weather", "seed": SOAK_SCENARIO_SEED,
+            "config_overrides": {"CellBucket": 6}, "faults": [
+                {"point": "device.dispatch_stall", "every_n": 25, "stall_ms": 30,
+                 "max_fires": 60},
+                {"point": "channel.tick_budget", "every_n": 400, "stall_ms": 10,
+                 "max_fires": 40}]}
+
+
+def balance_scenario() -> dict:
+    """scripts/balance_soak.py's default_scenario: mild dispatch stalls (the
+    fault is the skew, and the destination kill)."""
+    return {"name": "balance-weather", "seed": SOAK_SCENARIO_SEED,
+            "config_overrides": {"CellBucket": 8}, "faults": [
+                {"point": "device.dispatch_stall", "every_n": 40, "stall_ms": 20,
+                 "max_fires": 50}]}
+
+
+def failover_params(**kw) -> dict:
+    """scripts/failover_soak.py's FailoverSoakParams (its paths apart), its
+    scenario ``failover_scenario()``."""
+    return dict(dict(warmup_s=8.0, aftermath_s=12.0, quiesce_s=8.0, clients=12, entities=128,
+                     msg_rate=20.0, storm_size=48, kills=2, recover_window_s=1.5,
+                     rehost_deadline_s=3.0, settle_margin_s=3.0, probe_frames=20,
+                     tick_p99_bound_s=1.5, global_tick_ms=33, entity_capacity=256,
+                     query_capacity=32, scenario=failover_scenario()), **kw)
+
+
+def balance_params(**kw) -> dict:
+    """scripts/balance_soak.py's BalanceSoakParams (its paths apart), its
+    scenario ``balance_scenario()``."""
+    return dict(dict(warmup_s=6.0, hotspot_s=22.0, aftermath_s=8.0, quiesce_s=8.0, clients=10,
+                     entities=128, msg_rate=20.0, kill_mid_migration=True, kill_phase_s=14.0,
+                     recover_window_s=1.5, imbalance_enter=1.5, imbalance_exit=1.2,
+                     hold_ticks=3, epoch_ticks=90, budget_per_epoch=2, cooldown_ticks=240,
+                     min_entity_delta=8, freeze_min_ticks=6, kill_freeze_min_ticks=45,
+                     tick_p99_bound_s=1.5, global_tick_ms=33, entity_capacity=256,
+                     query_capacity=32, scenario=balance_scenario()), **kw)
+
+
+# 19a's timelines on the fixed clock: the scripts' knobs and weather, their
+# phases shortened (each kill's window, re-host and probes are the scripts').
+FAILOVER_LOCKSTEP = dict(warmup_s=3.0, aftermath_s=7.0, quiesce_s=2.0)
+BALANCE_LOCKSTEP = dict(warmup_s=2.0, hotspot_s=8.0, kill_phase_s=7.0, aftermath_s=2.0,
+                        quiesce_s=2.0)
+
+
+def loss_pins(P, dev, p: dict, balancer: bool) -> None:
+    """The failover soak's pins (``balancer`` False) or the balance soak's:
+    development mode; the device tables of ``p``; the ladder, the flight
+    recorder, the device guard, the SLO plane, partitioning and federation
+    off; recoverable server connections with ``recover_window_s``; failover
+    on (its re-host deadline from ``p`` in the failover soak); the balancer
+    off, or on with the balance soak's knobs; GLOBAL at ``global_tick_ms``
+    (fan-out 50 ms), SPATIAL and ENTITY 50 / 100 ms; the engine on ``dev``."""
+    s = P.settings.global_settings
+    s.development = True
+    if P.port:
+        s.spatial_device = dev.type
+    s.tpu_entity_capacity, s.tpu_query_capacity = p["entity_capacity"], p["query_capacity"]
+    s.overload_enabled = s.trace_enabled = s.device_guard_enabled = s.slo_enabled = False
+    P.tracing.recorder.configure(enabled=False)
+    s.partition_enabled = False
+    P.federation.reset_federation()
+    s.federation_config = ""
+    s.server_conn_recoverable = True
+    s.server_conn_recover_timeout_ms = int(p["recover_window_s"] * 1000)
+    s.failover_enabled = True
+    s.balancer_enabled = balancer
+    if balancer:
+        for knob in BALANCER_KNOBS:
+            setattr(s, f"balancer_{knob}", p[knob])
+    else:
+        s.failover_rehost_deadline_s = p["rehost_deadline_s"]
+    cs, ct = P.settings.ChannelSettings, P.types.ChannelType
+    s.channel_settings = {
+        ct.GLOBAL: cs(tick_interval_ms=p["global_tick_ms"], default_fanout_interval_ms=50),
+        ct.SPATIAL: cs(tick_interval_ms=50, default_fanout_interval_ms=100),
+        ct.ENTITY: cs(tick_interval_ms=50, default_fanout_interval_ms=100)}
+
+
+class LossWorldBase:
+    """The reads both schedules make of a world. A world also holds ``P``,
+    the controller ``ctl``, the entity sim ``sim``, ``t_start``,
+    ``timeline``, ``probe_sent`` and ``probe_received``, and answers
+    ``start``, ``kill``, ``probe``, ``stop_sending`` and ``frames_sent``."""
+
+    def spatial_channels(self) -> dict:
+        s = self.P.settings.global_settings
+        return {cid: ch for cid, ch in self.P.channel.all_channels().items()
+                if s.spatial_channel_id_start <= cid < s.entity_channel_id_start}
+
+    def all_cells_owned(self) -> bool:
+        cells = self.spatial_channels()
+        return len(cells) == 16 and all(ch.has_owner() for ch in cells.values())
+
+    def server_conn(self, pit: str):
+        for conn in self.P.connection.all_connections().values():
+            if conn.pit == pit and not conn.is_closing():
+                return conn
+        return None
+
+    def server_entity_loads(self) -> dict:
+        """scripts/balance_soak.py's server_entity_loads: conn id -> entities
+        resident in its owned cells."""
+        out: dict = {}
+        for ch in self.spatial_channels().values():
+            if not ch.has_owner():
+                continue
+            ents = getattr(ch.get_data_message(), "entities", None)
+            owner = ch.get_owner().id
+            out[owner] = out.get(owner, 0) + (len(ents) if ents is not None else 0)
+        return out
+
+
+def entity_imbalance(loads: dict) -> float:
+    """scripts/balance_soak.py's entity_imbalance: max / mean of the loads."""
+    if not loads:
+        return 0.0
+    mean = sum(loads.values()) / len(loads)
+    return (max(loads.values()) / mean) if mean > 0 else 0.0
+
+
+def invariant_summary(checks: list) -> dict:
+    """An InvariantChecker summary of (name, held, detail) checks."""
+    return {"ok": all(ok for _, ok, _ in checks),
+            "checks": [{"name": n, "ok": bool(ok), "detail": str(d)[:300]} for n, ok, d in checks]}
+
+
+def failover_schedule(w, p: dict):
+    """scripts/failover_soak.py's run_failover_soak from its baseline to its
+    books, against the world ``w``: a generator yielding the seconds the
+    script sleeps; it returns the soak's report. The scenario armed, a
+    warmup with a storm, then each kill: a storm marches a crowd, 150 ms
+    later server ``soak-spatial-<i>``'s socket dies (``w.kill``), an
+    orphaned cell is probed (``w.probe``) until the recovery window's last
+    200 ms, and the world jitters until every cell is owned again; the
+    aftermath's storms on the shrunken fleet; the clients stop, the
+    scenario is disarmed, and the books after ``quiesce_s``."""
+    P, sim = w.P, w.sim
+    inv, plane = P.invariants, P.failover.plane
+    baseline = inv.scrape()
+    P.chaos.arm(p["scenario"])
+    w.start()
+    warm_until = time.monotonic() + p["warmup_s"]
+    crowd = sim.storm_gather()
+    while time.monotonic() < warm_until:
+        sim.jitter_step()
+        yield 0.1
+    sim.disperse(crowd)
+    kills: list = []
+    for index, label in FAILOVER_KILLS[:p["kills"]]:
+        pit = f"soak-spatial-{index}"
+        conn = w.server_conn(pit)
+        if conn is None:
+            raise PhaseFailed(f"victim {pit} not found/alive")
+        owned = sorted(cid for cid, ch in w.spatial_channels().items() if ch.get_owner() is conn)
+        sim.storm_gather()
+        yield 0.15
+        t_kill = time.monotonic()
+        w.kill(index, label)
+        rec = dict(label=label, pit=pit, conn_id=conn.id, t=round(t_kill - w.t_start, 2),
+                   owned_cells=owned)
+        orphan_deadline = t_kill + 2.0
+        while time.monotonic() < orphan_deadline and w.all_cells_owned():
+            yield 0.02
+        rec["orphaned"] = not w.all_cells_owned()
+        if owned:
+            w.probe(owned[0], t_kill + p["recover_window_s"] - 0.2)
+        deadline = t_kill + p["recover_window_s"] + p["rehost_deadline_s"] + p["settle_margin_s"]
+        while time.monotonic() < deadline:
+            sim.jitter_step()
+            if w.all_cells_owned():
+                break
+            yield 0.1
+        rec["rehosted_in_s"] = (round(time.monotonic() - t_kill, 2)
+                                if w.all_cells_owned() else None)
+        kills.append(rec)
+    after_rehost = inv.scrape()
+    aft_until = time.monotonic() + p["aftermath_s"]
+    crowd, storm_at = [], time.monotonic() + 1.0
+    while time.monotonic() < aft_until:
+        sim.jitter_step()
+        if time.monotonic() >= storm_at:
+            if crowd:
+                sim.disperse(crowd)
+                crowd = []
+            if time.monotonic() < aft_until - 5.0:
+                crowd = sim.storm_gather()
+            storm_at += 4.0
+        yield 0.1
+    if crowd:
+        sim.disperse(crowd)
+    w.stop_sending()
+    fires = dict(P.chaos.chaos.fire_counts())
+    P.chaos.disarm()
+    yield p["quiesce_s"]
+    now = inv.scrape()
+    d, d_post = inv.delta(now, baseline), inv.delta(now, after_rehost)
+    cells = w.spatial_channels()
+    report = dict(
+        kind="failover_soak", config=os.path.basename(TRACE_CELLS_CONFIG),
+        config_overrides=dict(p["scenario"]["config_overrides"]),
+        duration_s=round(time.monotonic() - w.t_start, 2),
+        phases={k: p[k] for k in ("warmup_s", "recover_window_s", "rehost_deadline_s",
+                                  "aftermath_s", "quiesce_s")},
+        clients=p["clients"], entities=p["entities"], scenario=p["scenario"], kills=kills,
+        failover=plane.report(), journal=P.failover.journal.report(), timeline=w.timeline,
+        chaos=fires,
+        books=dict(
+            soak_census(P, w.ctl, sim.entity_ids),
+            servers_lost=plane.ledger["servers_lost"],
+            server_lost_metric=int(inv.sample_total(d, "server_lost_total")),
+            cells=len(cells), cells_owned=sum(1 for ch in cells.values() if ch.has_owner()),
+            rehost_metric=int(inv.sample_total(d, "failover_rehost_total")),
+            journal_metric={dict(labels)["state"]: int(v) for (name, labels), v in d.items()
+                            if name == "handover_journal_total" and v},
+            ownerless_entities=[
+                eid for eid in sim.entity_ids
+                if (ech := P.channel.get_channel(eid)) is not None and not ech.is_removing()
+                and not ech.has_owner()]),
+        stats=dict(
+            client_frames_sent=w.frames_sent(), probe_frames_sent=w.probe_sent,
+            probe_frames_forwarded=w.probe_received,
+            ownerless_drops=int(inv.sample_total(d, "ownerless_drops_total")),
+            cells_rehosted=plane.ledger["cells_rehosted"],
+            entities_repointed=plane.ledger["entities_repointed"],
+            handovers_total=int(inv.sample_total(d, "handovers_total")),
+            handovers_after_failover=int(inv.sample_total(d_post, "handovers_total")),
+            global_tick_p99_s=inv.histogram_quantile(d, "channel_tick_duration", 0.99,
+                                                     channel_type="GLOBAL"),
+            post_failover_tick_p99_s=inv.histogram_quantile(d_post, "channel_tick_duration",
+                                                            0.99, channel_type="GLOBAL"),
+            device_step_p99_s=inv.histogram_quantile(d, "tpu_spatial_step_seconds", 0.99)))
+    report["invariants"] = invariant_summary(failover_soak_checks(report, p))
+    return report
+
+
+def failover_soak_checks(r: dict, p: dict) -> list:
+    """scripts/failover_soak.py's 19 invariants of a report, under its names
+    and in its order, as (name, held, detail)."""
+    b, st, kills = r["books"], r["stats"], r["kills"]
+    events = r["failover"]["events"]
+    orphans = sum(len(e["orphan_cells"]) for e in events)
+    rehosts = sum(len(e["rehosted"]) for e in events)
+    worst_ms = max((e["duration_ms"] for e in events), default=0.0)
+    budget = p["recover_window_s"] + p["rehost_deadline_s"] + p["settle_margin_s"]
+    slow = [k for k in kills if k["rehosted_in_s"] is None or k["rehosted_in_s"] > budget]
+    jc = r["journal"]["counts"]
+    expected_drops = st["probe_frames_sent"] - st["probe_frames_forwarded"]
+    p99, p99_post = st["global_tick_p99_s"], st["post_failover_tick_p99_s"]
+    bound = p["tick_p99_bound_s"]
+    return [
+        ("one_server_lost_event_per_kill", b["servers_lost"] == len(kills),
+         (b["servers_lost"], len(kills))),
+        ("server_lost_metric_matches_ledger", b["server_lost_metric"] == b["servers_lost"],
+         (b["server_lost_metric"], b["servers_lost"])),
+        ("all_cells_owned_after_failover", b["cells"] == b["cells_owned"] == 16,
+         f"{b['cells_owned']}/16"),
+        ("every_orphan_cell_rehosted", rehosts == orphans, (rehosts, orphans)),
+        ("failover_pass_under_deadline", worst_ms / 1000.0 <= p["rehost_deadline_s"], worst_ms),
+        ("every_kill_orphaned_cells", [k["label"] for k in kills if not k["orphaned"]] == [],
+         [k["label"] for k in kills if not k["orphaned"]]),
+        ("rehost_within_window_plus_deadline", slow == [],
+         [(k["label"], k["rehosted_in_s"]) for k in kills]),
+        ("rehost_accounting_exact",
+         (b["rehost_metric"], st["cells_rehosted"]) == (rehosts, rehosts),
+         (b["rehost_metric"], st["cells_rehosted"], rehosts)),
+        ("journal_metric_matches_ledger", b["journal_metric"] == jc, (b["journal_metric"], jc)),
+        ("journal_prepared_equals_committed_plus_aborted",
+         jc.get("prepared", 0) == jc.get("committed", 0) + jc.get("aborted", 0), jc),
+        ("journal_nothing_in_flight", r["journal"]["in_flight"] == 0, r["journal"]["in_flight"]),
+        ("no_lost_entity_tracking", b["lost_tracking"] == [], b["lost_tracking"]),
+        ("every_entity_in_exactly_one_cell", (b["missing"], b["duped"]) == ([], []),
+         (b["missing"], b["duped"])),
+        ("every_entity_channel_has_live_owner", b["ownerless_entities"] == [],
+         b["ownerless_entities"]),
+        ("ownerless_drops_exact", st["ownerless_drops"] == expected_drops,
+         f"drops={st['ownerless_drops']} sent={st['probe_frames_sent']} "
+         f"received={st['probe_frames_forwarded']}"),
+        ("ownerless_window_probed", st["probe_frames_sent"] > 0, st["probe_frames_sent"]),
+        ("global_tick_p99_bounded", p99 is not None and p99 <= bound, p99),
+        ("post_failover_tick_p99_bounded", p99_post is not None and p99_post <= bound, p99_post),
+        ("handovers_after_failover", st["handovers_after_failover"] > 0,
+         st["handovers_after_failover"])]
+
+
+def balance_schedule(w, p: dict):
+    """scripts/balance_soak.py's run_balance_soak from its baseline to its
+    books, against the world ``w`` (a generator, as ``failover_schedule``):
+    the scenario armed; a uniform warmup; the whole crowd herded into
+    quadrant (0, 0) and jittered there for at least ``hotspot_s`` (up to
+    twice that while the per-server load stays over the enter threshold or
+    a migration is in flight); the steady-state loads once the last
+    migration resolved; then, with ``kill_mid_migration``, the freeze
+    widened to ``kill_freeze_min_ticks``, the crowd dispersed and re-herded
+    into quadrant (1, 1), and the first migration's destination killed while
+    it drains; the aftermath; the books after ``quiesce_s``."""
+    P, sim, ctl = w.P, w.sim, w.ctl
+    inv, bal = P.invariants, P.balancer.balancer
+    rng = sim.rng
+    baseline = inv.scrape()
+    P.chaos.arm(p["scenario"])
+    w.start()
+
+    def quadrant_bounds(sx: int, sy: int) -> tuple:
+        sgc = -(-ctl.grid_cols // ctl.server_cols)
+        sgr = -(-ctl.grid_rows // ctl.server_rows)
+        x0 = ctl.world_offset_x + sx * sgc * ctl.grid_width + 1.0
+        z0 = ctl.world_offset_z + sy * sgr * ctl.grid_height + 1.0
+        return x0, z0, x0 + sgc * ctl.grid_width - 2.0, z0 + sgr * ctl.grid_height - 2.0
+
+    def herd(sx: int, sy: int) -> None:
+        x0, z0, x1, z1 = quadrant_bounds(sx, sy)
+        for eid in sim.entity_ids:
+            sim._move(eid, rng.uniform(x0, x1), rng.uniform(z0, z1))
+
+    def quadrant_jitter(sx: int, sy: int) -> None:
+        x0, z0, x1, z1 = quadrant_bounds(sx, sy)
+        for eid in rng.sample(sim.entity_ids, max(1, len(sim.entity_ids) // 8)):
+            x, z = sim.positions[eid]
+            sim._move(eid, min(max(x + rng.uniform(-8, 8), x0), x1),
+                      min(max(z + rng.uniform(-8, 8), z0), z1))
+
+    warm_until = time.monotonic() + p["warmup_s"]
+    while time.monotonic() < warm_until:
+        sim.jitter_step()
+        yield 0.1
+    committed_at_warmup = bal.ledger.get("committed", 0)
+    herd(0, 0)
+    hot_min = time.monotonic() + p["hotspot_s"]
+    hot_cap = time.monotonic() + p["hotspot_s"] * 2
+    while time.monotonic() < hot_min or (
+            time.monotonic() < hot_cap
+            and (entity_imbalance(w.server_entity_loads()) >= p["imbalance_enter"]
+                 or bal.migration_in_flight() is not None)):
+        quadrant_jitter(0, 0)
+        yield 0.1
+    hotspot_committed = bal.ledger.get("committed", 0)
+    settle_until = time.monotonic() + 3.0
+    while time.monotonic() < settle_until and bal.migration_in_flight() is not None:
+        yield 0.1
+    steady_loads = w.server_entity_loads()
+    steady_imbalance = entity_imbalance(steady_loads)
+    kill_rec, fault_log = None, []
+    if p["kill_mid_migration"]:
+        P.settings.global_settings.balancer_freeze_min_ticks = p["kill_freeze_min_ticks"]
+        sim.disperse(list(sim.entity_ids))
+        yield 1.5
+        herd(1, 1)
+        kill_until = time.monotonic() + p["kill_phase_s"]
+        while time.monotonic() < kill_until:
+            quadrant_jitter(1, 1)
+            mig = bal.migration_in_flight()
+            if mig is not None and kill_rec is None:
+                dst_pit = getattr(mig.dst_conn, "pit", "")
+                idx = int(dst_pit.rsplit("-", 1)[1]) if dst_pit.startswith("soak-spatial-") \
+                    else None
+                if idx is not None and idx < 4:
+                    cell_id = mig.cell_id
+                    aborted_before = bal.ledger.get("aborted", 0)
+                    w.kill(idx, "kill-mid-migration")
+                    t_kill = time.monotonic()
+                    while bal.migration_in_flight() is mig and time.monotonic() < t_kill + 5.0:
+                        yield 0.05
+                    abort_ev = next((e for e in reversed(bal.events)
+                                     if e["cell"] == cell_id and e["result"] != "committed"),
+                                    None)
+                    kill_rec = dict(
+                        dst_pit=dst_pit, cell=cell_id, t=round(t_kill - w.t_start, 2),
+                        resolved_in_s=round(time.monotonic() - t_kill, 2),
+                        aborted=bal.ledger.get("aborted", 0) > aborted_before,
+                        owner_is_src_after_abort=bool(
+                            abort_ev is not None and abort_ev.get("owner_rolled_back")))
+                else:
+                    fault_log.append(f"kill skipped: dst {dst_pit!r} unmapped")
+            yield 0.1
+        if kill_rec is None:
+            fault_log.append("no migration observed in kill phase")
+    aft_until = time.monotonic() + p["aftermath_s"]
+    while time.monotonic() < aft_until:
+        sim.jitter_step()
+        yield 0.1
+    w.stop_sending()
+    fires = dict(P.chaos.chaos.fire_counts())
+    P.chaos.disarm()
+    yield p["quiesce_s"]
+    d = inv.delta(inv.scrape(), baseline)
+    breport = bal.report()
+    report = dict(
+        kind="balance_soak", config=os.path.basename(TRACE_CELLS_CONFIG),
+        config_overrides=dict(p["scenario"]["config_overrides"]),
+        duration_s=round(time.monotonic() - w.t_start, 2),
+        phases=dict(warmup_s=p["warmup_s"], hotspot_s=p["hotspot_s"],
+                    kill_phase_s=p["kill_phase_s"] if p["kill_mid_migration"] else 0,
+                    aftermath_s=p["aftermath_s"], quiesce_s=p["quiesce_s"]),
+        clients=p["clients"], entities=p["entities"],
+        balancer_knobs={k: p[k] for k in BALANCER_KNOBS if k != "min_entity_delta"},
+        scenario=p["scenario"], balancer=breport, kill=kill_rec,
+        steady_state=dict(server_entities={str(k): v for k, v in sorted(steady_loads.items())},
+                          entity_imbalance=round(steady_imbalance, 3)),
+        failover=P.failover.plane.report(), journal=P.failover.journal.report(),
+        timeline=w.timeline, chaos=fires, notes=fault_log,
+        books=dict(
+            soak_census(P, ctl, sim.entity_ids), committed_at_warmup=committed_at_warmup,
+            hotspot_committed=hotspot_committed, steady_imbalance=steady_imbalance,
+            metric_results={dict(labels)["result"]: int(v) for (name, labels), v in d.items()
+                            if name == "balancer_migrations_total" and v},
+            in_flight=bal.migration_in_flight() is not None,
+            frozen=(sorted(bal.frozen_cells), len(bal._frozen_crossings))),
+        stats=dict(
+            client_frames_sent=w.frames_sent(),
+            migrations_committed=bal.ledger.get("committed", 0),
+            migrations_aborted=bal.ledger.get("aborted", 0),
+            migrations_vetoed=bal.ledger.get("vetoed", 0),
+            handovers_total=int(inv.sample_total(d, "handovers_total")),
+            steady_entity_imbalance=round(steady_imbalance, 3),
+            global_tick_p99_s=inv.histogram_quantile(d, "channel_tick_duration", 0.99,
+                                                     channel_type="GLOBAL"),
+            device_step_p99_s=inv.histogram_quantile(d, "tpu_spatial_step_seconds", 0.99)))
+    report["invariants"] = invariant_summary(balance_soak_checks(report, p))
+    return report
+
+
+def balance_soak_checks(r: dict, p: dict) -> list:
+    """scripts/balance_soak.py's invariants of a report, under its names and
+    in its order (16; the two of the kill only with ``kill_mid_migration``,
+    the second only once the kill landed), as (name, held, detail)."""
+    b, ledger = r["books"], r["balancer"]["ledger"]
+    commits = [e for e in r["balancer"]["events"] if e["result"] == "committed"]
+    per_epoch: dict = {}
+    for e in commits:
+        per_epoch[e["epoch"]] = per_epoch.get(e["epoch"], 0) + 1
+    over_budget = {ep: n for ep, n in per_epoch.items() if n > p["budget_per_epoch"]}
+    by_cell: dict = {}
+    for e in commits:
+        by_cell.setdefault(e["cell"], []).append(e["resolved_tick"])
+    flaps = [(cell, a, c) for cell, ticks in by_cell.items()
+             for a, c in zip(sorted(ticks), sorted(ticks)[1:]) if c - a < p["cooldown_ticks"]]
+    jc, p99 = r["journal"]["counts"], r["stats"]["global_tick_p99_s"]
+    checks = [
+        ("no_migration_while_balanced", b["committed_at_warmup"] == 0, b["committed_at_warmup"]),
+        ("hotspot_migrations_committed", b["hotspot_committed"] > 0, b["hotspot_committed"]),
+        ("steady_state_entity_imbalance_under_threshold",
+         b["steady_imbalance"] <= p["imbalance_enter"],
+         (b["steady_imbalance"], r["steady_state"]["server_entities"])),
+        ("migration_metric_matches_ledger", b["metric_results"] == ledger,
+         (b["metric_results"], ledger)),
+        ("migrations_planned_equals_committed_plus_aborted",
+         ledger.get("planned", 0) == ledger.get("committed", 0) + ledger.get("aborted", 0),
+         ledger),
+        ("no_migration_left_in_flight", not b["in_flight"], b["in_flight"]),
+        ("no_frozen_crossing_left_behind", tuple(b["frozen"]) == ([], 0), b["frozen"]),
+        ("per_epoch_commits_within_budget", over_budget == {}, per_epoch),
+        ("no_cell_migrates_twice_within_cooldown", flaps == [], flaps)]
+    if p["kill_mid_migration"]:
+        checks.append(("kill_mid_migration_landed", r["kill"] is not None, r["notes"]))
+        if r["kill"] is not None:
+            checks.append(("crash_mid_migration_aborts_to_old_owner",
+                           r["kill"]["aborted"] and r["kill"]["owner_is_src_after_abort"],
+                           r["kill"]))
+    return checks + [
+        ("no_lost_entity_tracking", b["lost_tracking"] == [], b["lost_tracking"]),
+        ("every_entity_in_exactly_one_cell", (b["missing"], b["duped"]) == ([], []),
+         (b["missing"], b["duped"])),
+        ("journal_prepared_equals_committed_plus_aborted",
+         jc.get("prepared", 0) == jc.get("committed", 0) + jc.get("aborted", 0), jc),
+        ("journal_nothing_in_flight", r["journal"]["in_flight"] == 0, r["journal"]["in_flight"]),
+        ("global_tick_p99_bounded", p99 is not None and p99 <= p["tick_p99_bound_s"], p99)]
+
+
+# Each soak's run, its params, 19a's timeline and the seed its entity sim
+# xors into the scenario's.
+SCHEDULES = {"failover": NS(run=failover_schedule, params=failover_params,
+                            lockstep=FAILOVER_LOCKSTEP, sim_seed=0xFA11),
+             "balance": NS(run=balance_schedule, params=balance_params,
+                           lockstep=BALANCE_LOCKSTEP, sim_seed=0xBA1A)}
+
+
+def loss_sim(P, ctl, schedule: str, p: dict) -> EntitySim:
+    """The soak's entity sim: ``entities`` at seeded positions, storms of the
+    failover soak's ``storm_size`` (the balance soak's are 48, no param),
+    seeded from the scenario's seed xor the soak's own."""
+    from random import Random
+
+    return EntitySim(P, ctl, p["entities"], p.get("storm_size", 48),
+                     Random(p["scenario"]["seed"] ^ SCHEDULES[schedule].sim_seed))
+
+
+class LossConn(ElasticConn):
+    """``ElasticConn`` that also counts the failover soak's probe frames it
+    is forwarded, as the script's spatial-server drain does."""
+
+    def __init__(self, P, conn_id: int, kind: str):
+        super().__init__(P, conn_id, kind)
+        self.probes = 0
+
+    def send(self, ctx) -> None:
+        super().send(ctx)
+        if ctx.msg_type >= 100 and isinstance(ctx.msg, self.P.wire_pb2.ServerForwardMessage) \
+                and ctx.msg.payload.startswith(PROBE_PREFIX):
+            self.probes += 1
+
+
+class LossWorld(LossWorldBase, GatewayWorld):
+    """19a: one soak's world in-process on a fixed clock (``StallClock``),
+    through one package's modules ``P``: the cells world (``config``, with
+    the scenario's CellBucket), a master owning GLOBAL and 4 recoverable
+    server stubs (pits ``soak-spatial-<i>``) claiming the cells, the soak's
+    ``EntitySim`` entities, ``clients`` stub clients each forwarding to the
+    master at ``msg_rate`` until the soak stops them, the soak's pins. The
+    schedule (``failover_schedule``/``balance_schedule``) runs between ticks;
+    a kill makes the server's stub recoverable and closes it, as an aborted
+    socket does, and a probe streams one frame a tick at an orphaned cell.
+    Each tick advances the clock one GLOBAL budget, runs the recovery
+    reaper's pass, the forwards and the probe, then every entity channel,
+    GLOBAL (the controller, the balancer, the failover pass) and every
+    spatial channel once. Records per tick the handovers, the tables, every
+    outbound stream (the cell-authority messages digested apart), the
+    failover, balancer and journal ledgers and events, the kill timeline,
+    the frozen and deferred crossings, each cell's owner and
+    ``ownerless_drops_total``. With ``K`` on the card, K1 and K2 are held
+    against their plain versions on each kill tick's live tensors, the
+    first tick after each re-host, and each migration's resolving tick."""
+
+    def __init__(self, P, dev: torch.device, clock, schedule: str, p: dict, config: str,
+                 K=None):
+        self.P, self.dev, self.clock, self.p, self.K = P, dev, clock, p, K
+        reset_gateway(P)
+        loss_pins(P, dev, p, balancer=schedule == "balance")
+        P.message.init_message_map()
+        P.channel.init_channels()
+        P.sim_models.register_sim_types()
+        P.controller.init_spatial_controller(config)
+        ctl = self.ctl = P.controller.get_spatial_controller()
+        self.eng = ctl.engine
+        if P.port:
+            check(self.eng.device.type == dev.type, f"the engine is on {self.eng.device}, not {dev}")
+        self.conns: list = []
+        self._servers()
+        self.conns[0].pit = "soak-master"
+        for i, server in enumerate(self.conns[1:]):
+            server.pit = f"soak-spatial-{i}"
+        self.servers = list(self.conns[1:])
+        self.gch = P.channel.get_global_channel()
+        self.sim = loss_sim(P, ctl, schedule, p)
+        self.sim.create_entities()
+        self.entity_channels = [P.channel.get_channel(e) for e in self.sim.entity_ids]
+        self.clients = [self.conn(1000 + i, "CLIENT") for i in range(p["clients"])]
+        self.prober = self.conn(900, "CLIENT")
+        self.seq, self.next_send, self.sending = [0] * p["clients"], time.monotonic(), True
+        self.probing = None
+        self.probe_sent = 0
+        self.timeline: list = []
+        self.kills: list = []
+        self.handovers, self.step_ms = [], []
+        self.transfers = self.engine_ticks = 0
+        self.kernel_checks: dict = {}
+        self._due: list = []
+        self._wrap()
+        tick = self.eng.tick
+
+        def counted_tick(*args, **kwargs):
+            self.engine_ticks += 1
+            return tick(*args, **kwargs)
+
+        self.eng.tick = counted_tick
+        self.t_start = time.monotonic()
+
+    _wrap = TraceWorld._wrap
+
+    def conn(self, conn_id: int, kind: str) -> GatewayConn:
+        c = LossConn(self.P, conn_id, kind)
+        self.P.connection._all_connections[conn_id] = c
+        self.conns.append(c)
+        return c
+
+    # ---- what the schedules call ----
+
+    def start(self) -> None:
+        pass
+
+    def kill(self, index: int, label: str) -> None:
+        P, conn = self.P, self.servers[index]
+        P.recovery.make_recoverable(conn)
+        conn.close(unexpected=True)
+        P.connection._all_connections.pop(conn.id, None)
+        P.connection.close_epoch += 1  # the channels' prune scans key off it
+        self.kills.append((len(self.obs), label, conn.id))
+        self._due.append((len(self.obs), label))
+
+    def probe(self, cell_id: int, until: float) -> None:
+        self.probing = (cell_id, until, 0)
+
+    def stop_sending(self) -> None:
+        self.sending = False
+
+    def frames_sent(self) -> int:
+        return sum(self.seq)
+
+    @property
+    def probe_received(self) -> int:
+        return sum(c.probes for c in self.servers)
+
+    def ownerless_drops(self) -> int:
+        return int(sum(s.value for m in self.P.metrics.ownerless_drops.collect()
+                       for s in m.samples if s.name.endswith("_total")))
+
+    # ---- the ticks ----
+
+    def run(self, gen) -> dict:
+        """Tick the world while ``gen`` sleeps; its report when it ends."""
+        self.obs: list = []
+        try:
+            while True:
+                wake = time.monotonic_ns() + round(next(gen) * 1e9)
+                while time.monotonic_ns() < wake:
+                    self.obs.append(self.tick(len(self.obs)))
+        except StopIteration as done:
+            return done.value
+
+    def drive(self, t: int) -> None:
+        P, p = self.P, self.p
+        P.recovery.tick_connection_recovery_once()  # the reaper loop's pass
+        handler = P.message.handle_client_to_server_user_message
+        now = time.monotonic()
+        while self.sending and self.next_send <= now:
+            for i, client in enumerate(self.clients):
+                msg = P.wire_pb2.ServerForwardMessage(
+                    clientConnId=client.id, payload=np.array([i, self.seq[i]], "<u4").tobytes())
+                self.gch.put_message(msg, handler, client,
+                                     P.wire_pb2.MessagePack(channelId=0, msgType=100))
+                self.seq[i] += 1
+            self.next_send += 1.0 / p["msg_rate"]
+        if self.probing is not None:
+            cell_id, until, n = self.probing
+            if now < until and n < p["probe_frames"]:
+                msg = P.wire_pb2.ServerForwardMessage(
+                    clientConnId=self.prober.id, payload=PROBE_PREFIX + np.array(
+                        [n], "<u4").tobytes())
+                P.channel.get_channel(cell_id).put_message(
+                    msg, handler, self.prober,
+                    P.wire_pb2.MessagePack(channelId=cell_id, msgType=100))
+                self.probe_sent += 1
+                self.probing = (cell_id, until, n + 1)
+            else:
+                self.probing = None
+
+    def tick(self, t: int) -> dict:
+        P, K, ctl = self.P, self.K, self.ctl
+        plane, bal, journal = P.failover.plane, P.balancer.balancer, P.failover.journal
+        self.clock.advance(self.p["global_tick_ms"] / 1000.0)
+        self.drive(t)
+        now = time.monotonic_ns()
+        chans = P.channel.all_channels()
+        cuda = self.dev.type == "cuda"
+        crossings, transfers = len(self.handovers), self.transfers
+        fires = P.chaos.chaos.fire_counts()
+        n_failover, n_balancer = len(plane.events), len(bal.events)
+        before = K.launch_counts() if K is not None else None
+        sync(self.dev)
+        with (Reads() if cuda else contextlib.nullcontext()) as reads:
+            t0 = time.perf_counter()
+            for ch in self.entity_channels:
+                ch.tick_once(now)
+            self.gch.tick_once(now)
+            for cid in self.spatial:
+                chans[cid].tick_once(now)
+            t1 = time.perf_counter()
+        tables = hashlib.sha256()
+        for cid in self.spatial:
+            tables.update(chans[cid].get_data_message().SerializeToString(deterministic=True))
+        obs = dict(
+            handovers=[r for rows in self.handovers[crossings:] for r in rows],
+            deferred=sorted(ctl._deferred_crossings),
+            tables=tables.hexdigest(),
+            sent={c.id: (c.count, c.digest.hexdigest()) for c in self.conns},
+            cell_msgs={c.id: (c.cell_count, c.cell_digest.hexdigest()) for c in self.conns},
+            elastic=elastic_state(ctl, P.partition.partition, bal, plane, journal),
+            ledgers=dict(
+                failover_events=[dict(e) for e in plane.events],
+                balancer_events=fixed_clock_events(bal.events),
+                in_flight=journal.in_flight_count(), kills=list(self.kills),
+                owners=[(cid, chans[cid].get_owner().id if chans[cid].has_owner() else None)
+                        for cid in self.spatial],
+                drops=self.ownerless_drops(), probes=(self.probe_sent, self.probe_received)),
+            fires={pt: n - fires.get(pt, 0) for pt, n in P.chaos.chaos.fire_counts().items()
+                   if n != fires.get(pt, 0)},
+            transfers=self.transfers - transfers if P.port else None,
+            tick_ms=(t1 - t0) * 1e3, reads=reads.count if cuda else None)
+        if K is not None:
+            obs["launches"] = {n: c - before[n] for n, c in K.launch_counts().items()}
+        for i, e in enumerate(plane.events[n_failover:], n_failover + 1):
+            self._due.append((t + 1, f"rehost{i}"))
+        for e in bal.events[n_balancer:]:
+            self._due.append((t, f"{e['result']}{e['migration_id']}"))
+        if K is not None and cuda:
+            for due, label in [d for d in self._due if d[0] <= t]:
+                self.kernel_checks[label] = uncounted(
+                    K, lambda: elastic_live_kernels(K, self.eng, (4, 4)))
+        self._due = [d for d in self._due if d[0] > t]
+        return obs
+
+    def close(self) -> None:
+        self.P.chaos.disarm()
+        reset_gateway(self.P)
+
+
+def loss_lockstep_size(scratch: str, n_dev: Optional[int] = None, failover: Optional[dict] = None,
+                       balance: Optional[dict] = None) -> dict:
+    """19a's size: each schedule's params (the script's, at 19a's timeline
+    ``FAILOVER_LOCKSTEP``/``BALANCE_LOCKSTEP``, then ``failover``/``balance``)
+    and its cells config at MeshDevices = n_dev (default min(cards, 8)) with
+    its scenario's CellBucket, written under ``scratch``."""
+    if n_dev is None:
+        n_dev = min(torch.cuda.device_count(), MESH_SHARDS)
+    out = dict(n_dev=n_dev)
+    for name, kw in (("failover", failover), ("balance", balance)):
+        sched = SCHEDULES[name]
+        p = sched.params(**dict(sched.lockstep, **(kw or {})))
+        d = os.path.join(scratch, name)
+        os.makedirs(d, exist_ok=True)
+        out[name] = dict(params=p, config=cells_config(n_dev, d, p["scenario"]["config_overrides"]))
+    return out
+
+
+def fixed_clock_events(events: list) -> list:
+    """The balancer's events without ``duration_ms``: a migration's start
+    time is taken from the host's clock (``CellMigration.t0``'s default
+    factory was bound before the fixed clock was entered), so on a fixed
+    clock its duration is no measurement and differs between legs."""
+    return [{k: v for k, v in e.items() if k != "duration_ms"} for e in events]
+
+
+def lockstep_part(r: dict, key: str):
+    """A 19a report's ``key``, as both legs must hold it equal."""
+    if key == "balancer" and key in r:
+        return dict(r[key], events=fixed_clock_events(r[key]["events"]))
+    return r.get(key)
+
+
+def run_loss_schedule(P, dev: torch.device, schedule: str, p: dict, config: str,
+                      K=None) -> tuple:
+    """One schedule of 19a on one leg: (per-tick observations, the soak's
+    report with the leg's launches, engine ticks, kernel checks and seconds)."""
+    t_leg = time.perf_counter()
+    with StallClock() as clock:
+        world = LossWorld(P, dev, clock, schedule, p, config, K)
+        if K is not None:
+            K.reset_launch_counts()
+        report = world.run(SCHEDULES[schedule].run(world, p))
+        obs = world.obs
+        report.update(
+            launches=K.launch_counts() if K is not None else None,
+            engine_ticks=world.engine_ticks, kernels=dict(world.kernel_checks),
+            step_ms=list(world.step_ms),
+            n_shards=world.eng._mesh.size if getattr(world.eng, "_mesh", None) else 1)
+        world.close()
+        del world
+    report["secs"] = time.perf_counter() - t_leg
+    return obs, report
+
+
+def run_loss_lockstep(P, dev: torch.device, size: dict, K=None) -> tuple:
+    """19a on one leg: ({schedule: observations}, {schedule: report})."""
+    obs, reports = {}, {}
+    for schedule in ("failover", "balance"):
+        obs[schedule], reports[schedule] = run_loss_schedule(
+            P, dev, schedule, size[schedule]["params"], size[schedule]["config"], K)
+    return obs, reports
+
+
+def loss_checks(schedule: str, r: dict, p: dict) -> list:
+    """The script's invariants of a report, under its names."""
+    return (failover_soak_checks if schedule == "failover" else balance_soak_checks)(r, p)
+
+
+class LiveLoss(LossWorldBase):
+    """19b/19c's world: one package's gateway live on this asyncio loop, as
+    scripts/chaos_soak.py boots it (``soak_boot_world``'s master and 4
+    spatial servers over TCP, ``soak_client_loop`` clients, the soak's
+    entity sim); a kill aborts server ``soak-spatial-<i>``'s socket, a probe
+    streams forwards at an orphaned cell over a client socket of its own
+    (the script's _probe_orphan_cell), and a poller records the timeline
+    every 250 ms."""
+
+    def __init__(self, P, ctl, p: dict, host: str, client_port: int, stats, stop, send_stop,
+                 tasks: list):
+        self.P, self.ctl, self.p, self.host, self.client_port = P, ctl, p, host, client_port
+        self.stats, self.stop, self.send_stop, self.tasks = stats, stop, send_stop, tasks
+        self.probe_sent = self.probe_received = 0
+        self.timeline: list = []
+        self.notes: list = []
+        self.socks: list = []
+        self.t_start = time.monotonic()
+
+    def on_server_pack(self, mp) -> None:
+        """The failover soak's _probe_drain: count the probe frames a spatial
+        server is forwarded."""
+        if mp.msgType < 100:
+            return
+        sfm = self.P.wire_pb2.ServerForwardMessage()
+        try:
+            sfm.ParseFromString(mp.msgBody)
+        except Exception:
+            return
+        if sfm.payload.startswith(PROBE_PREFIX):
+            self.probe_received += 1
+
+    def start(self) -> None:
+        import asyncio
+
+        self.tasks.append(asyncio.ensure_future(self._poller()))
+
+    async def _poller(self) -> None:
+        import asyncio
+
+        plane, bal = self.P.failover.plane, self.P.balancer.balancer
+        while not self.stop.is_set():
+            loads = self.server_entity_loads()
+            mig = bal.migration_in_flight()
+            self.timeline.append(dict(
+                t=round(time.monotonic() - self.t_start, 2),
+                cells_owned=sum(1 for ch in self.spatial_channels().values() if ch.has_owner()),
+                servers_lost=plane.ledger["servers_lost"],
+                cells_rehosted=plane.ledger["cells_rehosted"],
+                server_entities=dict(sorted(loads.items())),
+                entity_imbalance=round(entity_imbalance(loads), 3),
+                committed=bal.ledger.get("committed", 0), aborted=bal.ledger.get("aborted", 0),
+                in_flight=mig.cell_id if mig is not None else None))
+            await asyncio.sleep(0.25)
+
+    def kill(self, index: int, label: str) -> None:
+        self.socks[1 + index][2].transport.abort()
+
+    def probe(self, cell_id: int, until: float) -> None:
+        import asyncio
+
+        self.tasks.append(asyncio.ensure_future(self._probe(cell_id, until)))
+
+    async def _probe(self, cell_id: int, until: float) -> None:
+        import asyncio
+
+        P, n = self.P, 0
+        frames = self.p["probe_frames"]
+        while time.monotonic() < until and n < frames:
+            writer = None
+            try:
+                reader, writer = await asyncio.open_connection(self.host, self.client_port)
+                await soak_auth(P, reader, writer, f"orphan-prober-{cell_id}")
+                reader_task = asyncio.ensure_future(
+                    soak_read_frames(P, reader, lambda mp: None, self.stop))
+                while time.monotonic() < until and n < frames:
+                    writer.write(soak_frame(P, 100, PROBE_PREFIX + np.array([n], "<u4").tobytes(),
+                                            channel_id=cell_id))
+                    await writer.drain()
+                    self.probe_sent += 1
+                    n += 1
+                    await asyncio.sleep(0.02)
+                reader_task.cancel()
+            except (ConnectionError, OSError, TimeoutError) as e:
+                self.notes.append(f"orphan prober retry: {e!r}")
+                await asyncio.sleep(0.05)
+            finally:
+                if writer is not None:
+                    writer.close()
+
+    def stop_sending(self) -> None:
+        self.send_stop.set()
+
+    def frames_sent(self) -> int:
+        return sum(self.stats.client_sent.values())
+
+
+async def loss_live(P, dev: torch.device, schedule: str, p: dict, scratch: str, n_dev: int,
+                    K=None) -> dict:
+    """19b (``schedule`` "failover") or 19c ("balance"): the script's soak
+    through one package's gateway, in-process on this asyncio loop: TCP
+    listeners on loopback, the flush pump and the reaper, the soak's pins,
+    the cells world at MeshDevices ``n_dev`` with the scenario's CellBucket,
+    the engine on ``dev``, the master and 4 recoverable spatial servers,
+    ``clients`` clients streaming forwards at ``msg_rate``, the soak's
+    entities; then the schedule, live. Returns the soak's report, plus the
+    engine's device, its ticks and (with ``K``) the kernels' launches."""
+    import asyncio
+
+    reset_gateway(P)
+    loss_pins(P, dev, p, balancer=schedule == "balance")
+    P.sim_models.register_sim_types()
+    P.connection.init_connections(SERVER_FSM, CLIENT_FSM)
+    P.channel.init_channels()
+    P.ddos.init_anti_ddos()
+    P.controller.init_spatial_controller(
+        cells_config(n_dev, scratch, p["scenario"]["config_overrides"]))
+    ctl = P.controller.get_spatial_controller()
+    engine_ticks = engine_tick_counter(ctl.engine)
+    before = K.launch_counts() if K is not None else None
+    host = "127.0.0.1"
+    stop, send_stop = asyncio.Event(), asyncio.Event()
+    server_srv, client_srv, tasks = await live_listeners(P, host)
+    stats = SoakStats()
+    w = LiveLoss(P, ctl, p, host, client_srv.sockets[0].getsockname()[1], stats, stop,
+                 send_stop, tasks)
+    try:
+        w.socks = await soak_boot_world(P, host, server_srv.sockets[0].getsockname()[1], stats,
+                                        stop, on_server_pack=w.on_server_pack)
+        tasks += [task for task, _, _ in w.socks]
+        w.sim = loss_sim(P, ctl, schedule, p)
+        w.sim.create_entities()
+        tasks += [asyncio.ensure_future(soak_client_loop(
+            P, i, host, w.client_port, p["msg_rate"], stats, stop, send_stop))
+            for i in range(p["clients"])]
+        gen = SCHEDULES[schedule].run(w, p)
+        try:
+            while True:
+                await asyncio.sleep(next(gen))
+        except StopIteration as done:
+            report = done.value
+        if w.notes:
+            report["notes"] = list(report.get("notes") or []) + w.notes
+        report.update(engine=str(ctl.engine.device) if P.port else None,
+                      engine_ticks=engine_ticks[0],
+                      launches=({n: c - before[n] for n, c in K.launch_counts().items()}
+                                if K is not None else None))
+        return report
+    finally:
+        stop.set()
+        send_stop.set()
+        P.chaos.disarm()
+        for t in tasks:
+            t.cancel()
+        await asyncio.gather(*tasks, return_exceptions=True)
+        for _, _, writer in w.socks:
+            writer.close()
+        server_srv.close()
+        client_srv.close()
+        reset_gateway(P)
+
+
+def artifact_keys_missing(report: dict) -> list:
+    """The keys scripts/check_artifacts.py requires of this soak's artifact
+    that the report lacks."""
+    return sorted(ARTIFACT_KEYS[report["kind"]] - set(report))
+
+
+def loss_timeline(schedule: str, r: dict) -> str:
+    """The kills and re-hosts (failover), or the migrations and the kill's
+    abort (balance), of a report, as one line's words."""
+    if schedule == "failover":
+        kills = "; ".join(
+            f"{k['label']} ({k['pit']}, conn {k['conn_id']}, {len(k['owned_cells'])} cells) at "
+            f"{k['t']:g} s, re-hosted in {k['rehosted_in_s']} s" for k in r["kills"])
+        rehosts = "; ".join(
+            f"{e['pit']}: {len(e['rehosted'])}/{len(e['orphan_cells'])} cells to "
+            f"{sorted(set(e['rehosted'].values()))}, {e['entities_repointed']} entity channels "
+            f"re-pointed, {e['handovers_aborted']} handovers aborted"
+            for e in r["failover"]["events"])
+        return f"kills: {kills}; re-hosts: {rehosts}"
+    migs = ", ".join(f"#{e['migration_id']} cell {e['cell']} {e['from']}->{e['to']} "
+                     f"{e['result']} (epoch {e['epoch']}, ticks {e['planned_tick']}-"
+                     f"{e['resolved_tick']})" for e in r["balancer"]["events"])
+    return (f"migrations: {migs}; the kill: {r['kill']}; failover events "
+            f"{[(e['pit'], len(e['rehosted'])) for e in r['failover']['events']]}; steady loads "
+            f"{r['steady_state']['server_entities']} (imbalance "
+            f"{r['steady_state']['entity_imbalance']})")
+
+
+def loss_ledgers(schedule: str, r: dict) -> str:
+    """A report's ledgers, as one line's words."""
+    st = r["stats"]
+    if schedule == "failover":
+        return (f"failover ledger {r['failover']['ledger']}; journal {r['journal']['counts']} "
+                f"(in flight {r['journal']['in_flight']}); probes sent {st['probe_frames_sent']}, "
+                f"forwarded {st['probe_frames_forwarded']}, ownerless_drops_total "
+                f"{st['ownerless_drops']}; handovers {st['handovers_total']} "
+                f"({st['handovers_after_failover']} after the last re-host); client frames "
+                f"{st['client_frames_sent']}")
+    return (f"balancer ledger {r['balancer']['ledger']} (= balancer_migrations_total); failover "
+            f"ledger {r['failover']['ledger']}; journal {r['journal']['counts']} (in flight "
+            f"{r['journal']['in_flight']}); handovers {st['handovers_total']}; client frames "
+            f"{st['client_frames_sent']}")
+
+
+def loss_names(schedule: str, p: dict) -> tuple:
+    """The invariants the script checks at ``p``, in its order."""
+    if schedule == "failover":
+        return FAILOVER_INVARIANTS
+    if p["kill_mid_migration"]:
+        return BALANCE_INVARIANTS
+    return tuple(n for n in BALANCE_INVARIANTS
+                 if n not in ("kill_mid_migration_landed",
+                              "crash_mid_migration_aborts_to_old_owner"))
+
+
+def report_checks(label: str, schedule: str, r: dict, p: dict) -> None:
+    """Fail unless every invariant of the script holds on ``r``, all under
+    their names."""
+    checks = r["invariants"]["checks"]
+    for c in checks:
+        check(c["ok"], f"{label}: {c['name']}: {c['detail']}")
+    names = tuple(c["name"] for c in checks)
+    check(names == loss_names(schedule, p), f"{label}: the invariants checked were {names}")
+
+
+def phase_loss_lockstep(K, dev, cpu_leg: "CpuLeg") -> tuple:
+    """19a: both schedules through ``LossWorld`` on the card against their
+    lockstep CPU leg at the same size (``cpu_leg.size``) in ``cpu_leg``'s
+    child, tick for tick, each leg held to the scripts' invariants. Returns
+    ({schedule path: launches}, the kernels' entries on the named ticks)."""
+    P = gateway_modules()
+    size = cpu_leg.size
+    n_dev = size["n_dev"]
+    t_phase = time.perf_counter()
+    try:
+        card, rc = run_loss_lockstep(P, dev, size, K)
+        cpu, rp = cpu_leg.result()
+    finally:
+        cpu_leg.close()
+    launches, entries = {}, {}
+    for schedule in ("failover", "balance"):
+        label, p = f"19a {schedule}", size[schedule]["params"]
+        c, g, r = card[schedule], cpu[schedule], rc[schedule]
+        check(len(c) == len(g), f"{label}: {len(c)} card and {len(g)} cpu ticks")
+        for t in range(len(c)):
+            where = first_gateway_diff(c[t], g[t])
+            check(where is None, f"{label} tick {t}: cuda and cpu differ: {where}")
+        for key in ("kills", "failover", "balancer", "kill", "journal", "books", "steady_state"):
+            check(lockstep_part(r, key) == lockstep_part(rp[schedule], key),
+                  f"{label}: the legs' {key} differ: {str(r.get(key))[:200]} vs "
+                  f"{str(rp[schedule].get(key))[:200]}")
+        for leg, obs, rr in (("cuda", c, r), ("cpu", g, rp[schedule])):
+            report_checks(f"{label} {leg}", schedule, rr, p)
+            check({o["transfers"] for o in obs} == {2},
+                  f"{label} {leg}: engine transfers a tick {sorted({o['transfers'] for o in obs})}")
+        n = r["n_shards"]
+        for t, o in enumerate(c):
+            check(o["launches"] == {name: n for name in o["launches"]},
+                  f"{label} tick {t}: launches {o['launches']}, not {n} each (one per shard)")
+            check(o["reads"] == 2, f"{label} tick {t}: {o['reads']} device reads, not 2 (the "
+                                   f"consume blob and the query plane's changed rows)")
+        check(r["launches"] == {name: n * r["engine_ticks"] for name in r["launches"]}
+              and r["engine_ticks"] == len(c),
+              f"{label}: launches {r['launches']} in {r['engine_ticks']} engine ticks, "
+              f"{len(c)} GLOBAL ticks")
+        want = ({lbl for _, lbl, _ in c[-1]["ledgers"]["kills"]}
+                | {f"rehost{i}" for i in range(1, len(r["failover"]["events"]) + 1)}
+                | {f"{e['result']}{e['migration_id']}"
+                   for e in r.get("balancer", {}).get("events", [])})
+        check(set(r["kernels"]) == want,
+              f"{label}: K1/K2 held on {sorted(r['kernels'])}, not {sorted(want)}")
+        launches[f"{schedule}_lockstep"] = r["launches"]
+        ticks = len(c)
+        print(f"{label} lockstep: {ticks} GLOBAL ticks ({r['duration_s']:g} s of the fixed "
+              f"clock) of config/spatial_tpu_cells_2x2.json at MeshDevices {n_dev} with "
+              f"CellBucket {p['scenario']['config_overrides']['CellBucket']} "
+              f"({p['entity_capacity']} slots, {p['query_capacity']} query rows), "
+              f"{p['entities']} entities, {p['clients']} clients at {p['msg_rate']:g} msg/s, "
+              f"the script's pins and weather (fires {r['chaos']}); every invariant of the "
+              f"script held on both legs ({len(r['invariants']['checks'])}); cuda equals the "
+              f"CPU leg on every tick (handovers, tables, every outbound stream and the "
+              f"cell-authority messages apart, the failover and balancer ledgers and events, the "
+              f"kill timeline, the journal, the frozen and deferred crossings, the cells' owners, "
+              f"ownerless_drops_total); 2 device reads and 2 engine transfers a tick; "
+              f"{loss_timeline(schedule, r)}; {loss_ledgers(schedule, r)}; GLOBAL tick p99 "
+              f"{r['stats']['global_tick_p99_s']:.4f} s and tpu_spatial_step_seconds p99 "
+              f"{r['stats']['device_step_p99_s']:.4f} s on the fixed clock (its stalls), on "
+              f"the host's clock the tick {tick_stats([o['tick_ms'] for o in c[1:]])} and "
+              f"the device step {tick_stats(r['step_ms'][1:])} on cuda, the tick "
+              f"{tick_stats([o['tick_ms'] for o in g[1:]])} on the cpu; launches "
+              f"{r['launches']} in {r['engine_ticks']} engine ticks; card leg "
+              f"{r['secs']:.1f} s, cpu leg {rp[schedule]['secs']:.1f} s")
+        for case, ks in r["kernels"].items():
+            for name, k in ks.items():
+                entries.setdefault(name, {})[f"19a_{schedule}_{case}"] = k
+                print(f"{label} {name} on the {case} tick's live tensors ({k['shape']}): exact; "
+                      f"alone {k['ms']:.4f} ms (events, bare launches), plain "
+                      f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.6f} ms ({k['bound_by']})")
+    print(f"19a: phase {time.perf_counter() - t_phase:.1f} s (cpu leg "
+          f"{rp['failover']['secs'] + rp['balance']['secs']:.1f} s in a --cpu-leg child)")
+    return launches, entries
+
+
+def phase_loss_live(K, dev, n_dev: int, schedule: str, p: dict) -> dict:
+    """19b (failover) / 19c (balance): ``loss_live`` on the card, held to the
+    script's invariants under their names, to the keys check_artifacts
+    requires of its artifact, and to K1/K2 once per shard on every engine
+    tick."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    label = "19b" if schedule == "failover" else "19c"
+    P = gateway_modules()
+    scratch = tempfile.mkdtemp(prefix=f"{schedule}-live-")
+    t_phase = time.perf_counter()
+    try:
+        r = asyncio.run(loss_live(P, dev, schedule, p, scratch, n_dev, K))
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    report_checks(label, schedule, r, p)
+    check(artifact_keys_missing(r) == [], f"{label}: the artifact lacks "
+                                          f"{artifact_keys_missing(r)}")
+    phase_live_launches(r, n_dev, label)
+    st = r["stats"]
+    print(f"{label} {schedule} soak live: scripts/{schedule}_soak.py's run through the port's "
+          f"gateway at its defaults, timeline not cut ({r['phases']}), {p['clients']} clients at "
+          f"{p['msg_rate']:g} msg/s, {p['entities']} entities, MeshDevices {n_dev} with "
+          f"CellBucket {p['scenario']['config_overrides']['CellBucket']}, "
+          f"{p['entity_capacity']} slots / {p['query_capacity']} query rows, the engine on "
+          f"{r['engine']}; every invariant of the script held "
+          f"({len(r['invariants']['checks'])}) and check_artifacts' keys; chaos fires "
+          f"{r['chaos']}; {loss_timeline(schedule, r)}; {loss_ledgers(schedule, r)}; "
+          f"GLOBAL tick p99 "
+          f"{st['global_tick_p99_s']:.4f} s, tpu_spatial_step_seconds p99 "
+          f"{st['device_step_p99_s']:.4f} s; launches {r['launches']} in {r['engine_ticks']} "
+          f"engine ticks; soak {r['duration_s']} s; phase {time.perf_counter() - t_phase:.1f} s")
+    return r
+
+
+def phase_failover_balance(K, dev, cpu_leg: "CpuLeg") -> tuple:
+    """Phase 19: 19a (its CPU leg in ``cpu_leg``'s child, ``CpuLeg("19a")``),
+    then 19b and 19c at the scripts' defaults, on the cells world at
+    MeshDevices = min(cards, 8) and the gateway's tables. Returns ({path:
+    launches}, {kernel: {case: entry}})."""
+    n_dev = min(torch.cuda.device_count(), MESH_SHARDS)
+    t_phase = time.perf_counter()
+    launches, entries = phase_loss_lockstep(K, dev, cpu_leg)
+    failover = phase_loss_live(K, dev, n_dev, "failover", failover_params(**GATEWAY_CAPACITIES))
+    balance = phase_loss_live(K, dev, n_dev, "balance", balance_params(**GATEWAY_CAPACITIES))
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+    return (dict(launches, failover_live=failover["launches"], balance_live=balance["launches"]),
+            entries)
+
+
+def main_failover_balance() -> int:
+    """Phases 1-3 and then phase 19 alone: ``python3 chip_smoke.py
+    --failover-balance``."""
+    from channeld_tpu_torch.ops import cuda_kernels as K
+    from channeld_tpu_torch.ops import spatial_ops as ops
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t_run = time.perf_counter()
+    leg = None
+    try:
+        leg = CpuLeg("19a", failover=GATEWAY_CAPACITIES, balance=GATEWAY_CAPACITIES)
+        name, _ = phase_device()
+        phase_build(K)
+        phase_kernels(K, ops, dev)
+        phase_failover_balance(K, dev, leg)
+    except PhaseFailed as e:
+        report_failure(e)
+        return 1
+    finally:
+        if leg is not None:
+            leg.close()
+    print(f"chip_smoke --failover-balance: every phase passed in "
+          f"{time.perf_counter() - t_run:.1f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main_edge() -> int:
     """Phases 1-3, then phase 18: ``python3 chip_smoke.py --edge``."""
     from channeld_tpu_torch.ops import cuda_kernels as K
@@ -12315,6 +13554,8 @@ def main() -> int:
         return main_fleet_live()
     if sys.argv[1:2] == ["--edge"]:
         return main_edge()
+    if sys.argv[1:2] == ["--failover-balance"]:
+        return main_failover_balance()
     if sys.argv[1:2] == ["--sim-child"]:
         return sim_child(sys.argv[2], *map(int, sys.argv[3:5]), *sys.argv[5:6])
     t_run = time.perf_counter()
@@ -12335,7 +13576,7 @@ def main() -> int:
         # Each lockstep phase's CPU leg runs in a child started a phase or
         # more early, beside phases whose host is mostly idle: 6a's beside
         # phases 4-5, 10a's beside 8-9, 11a's and 11b's beside 10, 12b's
-        # beside 12a, 14a's beside 13, 16a's beside 15.
+        # beside 12a, 14a's beside 13, 16a's beside 15, 19a's beside 16-18.
         legs["gateway"] = CpuLeg("6a")
         launches = phase_main_path(K, service, dev)
         laps("4")
@@ -12378,12 +13619,15 @@ def main() -> int:
         legs["crash"] = CpuLeg("16a")
         fleet_launches, fleet_entries = phase_fleet(K, dev)
         laps("15")
+        legs["loss"] = CpuLeg("19a", failover=GATEWAY_CAPACITIES, balance=GATEWAY_CAPACITIES)
         crash_launches, crash_entries = phase_crash(K, dev, legs["crash"])
         laps("16")
         fleet_live_launches = phase_fleet_live(K, trace_live)
         laps("17")
         edge_launches = phase_edge_live(K)
         laps("18")
+        loss_launches, loss_entries = phase_failover_balance(K, dev, legs["loss"])
+        laps("19")
     except PhaseFailed as e:
         report_failure(e)
         return 1
@@ -12415,7 +13659,8 @@ def main() -> int:
                               **{path: n[spec.name] for path, n in crash_launches.items()},
                               **{path: n[spec.name]
                                  for path, n in fleet_live_launches.items()},
-                              **{path: n[spec.name] for path, n in edge_launches.items()}},
+                              **{path: n[spec.name] for path, n in edge_launches.items()},
+                              **{path: n[spec.name] for path, n in loss_launches.items()}},
             launches_by_path_notes={**{path: FLEET_LIVE_NOTE for path in fleet_live_launches},
                                     **{path: EDGE_NOTE for path in edge_launches}},
             library_ms=None, **entries[spec.name],
@@ -12431,6 +13676,7 @@ def main() -> int:
             chaos_overload_path=chaos_entries[spec.name],
             fleet_path=fleet_entries[spec.name],
             crash_path=crash_entries[spec.name],
+            failover_balance_path=loss_entries[spec.name],
         ))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": kernels}))
