@@ -15,6 +15,7 @@
     python3 chip_smoke.py --fleet-live         # phases 1-3, 13b and 13d, then phase 17
     python3 chip_smoke.py --edge               # phases 1-3, then phase 18
     python3 chip_smoke.py --failover-balance   # phases 1-3, then phase 19
+    python3 chip_smoke.py --graft-entry        # phases 1-3, then phase 20
 
 The script starts its own children (none needs a card but a ``--cpu-leg``
 child's CUDA sync counters; each loads neither JAX nor the JAX package). The
@@ -437,6 +438,20 @@ prints one line; any failure exits non-zero before the final line):
       BalanceSoakParams(), the kill mid-migration on, its 16 invariants and
       check_artifacts' keys; K1 and K2 once per shard on every engine tick
       of b and c.
+20. ``__graft_entry__.py``'s entry points through the port
+    (``channeld_tpu_torch/graft_entry.py``):
+   a. ``entry()``'s ``fn`` on its example (256 entities, 16 sphere queries,
+      64 subscriptions, 8x8 cells) on the card against the same call on
+      the CPU: every output equal exactly, K1 and K2 launched once each,
+      each held against its plain version on the step's tensors;
+   b. the same at the sidecar's scale (100,000 entities, 4,096 queries,
+      65,536 subscriptions, 15x15 cells);
+   c. ``dryrun_multichip(8)`` on the card (the cards present, repeated in
+      turn to 8 shards when fewer than 8: one card holds all 8): the
+      serving engine under the entities, entities-2D and cells shardings
+      equal to the single-device engine, the cell-sharded all_to_all
+      plane equal to the dense counts, and every tick's decisions equal to
+      ``dryrun_multichip(8, device="cpu")``.
 
 The line before the last is a JSON object with one entry per kernel
 (times measured in this run at the sidecar path's shapes; bound from
@@ -454,7 +469,8 @@ each re-grid of 11a and 11b, ``soak_path`` each at the live tensors of
 tick and its first tick at L2 or above in the saturation window,
 ``fleet_path`` at 15a's live tensors after the inbound herd and after the
 adoption, ``crash_path`` at 16a's, ``failover_balance_path`` at 19a's
-kill, re-host and migration ticks; the paths of phases 17 and 18 launch
+kill, re-host and migration ticks, ``graft_entry_path`` at 20a's and
+20b's step; the paths of phases 17 and 18 launch
 none, each noted in ``launches_by_path_notes``);
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -12616,14 +12632,16 @@ class LossWorld(LossWorldBase, GatewayWorld):
     outbound stream (the cell-authority messages digested apart), the
     failover, balancer and journal ledgers and events, the kill timeline,
     the frozen and deferred crossings, each cell's owner and
-    ``ownerless_drops_total``. With ``K`` on the card, K1 and K2 are held
-    against their plain versions on each kill tick's live tensors, the
-    first tick after each re-host, and each migration's resolving tick."""
+    ``ownerless_drops_total`` since the world was built. With ``K`` on the
+    card, K1 and K2 are held against their plain versions on each kill
+    tick's live tensors, the first tick after each re-host, and each
+    migration's resolving tick."""
 
     def __init__(self, P, dev: torch.device, clock, schedule: str, p: dict, config: str,
                  K=None):
         self.P, self.dev, self.clock, self.p, self.K = P, dev, clock, p, K
         reset_gateway(P)
+        self.drops0 = self.ownerless_total()  # the registry outlives the gateway's reset
         loss_pins(P, dev, p, balancer=schedule == "balance")
         P.message.init_message_map()
         P.channel.init_channels()
@@ -12699,9 +12717,13 @@ class LossWorld(LossWorldBase, GatewayWorld):
     def probe_received(self) -> int:
         return sum(c.probes for c in self.servers)
 
-    def ownerless_drops(self) -> int:
+    def ownerless_total(self) -> int:
         return int(sum(s.value for m in self.P.metrics.ownerless_drops.collect()
                        for s in m.samples if s.name.endswith("_total")))
+
+    def ownerless_drops(self) -> int:
+        """``ownerless_drops_total`` counted since the world was built."""
+        return self.ownerless_total() - self.drops0
 
     # ---- the ticks ----
 
@@ -13258,6 +13280,170 @@ def main_failover_balance() -> int:
     return 0
 
 
+# ---- phase 20: __graft_entry__.py's entry points ----------------------------
+
+# 20b: entry()'s example at the sidecar's scale (phase 4's world).
+GRAFT_SIDECAR = dict(n=100_000, q=4_096, s=65_536, cols=15, rows=15)
+GRAFT_SHARDS = 8  # __graft_entry__.dryrun_multichip(8), the multi-chip check of README.md
+
+
+def graft_cards(n: int) -> Optional[list]:
+    """20c's mesh devices: None (``mesh_devices``' ``n`` distinct cards) when
+    ``n`` cards are present, else the cards present repeated in turn to
+    ``n`` shards."""
+    present = torch.cuda.device_count()
+    return None if present >= n else [torch.device("cuda", i % present) for i in range(n)]
+
+
+def dryrun_launches(n: int) -> dict:
+    """The kernels' launches of ``dryrun_multichip(n)``: each of its 3 ticks
+    runs the single-device engine (K1, K2), the entities mesh (K1 per
+    shard, K2 once on the replica), for an even ``n`` the 2D mesh (the
+    same) and the cells serving mesh (K1 and K2 per shard); the
+    cell-sharded step then runs K1 once per shard."""
+    from channeld_tpu_torch.graft_entry import DRY_RUN_TICKS
+
+    meshes_k1 = (2 if n % 2 == 0 else 1) * n + n
+    meshes_k2 = (2 if n % 2 == 0 else 1) + n
+    ticks = len(DRY_RUN_TICKS)
+    return {"assign_count": ticks * (1 + meshes_k1) + n, "aoi": ticks * (1 + meshes_k2)}
+
+
+def phase_graft_step(K, dev, label: str, sizes: dict) -> tuple:
+    """20a / 20b: ``entry(**sizes)``'s ``fn`` on ``dev`` against the same call
+    on the CPU, every output equal exactly, K1 and K2 launched once each
+    from 0 and held against their plain versions on the step's tensors.
+    Returns (launches, {kernel: entry})."""
+    from channeld_tpu_torch import graft_entry as g
+    from channeld_tpu_torch.ops.spatial_ops import QuerySet
+
+    t_phase = time.perf_counter()
+    fn, args = g.entry(device=dev, **sizes)
+    cpu_fn, cpu_args = g.entry(device="cpu", **sizes)
+    for i, (a, b) in enumerate(zip(args[:-1], cpu_args[:-1])):
+        check(a.device.type == dev.type and torch.equal(a.cpu(), b),
+              f"{label}: example argument {i} differs between the card and the CPU")
+    K.reset_launch_counts()
+    sync(dev)
+    out = fn(*args)
+    sync(dev)
+    launches = K.launch_counts()
+    check(launches == {"assign_count": 1, "aoi": 1},
+          f"{label}: launches {launches}, not one of each kernel")
+    t0 = time.perf_counter()
+    want = cpu_fn(*cpu_args)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    check(set(out) == set(want), f"{label}: keys {sorted(out)} vs {sorted(want)}")
+    for key in want:
+        a, b = out[key], want[key]
+        check(a.device.type == dev.type and a.dtype == b.dtype and a.shape == b.shape
+              and torch.equal(a.cpu(), b), f"{label}: {key} differs between the card and the CPU")
+    grid = g._example_inputs(device="cpu", **sizes)[0]
+    kernels = soak_live_kernels(K, grid, args[0], args[2], QuerySet(*args[3:8]))
+    step_ms = uncounted(K, lambda: median_ms(lambda: fn(*args), reps=20, warmup=3))
+    # The step's device time alone: 20 steps queued behind a sleep (each
+    # is ~30 launches; CUDA's queue of pending launches holds ~1K).
+    device_ms = uncounted(K, lambda: queued_ms(lambda: fn(*args), reps=20))
+    n, q, s = args[0].shape[0], args[3].shape[0], args[8].shape[0]
+    print(f"{label} entry(): spatial_step on {n} entities, {q} sphere queries, {s} "
+          f"subscriptions, {grid.cols}x{grid.rows} cells, {g.MAX_HANDOVERS} handover rows at "
+          f"now_ms {args[-1]}: every output ({len(want)}) equal to the CPU run exactly; "
+          f"launches {launches}; {int(want['handover_count'])} handovers, "
+          f"{int(want['cell_counts'].sum())} placed, {int(want['interest'].sum())} interested "
+          f"pairs, {int(want['due'].sum())} due; step {step_ms:.4f} ms on the card (events, "
+          f"median of 20), {device_ms:.4f} ms of it the device's (20 steps queued), "
+          f"{cpu_ms:.1f} ms on the CPU (host clock, one call); "
+          + "; ".join(f"{name} on the step's tensors ({k['shape']}): exact; alone "
+                      f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, bound "
+                      f"{k['bound_ms']:.6f} ms ({k['bound_by']})" for name, k in kernels.items())
+          + f"; phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, {name: dict(k, step_ms=step_ms, step_device_ms=device_ms)
+                      for name, k in kernels.items()}
+
+
+def phase_graft_dryrun(K, n: int = GRAFT_SHARDS, devices=None) -> dict:
+    """20c: ``dryrun_multichip(n)`` on the card (``devices``, by default
+    ``graft_cards(n)``) passes its own checks, launches the kernels as its
+    meshes do (``dryrun_launches``) and equals ``dryrun_multichip(n,
+    device="cpu")`` on every tick of every sharding and on the cell-sharded
+    plane. Returns the launches."""
+    from channeld_tpu_torch import graft_entry as g
+
+    t_phase = time.perf_counter()
+    devices = graft_cards(n) if devices is None else devices
+    K.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        card = g.dryrun_multichip(n, devices=devices)
+        card_s = time.perf_counter() - t0
+        launches = K.launch_counts()
+        t0 = time.perf_counter()
+        cpu = g.dryrun_multichip(n, device="cpu")
+        cpu_s = time.perf_counter() - t0
+    except AssertionError as e:
+        raise PhaseFailed(f"20c: dryrun_multichip({n}): {e}") from e
+    want = dryrun_launches(n)
+    check(launches == want, f"20c: launches {launches}, not {want}")
+    labels = [label for label, _ in card["meshes"]]
+    check(labels == [label for label, _ in cpu["meshes"]],
+          f"20c: shardings {labels} vs {[label for label, _ in cpu['meshes']]}")
+    runs = [("single", card["single"], cpu["single"])] + [
+        (label, ticks, ref) for (label, ticks), (_, ref) in zip(card["meshes"], cpu["meshes"])]
+    for label, got, ref in runs:
+        check(len(got) == len(ref), f"20c {label}: {len(got)} card and {len(ref)} cpu ticks")
+        for t, (a, b) in enumerate(zip(got, ref)):
+            where = g.first_difference(a, b)
+            check(where is None, f"20c {label} tick {t}: {where} differs from the CPU run")
+    for key in ("counts", "dense"):
+        check(np.array_equal(card["cells_plane"][key], cpu["cells_plane"][key]),
+              f"20c: the cell-sharded plane's {key} differ from the CPU run")
+    used = devices or [torch.device("cuda", i) for i in range(n)]
+    print(f"20c dryrun_multichip({n}) on {len(set(used))} card(s) as {n} shards "
+          f"({', '.join(str(d) for d in used)}): its own checks held; every tick's decisions "
+          f"(cell counts, handovers, the interest of queries 1 and 3, due) of the single "
+          f"device and the {labels} shardings and the "
+          f"cell-sharded plane's counts equal to dryrun_multichip({n}, device='cpu'); "
+          f"{card['handovers']} handovers; launches {launches}; card run {card_s:.1f} s, "
+          f"cpu run {cpu_s:.1f} s; phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase_graft_entry(K, dev) -> tuple:
+    """Phase 20: 20a, 20b and 20c. Returns ({path: launches}, {kernel:
+    {case: entry}})."""
+    t_phase = time.perf_counter()
+    launches, cases_a = phase_graft_step(K, dev, "20a", {})
+    _, cases_b = phase_graft_step(K, dev, "20b", GRAFT_SIDECAR)
+    entries = {name: {"20a": cases_a[name], "20b": cases_b[name]} for name in cases_a}
+    dry = phase_graft_dryrun(K)
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+    return {"graft_entry": launches, "dryrun_multichip": dry}, entries
+
+
+def main_graft_entry() -> int:
+    """Phases 1-3 and then phase 20 alone: ``python3 chip_smoke.py
+    --graft-entry``."""
+    from channeld_tpu_torch.ops import cuda_kernels as K
+    from channeld_tpu_torch.ops import spatial_ops as ops
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t_run = time.perf_counter()
+    try:
+        name, _ = phase_device()
+        phase_build(K)
+        phase_kernels(K, ops, dev)
+        phase_graft_entry(K, dev)
+    except PhaseFailed as e:
+        report_failure(e)
+        return 1
+    print(f"chip_smoke --graft-entry: every phase passed in "
+          f"{time.perf_counter() - t_run:.1f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main_edge() -> int:
     """Phases 1-3, then phase 18: ``python3 chip_smoke.py --edge``."""
     from channeld_tpu_torch.ops import cuda_kernels as K
@@ -13556,6 +13742,8 @@ def main() -> int:
         return main_edge()
     if sys.argv[1:2] == ["--failover-balance"]:
         return main_failover_balance()
+    if sys.argv[1:2] == ["--graft-entry"]:
+        return main_graft_entry()
     if sys.argv[1:2] == ["--sim-child"]:
         return sim_child(sys.argv[2], *map(int, sys.argv[3:5]), *sys.argv[5:6])
     t_run = time.perf_counter()
@@ -13628,6 +13816,8 @@ def main() -> int:
         laps("18")
         loss_launches, loss_entries = phase_failover_balance(K, dev, legs["loss"])
         laps("19")
+        graft_launches, graft_entries = phase_graft_entry(K, dev)
+        laps("20")
     except PhaseFailed as e:
         report_failure(e)
         return 1
@@ -13660,7 +13850,8 @@ def main() -> int:
                               **{path: n[spec.name]
                                  for path, n in fleet_live_launches.items()},
                               **{path: n[spec.name] for path, n in edge_launches.items()},
-                              **{path: n[spec.name] for path, n in loss_launches.items()}},
+                              **{path: n[spec.name] for path, n in loss_launches.items()},
+                              **{path: n[spec.name] for path, n in graft_launches.items()}},
             launches_by_path_notes={**{path: FLEET_LIVE_NOTE for path in fleet_live_launches},
                                     **{path: EDGE_NOTE for path in edge_launches}},
             library_ms=None, **entries[spec.name],
@@ -13677,6 +13868,7 @@ def main() -> int:
             fleet_path=fleet_entries[spec.name],
             crash_path=crash_entries[spec.name],
             failover_balance_path=loss_entries[spec.name],
+            graft_entry_path=graft_entries[spec.name],
         ))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": kernels}))

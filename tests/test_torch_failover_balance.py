@@ -68,6 +68,10 @@ FAILOVER_SMOKE = dict(warmup_s=2.0, aftermath_s=4.0, quiesce_s=2.0, clients=6, e
 BALANCE_SMOKE = dict(warmup_s=1.5, hotspot_s=6.0, aftermath_s=2.0, quiesce_s=2.0, clients=6,
                      entities=96, msg_rate=15.0, kill_mid_migration=False, epoch_ticks=60,
                      cooldown_ticks=150, freeze_min_ticks=3)
+# What each package's ``ownerless_drops_total`` holds before a lockstep leg:
+# earlier tests in the same process leave counts behind, and unequal ones
+# catch a world that reads the registry's total instead of its own drops.
+DIRTY_DROPS = {JAX: 3, PORT: 7}
 # The invariants the live smokes leave unasserted: each failed in at least one
 # of 6 runs of the live cases beside other test files' live and lockstep cases
 # under ``-n 4`` / ``-n 6`` on a CPU box (and held in each run alone), where
@@ -106,8 +110,11 @@ def test_lockstep_equals_jax_tick_for_tick(schedule, tmp_path):
     the census and the steady-state loads. Both packages hold every
     invariant of the script under its name; the port moves two device
     tables to the host a tick (the consume blob and the query plane's
-    changed rows)."""
+    changed rows). Each package's registry starts dirty, by a different
+    count (``DIRTY_DROPS``)."""
     cs = chip_smoke()
+    for pkg, n in DIRTY_DROPS.items():
+        cs.gateway_modules(pkg).metrics.ownerless_drops.labels(channel_type="SPATIAL").inc(n)
     size = cs.loss_lockstep_size(str(tmp_path), n_dev=8, **LOCKSTEP)
     p, config = size[schedule]["params"], size[schedule]["config"]
     (want, wr), (got, gr) = (cs.run_loss_schedule(cs.gateway_modules(pkg), CPU, schedule, p,

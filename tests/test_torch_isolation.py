@@ -233,3 +233,22 @@ def test_the_device_controller_loads_torch():
     """The GPU controller (config/spatial_tpu_4x4.json) still loads torch,
     at its config's load, and builds its engine where it is told."""
     run_probe(DEVICE_GRID_PROBE, "DEVICE GRID")
+
+
+GRAFT_ENTRY_PROBE = r"""
+import sys
+import channeld_tpu_torch.graft_entry as g
+assert g.dryrun_multichip(2, device="cpu")["cells_plane"]["overflow"] == 0
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.")
+                or m == "channeld_tpu" or m.startswith("channeld_tpu."))
+assert not leaked, leaked
+print("GRAFT ENTRY")
+"""
+
+
+def test_the_graft_entry_loads_no_jax():
+    """``channeld_tpu_torch.graft_entry`` (the port's ``__graft_entry__.py``)
+    imports and runs its dry run on the CPU without loading ``jax`` or any
+    ``channeld_tpu`` module."""
+    run_probe(GRAFT_ENTRY_PROBE, "GRAFT ENTRY")
