@@ -457,8 +457,9 @@ class Channel:
                     )
         if now is None:
             now = self.get_time()
+        tick_start_ns = _trace.now()  # the tick span's start
         if tick_start is None:
-            tick_start = time.monotonic()
+            tick_start = tick_start_ns / 1e9
 
         # Spatial controller ticks with the GLOBAL channel only, to keep a
         # single writer (ref: channel.go:366-369).
@@ -488,7 +489,7 @@ class Channel:
         if _connection_mod is None:
             from . import connection as _connection_mod
         _connection_mod.flush_pending_ingest()
-        msg_start = time.monotonic_ns()
+        msg_start = _trace.now()
         had_msgs = bool(self.in_msg_queue)
         self._tick_messages(tick_start)
         if had_msgs:
@@ -501,13 +502,13 @@ class Channel:
             # channel_state records.
             if _wal.enabled and self.data is not None:
                 _wal.note_dirty(self.id)
-        fanout_start = time.monotonic()
+        fanout_start = _trace.now()
         tick_data(self, now)
         if self.subscribed_connections:
             metrics.fanout_decision_latency.labels(backend="host").observe(
-                time.monotonic() - fanout_start
+                time.monotonic() - fanout_start / 1e9
             )
-            _trace.stage("fanout", int(fanout_start * 1e9), lane=self.id)
+            _trace.stage("fanout", fanout_start, lane=self.id)
         self._tick_connections()
         self._tick_recoverable_subscriptions()
         # Per-tick budget accounting: observed here (not in the async
@@ -530,7 +531,7 @@ class Channel:
             if owner is not None:
                 _governor.note_server_cost(owner.id, elapsed)
         if self.channel_type == ChannelType.GLOBAL:
-            gov_start = time.monotonic_ns()
+            gov_start = _trace.now()
             _governor.update(self.tick_interval)
             _trace.stage("overload", gov_start, lane=self.id)
             if _slo.enabled:
@@ -552,7 +553,7 @@ class Channel:
             total = time.monotonic() - tick_start
             _trace.span(
                 f"tick.{self.channel_type.name}",
-                int(tick_start * 1e9), lane=self.id,
+                tick_start_ns, lane=self.id,
             )
             if self.tick_interval > 0 and total > self.tick_interval:
                 # A blown tick budget freezes the ring: the dump holds

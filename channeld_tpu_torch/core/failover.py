@@ -432,7 +432,10 @@ class FailoverPlane:
         from .channel import all_channels, get_channel
         from ..spatial.controller import get_spatial_controller
 
-        t0 = time.monotonic()
+        from .tracing import recorder as _trace
+
+        t0_ns = _trace.now()
+        t0 = t0_ns / 1e9
         st = global_settings
         ctl = get_spatial_controller()
         spatial_lo = st.spatial_channel_id_start
@@ -522,13 +525,11 @@ class FailoverPlane:
 
         elapsed_ms = (time.monotonic() - t0) * 1000.0
         metrics.failover_rehost_ms.observe(elapsed_ms)
-        from .tracing import recorder as _trace
-
         if _trace.enabled:
             # A failover epoch is a flight-recorder anomaly: the frozen
             # timeline holds the ticks around the loss plus this whole
             # re-host pass (its span lands just below).
-            _trace.span("failover.rehost", int(t0 * 1e9))
+            _trace.span("failover.rehost", t0_ns)
             _trace.note_anomaly(
                 "failover_epoch",
                 f"{data.pit}: {len(assignments)}/{len(orphan_cells)} "

@@ -24,6 +24,17 @@ both presuppose correlated, low-overhead telemetry):
   redirect carries its trace id over the trunk (``traceId`` on
   TrunkHandoverPrepare/Ack/StageRedirect), so one id stitches spans
   from both gateways' recorders into a single reconstructible trace.
+- **One clock.** ``now()`` (``time.monotonic_ns``) is the host clock
+  every span is stamped on: call sites take their start stamps from it,
+  never from a float ``time.monotonic()`` scaled to ns. On Linux it is
+  ``clock_gettime(CLOCK_MONOTONIC)``, the clock ``time.perf_counter()``
+  reads too; a reader on another clock converts through one paired
+  reading of both.
+- **Counts.** A span may carry one integer ``count`` (the updates an
+  ingest took, the bytes a flush uploaded), dumped as ``args.count``.
+- **Reading what is new.** ``mark()`` notes each ring's running count
+  of writes and ``since(mark)`` returns the spans written after it, in
+  O(new spans), leaving the rings and dumps as they are.
 - **Three exits**: ``dump_trace()`` writes Chrome/Perfetto
   ``trace_event`` JSON (open in ui.perfetto.dev or chrome://tracing —
   the same story as ``-profile tpu``); anomalies (tick-budget blow,
@@ -67,35 +78,52 @@ def new_trace_id(prefix: str = "") -> str:
 
 class _Ring:
     """Fixed-capacity span store for ONE writer thread. Overflow
-    overwrites the oldest entry and bumps ``dropped`` — the recorder
-    keeps the newest spans with exact drop accounting."""
+    overwrites the oldest entry; ``written`` counts every write, so the
+    drops (``dropped``) are exact — the recorder keeps the newest spans
+    with exact drop accounting."""
 
-    __slots__ = ("buf", "cap", "idx", "count", "dropped", "tid")
+    __slots__ = ("buf", "cap", "written", "tid")
 
     def __init__(self, cap: int, tid: int):
         self.cap = cap
         self.buf: list = [None] * cap
-        self.idx = 0  # next write position
-        self.count = 0  # live entries (<= cap)
-        self.dropped = 0  # entries overwritten by wrap
+        self.written = 0  # entries ever written; the next lands at written % cap
         self.tid = tid
 
+    @property
+    def count(self) -> int:
+        """Live entries (<= cap)."""
+        return min(self.written, self.cap)
+
+    @property
+    def dropped(self) -> int:
+        """Entries overwritten by wrap."""
+        return max(0, self.written - self.cap)
+
     def put(self, entry: tuple) -> None:
-        i = self.idx
-        # Entry lands BEFORE the count bump: a cross-thread snapshot
-        # reading buf[:count] must never see a not-yet-stored slot.
-        self.buf[i] = entry
-        if self.count == self.cap:
-            self.dropped += 1
-        else:
-            self.count += 1
-        self.idx = (i + 1) % self.cap
+        # Entry lands BEFORE the write count bump: a cross-thread
+        # snapshot reading buf[:count] must never see a not-yet-stored
+        # slot.
+        self.buf[self.written % self.cap] = entry
+        self.written += 1
 
     def snapshot(self) -> list:
         """Entries oldest-first (freeze-and-copy; O(cap))."""
-        if self.count < self.cap:
-            return [e for e in self.buf[: self.count]]
-        return self.buf[self.idx:] + self.buf[: self.idx]
+        return self.since(0)[0]
+
+    def since(self, written: int) -> tuple[list, int]:
+        """(entries written after the first ``written``, oldest-first;
+        how many of those the ring no longer holds). O(new entries)."""
+        end = self.written
+        if written > end:
+            written = 0  # a mark of the ring this one replaced
+        start = max(written, end - self.cap)
+        lo, hi = start % self.cap, end % self.cap
+        if end - start == self.cap or hi < lo:
+            out = self.buf[lo:] + self.buf[:hi]
+        else:
+            out = self.buf[lo:hi]
+        return out, start - written
 
 
 class FlightRecorder:
@@ -104,12 +132,14 @@ class FlightRecorder:
     Hot-path contract: call sites guard on ``recorder.enabled`` (one
     attribute load while disabled) and use ``now()`` + ``span()`` /
     ``stage()`` / ``instant()``. Entries are tuples
-    ``(kind, name, lane, start_ns, dur_ns, tick, trace_id)``.
+    ``(kind, name, lane, start_ns, dur_ns, tick, trace_id, count)``.
     """
 
     def __init__(self):
-        self._local = threading.local()
-        self._rings: dict[int, _Ring] = {}
+        # Each thread writes only its own ring (a thread-local attribute);
+        # the ring registry changes under its lock.
+        self._local = threading.local()  # tpulint: shared=atomic
+        self._rings: dict[int, _Ring] = {}  # tpulint: shared=lock
         self._rings_lock = threading.Lock()
         self.configure()
 
@@ -146,6 +176,7 @@ class FlightRecorder:
 
     @staticmethod
     def now() -> int:
+        """The recorder's clock, ns: every span's start and end."""
         return time.monotonic_ns()
 
     def _ring(self) -> _Ring:
@@ -159,16 +190,18 @@ class FlightRecorder:
 
     def span(self, name: str, start_ns: int, lane: int = 0,
              trace: Optional[str] = None,
-             end_ns: Optional[int] = None) -> None:
+             end_ns: Optional[int] = None,
+             count: Optional[int] = None) -> None:
         """Record one complete span that began at ``start_ns`` (from
-        :meth:`now`) and ends now (or at ``end_ns``)."""
+        :meth:`now`) and ends now (or at ``end_ns``), with an optional
+        integer ``count`` of what it handled."""
         if not self.enabled:
             return
         if end_ns is None:
             end_ns = time.monotonic_ns()
         self._ring().put((
             _COMPLETE, name, lane, start_ns, end_ns - start_ns,
-            self.tick, trace,
+            self.tick, trace, count,
         ))
 
     def instant(self, name: str, lane: int = 0,
@@ -177,6 +210,7 @@ class FlightRecorder:
             return
         self._ring().put((
             _INSTANT, name, lane, time.monotonic_ns(), 0, self.tick, trace,
+            None,
         ))
 
     def stage(self, stage: str, start_ns: int, lane: int = 0,
@@ -193,7 +227,7 @@ class FlightRecorder:
         if self.enabled:
             self._ring().put((
                 _COMPLETE, stage, lane, start_ns, end_ns - start_ns,
-                self.tick, trace,
+                self.tick, trace, None,
             ))
 
     def set_tick(self, tick: int) -> None:
@@ -227,19 +261,32 @@ class FlightRecorder:
         out: list[dict] = []
         for ring in rings:
             for e in ring.snapshot():
-                kind, name, lane, start_ns, dur_ns, tick, trace = e
-                if floor is not None and tick < floor:
+                if floor is not None and e[5] < floor:
                     continue
-                d = {
-                    "kind": kind, "name": name, "lane": lane,
-                    "start_ns": start_ns, "dur_ns": dur_ns, "tick": tick,
-                    "tid": ring.tid,
-                }
-                if trace is not None:
-                    d["trace"] = trace
-                out.append(d)
+                out.append(_span_dict(e, ring.tid))
         out.sort(key=lambda d: d["start_ns"])
         return out
+
+    def mark(self) -> dict[int, int]:
+        """{thread id: writes so far} of every ring, for :meth:`since`."""
+        with self._rings_lock:
+            return {tid: r.written for tid, r in self._rings.items()}
+
+    def since(self, mark: dict[int, int]) -> tuple[list[dict], int]:
+        """(span dicts written after ``mark``, as :meth:`snapshot` gives
+        them; how many of those the rings overwrote before this read).
+        O(new spans); the rings and dumps are left as they are. A ring
+        that ``mark`` does not name is read from its first write."""
+        with self._rings_lock:
+            rings = list(self._rings.values())
+        out: list[dict] = []
+        lost = 0
+        for ring in rings:
+            entries, gone = ring.since(mark.get(ring.tid, 0))
+            lost += gone
+            out.extend(_span_dict(e, ring.tid) for e in entries)
+        out.sort(key=lambda d: d["start_ns"])
+        return out, lost
 
     # ---- dumps -----------------------------------------------------------
 
@@ -282,6 +329,8 @@ class FlightRecorder:
                 ev["s"] = "t"  # instant scope: thread
             if "trace" in s:
                 ev["args"]["trace"] = s["trace"]
+            if "count" in s:
+                ev["args"]["count"] = s["count"]
             events.append(ev)
         with self._rings_lock:
             # The anomaly path calls this from its off-thread writer; a
@@ -371,6 +420,21 @@ class FlightRecorder:
         threading.Thread(target=_write, daemon=True,
                          name=f"trace-dump-{trigger}").start()
         return path
+
+
+def _span_dict(entry: tuple, tid: int) -> dict:
+    """One ring entry as the span dict :meth:`FlightRecorder.snapshot`
+    returns (``trace`` and ``count`` only where set)."""
+    kind, name, lane, start_ns, dur_ns, tick, trace, count = entry
+    d = {
+        "kind": kind, "name": name, "lane": lane,
+        "start_ns": start_ns, "dur_ns": dur_ns, "tick": tick, "tid": tid,
+    }
+    if trace is not None:
+        d["trace"] = trace
+    if count is not None:
+        d["count"] = count
+    return d
 
 
 # Cached per-stage histogram children (label resolution is dict work;

@@ -32,6 +32,15 @@ plane (``seed_agents`` … ``sim_warmup``: agents in ordinary entity
 slots, stepped on the device before the spatial pass), and the recovery
 surface (``rebuild_device_state``, ``apply_grid``,
 ``verify_device_state``, ``corrupt_device_state_for_chaos``).
+
+With the flight recorder on (``core/tracing.py``), a tick records
+``engine.tick`` around ``engine.flush`` (its ``count``: the bytes of the
+host arrays the flush copied to the device), ``engine.sim_step``,
+``engine.spatial_step`` and ``engine.query_diff``; the host's reads
+record ``engine.read.consume``, ``engine.read.interest_rows`` and
+``engine.read.changed_rows``, and ``engine.handover_list`` and
+``engine.absorb_census`` their host work (doc/observability.md). Off,
+each site costs one attribute load.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from typing import Collection, Optional
 import numpy as np
 import torch
 
+from ..core.tracing import recorder as _trace
 from ..utils.devices import resolve_device
 from ..utils.logger import get_logger
 from .spatial_ops import (
@@ -123,6 +133,9 @@ class SpatialEngine:
         self.query_capacity = query_capacity
         self.sub_capacity = sub_capacity
         self.max_handovers = max_handovers
+        # Host bytes ever copied to the device (``_upload``, row indices);
+        # the loop blocks on the worker, so the increments never overlap.
+        self.h2d_bytes = 0  # tpulint: shared=atomic
 
         # Host mirrors (numpy) + dirty staging.
         self._positions = np.zeros((entity_capacity, 3), np.float32)
@@ -465,10 +478,13 @@ class SpatialEngine:
         this call the host shadow is bit-identical to the device for
         every agent row, which is what makes the next rebuild/verify
         exact."""
+        t0 = _trace.now() if _trace.enabled else 0
         self._positions[slots] = positions[slots]
         self._vel[slots] = vel[slots]
         self._sim_state[slots] = state[slots]
         self._sim_target[slots] = target[slots]
+        if t0:
+            _trace.span("engine.absorb_census", t0)
 
     def set_flee_cells(self, cells) -> None:
         """Install the danger mask driving FLEE: an iterable of cell
@@ -528,13 +544,20 @@ class SpatialEngine:
         """A device copy of a host array. torch.tensor copies, so later
         host writes never reach it (on the CPU, from_numpy would share
         the buffer)."""
+        self.h2d_bytes += arr.nbytes
         return torch.tensor(arr, device=self.device)
+
+    def _index_upload(self, idx: np.ndarray) -> torch.Tensor:
+        """The device copy of a fresh host row index (shared, not copied,
+        on the CPU: nothing writes the index again)."""
+        self.h2d_bytes += idx.nbytes
+        return torch.from_numpy(idx).to(self.device)
 
     def _stage_rows(self, rows: Collection[int]) -> tuple[np.ndarray, torch.Tensor]:
         """The dirty ``rows`` as a host index and its device copy, for
         ``index_copy_`` row scatters."""
         idx = np.fromiter(rows, np.int64, len(rows))
-        return idx, torch.from_numpy(idx).to(self.device)
+        return idx, self._index_upload(idx)
 
     # Entity columns are one tensor, or with a mesh one tensor per shard
     # (shard s holds slots [s * size, (s + 1) * size) on its device):
@@ -553,7 +576,7 @@ class SpatialEngine:
         per column, aligned with ``idx``), uploaded where they will be
         stored: [(shard or None, device index, [rows])]."""
         if self._mesh is None:
-            d_idx = torch.from_numpy(idx).to(self.device)
+            d_idx = self._index_upload(idx)
             return [(None, d_idx, [self._upload(v) for v in values])]
         # One upload per column, rows ordered by shard, then split on the
         # device (a view, or a device-to-device copy to another card).
@@ -561,7 +584,7 @@ class SpatialEngine:
         order = np.argsort(idx // size, kind="stable")
         shard_of = idx[order] // size
         counts = np.bincount(shard_of, minlength=self._mesh.size).tolist()
-        local = torch.from_numpy(idx[order] - shard_of * size).to(self.device)
+        local = self._index_upload(idx[order] - shard_of * size)
         columns = [self._upload(v[order]) for v in values]
         staged = []
         for s, parts in enumerate(zip(local.split(counts), *(c.split(counts) for c in columns))):
@@ -723,11 +746,15 @@ class SpatialEngine:
     def tick(self, now_ms: Optional[int] = None) -> dict:
         """Run one device decision pass; returns the step's tensors (on
         the engine's device) under the JAX step's keys."""
+        t_tick = _trace.now() if _trace.enabled else 0
         if now_ms is None:
             now_ms = self.now_ms()
         gen = self.generation
+        sent = self.h2d_bytes if t_tick else 0
         # The flush carries the fence too (see _flush_host_state).
         self._flush_host_state(expect_generation=gen)
+        if t_tick:
+            _trace.span("engine.flush", t_tick, count=self.h2d_bytes - sent)
         # Sim pass first (device to device): agents advance, then the
         # spatial pass reads the moved positions — crossings, AOI,
         # standing queries and fan-out all see them this very tick, with
@@ -740,13 +767,17 @@ class SpatialEngine:
             flee = self._d_flee
             if flee is None:
                 flee = torch.zeros(num_cells(self.grid), dtype=torch.bool, device=self.device)
+            t0 = _trace.now() if _trace.enabled else 0
             sim_committed = sim_step(
                 self.grid, positions, self._d_vel, self._d_sim_state,
                 self._d_sim_target, self._d_agent, flee, self.sim_params,
                 self.sim_seed, self.sim_tick,
             )
+            if t0:
+                _trace.span("engine.sim_step", t0)
             positions = sim_committed[0]
             census_due = self.sim_census_due
+        t0 = _trace.now() if _trace.enabled else 0
         if self._mesh is not None:
             out = self._mesh_tick(now_ms)
         else:
@@ -760,6 +791,8 @@ class SpatialEngine:
                 self.max_handovers,
                 int(now_ms),
             )
+        if t0:
+            _trace.span("engine.spatial_step", t0)
         q_prev = None
         if self.track_query_changes:
             prev = self._d_q_prev
@@ -770,9 +803,12 @@ class SpatialEngine:
                 # committed only after the generation check).
                 _, d_idx = self._stage_rows(self._q_prev_reset_rows)
                 prev = (prev[0].index_fill(0, d_idx, False), prev[1].index_fill(0, d_idx, 0))
+            t0 = _trace.now() if _trace.enabled else 0
             q_blob, q_prev_i, q_prev_d = diff_query_masks(
                 prev[0], prev[1], out["interest"], out["dist"], self.query_rows_max,
             )
+            if t0:
+                _trace.span("engine.query_diff", t0)
             out["query_blob"] = q_blob
             out["query_epoch"] = self.query_epoch
             q_prev = (q_prev_i, q_prev_d)
@@ -814,6 +850,8 @@ class SpatialEngine:
             self._d_q_prev = q_prev
             self._q_prev_reset_rows.clear()
         self.last_result = out
+        if t_tick:
+            _trace.span("engine.tick", t_tick)
         return out
 
     def _mesh_step_fn(self):
@@ -886,7 +924,10 @@ class SpatialEngine:
         for ``undelivered_slots``."""
         parsed = result.get("consume_host")
         if parsed is None:
+            t0 = _trace.now() if _trace.enabled else 0
             blob = result["consume"].cpu().numpy()
+            if t0:
+                _trace.span("engine.read.consume", t0)
             if self._mesh is None:
                 parsed = parse_consume_blob(
                     blob, min(self.max_handovers, self.entity_capacity),
@@ -914,21 +955,29 @@ class SpatialEngine:
         permanently lost handover. Counts beyond the row budget
         re-detect next tick."""
         count, rows, _, _ = self.consume(result)
+        t0 = _trace.now() if _trace.enabled else 0
         rows = rows[: min(count, len(rows))]
-        return [
+        out = [
             (int(self._entity_of_slot[slot]), int(src), int(dst))
             for slot, src, dst in rows
             if slot >= 0
         ]
+        if t0:
+            _trace.span("engine.handover_list", t0)
+        return out
 
     def interest_rows(self, result: dict, q_rows) -> np.ndarray:
         """i32[len(q_rows), C]: each query row's damping distance where
         it is interested, -1 where it is not. The rows are gathered on
         the device and copied to the host in one transfer."""
+        t0 = _trace.now() if _trace.enabled else 0
         idx = torch.as_tensor(np.asarray(q_rows, np.int64), device=self.device)
         interest = result["interest"].index_select(0, idx)
         dist = result["dist"].index_select(0, idx)
-        return torch.where(interest, dist, -1).cpu().numpy()
+        rows = torch.where(interest, dist, -1).cpu().numpy()
+        if t0:
+            _trace.span("engine.read.interest_rows", t0)
+        return rows
 
     def interested_cells(self, result: dict, conn_id: int) -> dict[int, int]:
         """{cell_index: grid_distance} for one connection's query."""
@@ -964,7 +1013,10 @@ class SpatialEngine:
         if blob is None:
             return 0, np.zeros((0, 3), np.int32)
         if isinstance(blob, torch.Tensor):
+            t0 = _trace.now() if _trace.enabled else 0
             blob = blob.cpu().numpy()
+            if t0:
+                _trace.span("engine.read.changed_rows", t0)
             result["query_blob"] = blob
         return parse_query_blob(blob)
 

@@ -29,6 +29,13 @@ sidecar does. ``grpc`` and
 ``service_pb2`` (protobuf) are imported lazily, inside this module only,
 so ``channeld_tpu_torch.ops`` imports without them; ``install`` and
 ``decide`` drive the same decision pass in-process without either.
+
+With the flight recorder on (``core/tracing.py``), the unary Step
+records ``sidecar.step`` around its stages: ``sidecar.ingest`` (its
+``count``: the request's updates plus removals), ``sidecar.edits``, the
+engine's spans, ``sidecar.interest``, ``sidecar.due`` and
+``sidecar.respond`` (doc/observability.md). ``main`` dumps the ring on
+SIGUSR2 and at exit.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 
+from ..core.tracing import recorder as _trace
 from ..utils.devices import resolve_device
 from ..utils.logger import get_logger
 from .spatial_ops import AOI_SPOTS, GridSpec
@@ -250,6 +258,7 @@ class SpatialDecisionServicer:
         return state
 
     def step(self, request, context):
+        t0 = _trace.now() if _trace.enabled else 0
         self._check_auth(context)
         state = self._current_state(context)
         # One dirty set per unary caller: the x-chtpu-caller metadata if
@@ -258,11 +267,15 @@ class SpatialDecisionServicer:
         caller = ("unary", meta.get(CALLER_METADATA_KEY) or context.peer())
         try:
             with state.lock:
-                return self._do_step(state, request, caller)
+                resp = self._do_step(state, request, caller)
         except _StepValidationError as e:
             import grpc
 
             context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
+            return None
+        if t0:
+            _trace.span("sidecar.step", t0)
+        return resp
 
     def step_stream(self, request_iterator, context):
         """One response per request; same semantics as Step, except a
@@ -294,6 +307,7 @@ class SpatialDecisionServicer:
     def _do_step(self, state: _EngineState, request, caller: object,
                  pinned: bool = False):
         d = self._decide(state, request, caller, pinned)
+        t0 = _trace.now() if _trace.enabled else 0
         resp = _pb().StepResponse(engineNowMs=d.now_ms)
         resp.handoverCount = d.handover_count
         for entity_id, src, dst in d.handovers:
@@ -304,16 +318,23 @@ class SpatialDecisionServicer:
             ir.cells.extend(cells.tolist())
             ir.dists.extend(dists.tolist())
         resp.dueSubIds.extend(d.due_sub_ids)
+        if t0:
+            _trace.span("sidecar.respond", t0)
         return resp
 
     def _decide(self, state: _EngineState, request, caller: object,
                 pinned: bool = False) -> StepDecision:
         eng = state.engine
         dirty = state.dirty_for(caller, pinned=pinned)
+        t0 = _trace.now() if _trace.enabled else 0
         for up in request.updates:
             eng.update_entity(up.entityId, up.x, up.y, up.z)
         for eid in request.removedEntityIds:
             eng.remove_entity(eid)
+        if t0:
+            _trace.span("sidecar.ingest", t0, count=len(request.updates)
+                        + len(request.removedEntityIds))
+            t0 = _trace.now()
         for q in request.queries:
             if q.kind == AOI_SPOTS:
                 if len(q.spotX) != len(q.spotZ):
@@ -346,6 +367,8 @@ class SpatialDecisionServicer:
             slot = sub_map.pop(sub_id, None)
             if slot is not None:
                 eng.remove_subscription(slot)
+        if t0:
+            _trace.span("sidecar.edits", t0)
 
         now_ms = request.nowMs or eng.now_ms()
         result = eng.tick(now_ms)
@@ -355,6 +378,7 @@ class SpatialDecisionServicer:
         # Delta interest: AOI masks are a pure function of query geometry,
         # so only changed queries need transfer — step cost is flat in
         # the standing query population.
+        t0 = _trace.now() if _trace.enabled else 0
         if request.fullInterest:
             report_conns = list(eng._q_of_conn.keys())
         else:
@@ -368,12 +392,17 @@ class SpatialDecisionServicer:
                 interests.append((conn_id, cells.astype(np.uint32),
                                   drow[cells].astype(np.uint32)))
         dirty.clear()
+        if t0:
+            _trace.span("sidecar.interest", t0)
+            t0 = _trace.now()
         slot_to_sub = {slot: sub_id for sub_id, slot in sub_map.items()}
         due_ids = []
         for slot in np.nonzero(due)[0]:
             sub_id = slot_to_sub.get(int(slot))
             if sub_id is not None:
                 due_ids.append(sub_id)
+        if t0:
+            _trace.span("sidecar.due", t0)
         return StepDecision(now_ms, count, handovers, counts, interests, due_ids)
 
 
@@ -522,6 +551,12 @@ def main() -> None:
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default) or 'cpu'")
     args = p.parse_args()
+    from ..core import tracing
+
+    # The flight recorder's operator exits, as the gateway has them:
+    # SIGUSR2 dumps the ring as Perfetto JSON, and so does the exit.
+    tracing.install_trace_dump_signal()
+    tracing.register_shutdown_dump()
     server, _, bound = create_server(args.port, auth_token=args.auth_token,
                                      device=args.device)
     server.start()

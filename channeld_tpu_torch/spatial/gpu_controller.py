@@ -718,9 +718,9 @@ class GPUSpatialController(StaticGrid2DSpatialController):
         # live-gateway host cost); the per-follower diff runs on host
         # slices. follower_readbacks now counts BATCHED transfers — one
         # per pass, not one per follower.
-        rb0 = _time.monotonic_ns()
+        rb0 = _trace.now()
         desired_all = self.engine.interested_cells_batch(result, live)
-        readback_ns = _time.monotonic_ns() - rb0
+        readback_ns = _trace.now() - rb0
         metrics.follower_readbacks.inc()
         _trace.stage("readback", rb0, end_ns=rb0 + readback_ns)
         for conn_id in live:
@@ -748,7 +748,8 @@ class GPUSpatialController(StaticGrid2DSpatialController):
 
         import time as _time
 
-        t0 = _time.monotonic()
+        t0_ns = _trace.now()
+        t0 = t0_ns / 1e9
         if _chaos.armed:
             # Chaos: a slow device dispatch (compilation hiccup, busy
             # chip, thermal step-down). The tick must absorb it —
@@ -778,7 +779,7 @@ class GPUSpatialController(StaticGrid2DSpatialController):
         metrics.tpu_step_latency.observe(_time.monotonic() - t0)
         # Same window as tpu_step_latency: dispatch + device step + the
         # handover-list readback.
-        _trace.stage("device_step", int(t0 * 1e9))
+        _trace.stage("device_step", t0_ns)
         metrics.tpu_entities.set(self.engine.entity_count())
         if "overflow" in result:
             # Cells-plane bucket overflow: the undelivered entities stay
@@ -887,10 +888,10 @@ class GPUSpatialController(StaticGrid2DSpatialController):
             else:
                 batch = list(pending.values())
                 pending.clear()
-            t_ho = _time.monotonic()
+            t_ho_ns = _trace.now()
             StaticGrid2DSpatialController.notify_crossings(self, batch)
-            _governor.note_handover_cost(_time.monotonic() - t_ho)
-            _trace.stage("handover", int(t_ho * 1e9))
+            _governor.note_handover_cost(_time.monotonic() - t_ho_ns / 1e9)
+            _trace.stage("handover", t_ho_ns)
         if self.queryplane is not None:
             # Standing-query plane (doc/query_engine.md): ONE changed-
             # rows consume per tick, apply O(changed). The CONSUME always
@@ -900,7 +901,7 @@ class GPUSpatialController(StaticGrid2DSpatialController):
             # ticks, halving standing-query cadence exactly as the
             # legacy follower path halves.
             defer = _governor.level >= 2 and not self._follow_skip
-            t_fi = _time.monotonic()
+            t_fi_ns = _trace.now()
             if defer:
                 self._follow_skip = True
                 # An empty registry sheds nothing — a zero count would
@@ -914,8 +915,8 @@ class GPUSpatialController(StaticGrid2DSpatialController):
                 self._follow_skip = False
                 self._recenter_followers()
             self.queryplane.pump(result, apply=not defer)
-            cost = _time.monotonic() - t_fi
-            _trace.stage("query_plane", int(t_fi * 1e9))
+            cost = _time.monotonic() - t_fi_ns / 1e9
+            _trace.stage("query_plane", t_fi_ns)
             # Same pressure-signal input the legacy follower pass fed:
             # the plane's host cost is the follower cost now.
             metrics.follower_interest_ms.observe(cost * 1000.0)
@@ -930,10 +931,10 @@ class GPUSpatialController(StaticGrid2DSpatialController):
                 )
             else:
                 self._follow_skip = False
-                t_fi = _time.monotonic()
+                t_fi_ns = _trace.now()
                 self._apply_follow_interests(result)
-                cost = _time.monotonic() - t_fi
-                _trace.stage("follow_interests", int(t_fi * 1e9))
+                cost = _time.monotonic() - t_fi_ns / 1e9
+                _trace.stage("follow_interests", t_fi_ns)
                 # The previously-unmeasured host cost inside the GLOBAL
                 # tick budget (VERDICT weak #5): now a first-class
                 # histogram and a pressure-signal input.

@@ -6062,6 +6062,32 @@ def stage_counts(P) -> dict:
             for s in m.samples if s.name == "tick_stage_ms_count"}
 
 
+# Spans the port's engine records and the JAX engine does not
+# (channeld_tpu_torch/ops/engine.py): a lockstep against JAX compares the
+# other span names and counts these on their own.
+PORT_ONLY_SPANS = frozenset((
+    "engine.tick", "engine.flush", "engine.sim_step", "engine.spatial_step",
+    "engine.query_diff", "engine.read.consume", "engine.read.interest_rows",
+    "engine.read.changed_rows", "engine.handover_list", "engine.absorb_census"))
+
+
+# 13a's port-only spans a tick (the legacy follower path: the consume blob
+# and one interest_rows read a tick); tick 0 also holds the controller's
+# warm-up tick (engine.tick, engine.flush, engine.spatial_step).
+TRACE_TICK_PORT_SPANS = {"engine.flush": 1, "engine.handover_list": 1, "engine.read.consume": 1,
+                         "engine.read.interest_rows": 1, "engine.spatial_step": 1,
+                         "engine.tick": 1}
+
+
+def trace_port_spans_wrong(obs: list) -> list:
+    """[(tick, port-only span counts)] of 13a's port ticks whose engine spans
+    are not TRACE_TICK_PORT_SPANS (tick 0: plus the warm-up tick's three)."""
+    warm = ("engine.flush", "engine.spatial_step", "engine.tick")
+    first = {k: v + (k in warm) for k, v in TRACE_TICK_PORT_SPANS.items()}
+    return [(t, o["port_spans"]) for t, o in enumerate(obs)
+            if o["port_spans"] != (first if t == 0 else TRACE_TICK_PORT_SPANS)]
+
+
 def spans_of_tick(recorder, tick: int) -> dict:
     """{span name: count} of the spans the recorder holds stamped ``tick``."""
     with recorder._rings_lock:
@@ -6237,11 +6263,13 @@ class TraceWorld(GatewayWorld):
         for cid in self.spatial:
             tables.update(chans[cid].get_data_message().SerializeToString(deterministic=True))
         after = stage_counts(P)
+        spans = spans_of_tick(rec, rec.tick - 1)
         obs = dict(
             handovers=[r for rows in self.handovers[crossings:] for r in rows],
             tables=tables.hexdigest(),
             sent={c.id: (c.count, c.digest.hexdigest()) for c in self.conns},
-            spans=spans_of_tick(rec, rec.tick - 1),
+            spans={k: v for k, v in spans.items() if k not in PORT_ONLY_SPANS},
+            port_spans={k: v for k, v in spans.items() if k in PORT_ONLY_SPANS},
             stages={k: v - stages.get(k, 0) for k, v in after.items() if v != stages.get(k, 0)},
             readbacks=int(P.metrics.follower_readbacks._value.get() - readbacks),
             anomalies=[(a["trigger"], a["detail"], a["tick"]) for a in rec.anomalies[anomalies:]],
@@ -7046,6 +7074,8 @@ def phase_trace_lockstep(K, dev, scn: dict, n_dev: int) -> tuple:
     for leg, obs in (("cuda", card), ("cpu", cpu)):
         check({o["transfers"] for o in obs} == {2}, f"13a {leg}: engine transfers a tick "
                                                     f"{sorted({o['transfers'] for o in obs})}")
+        wrong = trace_port_spans_wrong(obs)
+        check(not wrong, f"13a {leg}: engine spans {wrong[:2]}")
         check({o["readbacks"] for o in obs} == {1}, f"13a {leg}: follower_readbacks_total a tick "
                                                     f"{sorted({o['readbacks'] for o in obs})}")
     fires = rc["fires"]

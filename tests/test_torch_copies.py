@@ -36,6 +36,9 @@ EDITED = {
     "core/data.py": "an update a custom merge took from another message family enters the "
                     "update ring as the channel's own type (F20)",
     "core/opshttp.py": "readiness says a terminal FAILED needs a restart, not a rebuild",
+    "core/tracing.py": "a span's count, reading the spans written since a mark, one clock stated",
+    "core/channel.py": "the recorder's stamps come from recorder.now(), not a scaled float",
+    "core/failover.py": "the rehost span's stamp comes from recorder.now(), not a scaled float",
     "sim/plane.py": "census columns arrive as tensors when the guard is off; a census "
                     "replayed after activation replaces the live population (F22)",
     "sim/authority.py": "reset_pending: a census taken into the live plane drops the attach "

@@ -43,8 +43,9 @@ from test_torch_gateway import JAX, PORT, fresh_runtime, port_globals
 
 PKGS = (JAX, PORT)
 CPU = torch.device("cpu")
-# Host timings and the port's own transfer counts: not part of what both compute.
-UNCOMPARED = ("tick_ms", "step_ms", "reads", "transfers")
+# Host timings and the port's own transfer counts and engine spans: not part
+# of what both compute (the engine spans are held on their own below).
+UNCOMPARED = ("tick_ms", "step_ms", "reads", "transfers", "port_spans")
 LOCKSTEP = dict(ticks=40, entities=60, followers=2, clients=6, storm=20)
 TRACE_SMOKE = dict(live_s=6.0, clients=6, msg_rate=25, entities=60, followers=2, storm_size=20,
                    quiesce_s=2.0, overhead_ticks=40, overhead_rounds=2)
@@ -120,11 +121,16 @@ def test_trace_lockstep_dumps_are_perfetto_valid_with_the_device_step(lockstep):
 def test_trace_lockstep_port_reads_and_stages(lockstep):
     """The port's legacy follower path: two engine transfers a tick (the
     consume blob and one interest_rows for the followers), one
-    follower_readbacks_total a tick, and every stage of the GLOBAL tick
-    measured (ingest needs sockets: 13b)."""
+    follower_readbacks_total a tick, every stage of the GLOBAL tick
+    measured (ingest needs sockets: 13b), and the port-only engine spans
+    exactly: one engine.tick, flush, spatial step, consume read, interest
+    rows read and handover list a tick (tick 0 also the warm-up tick's),
+    none in the JAX leg."""
     cs = chip_smoke()
     got, _ = lockstep[PORT]
     assert {o["transfers"] for o in got} == {2}
+    assert cs.trace_port_spans_wrong(got) == []
+    assert all(o["port_spans"] == {} for o in lockstep[JAX][0])
     assert {o["readbacks"] for o in got} == {1}
     stages: dict = {}
     for o in got:
