@@ -1,13 +1,19 @@
 """Native runtime components.
 
 ``_codec``: the C++ framing + snappy codec of ``codec.cc``, built with
-g++ at first import into ``build/channeld_tpu_torch/`` at the repository
-root (``build_codec``; cached by a hash of the source, the flags and the
-Python ABI, one build across concurrent processes). Import ``codec``
-from here: it is None when the extension cannot be built or loaded (no
-g++, no libsnappy.so.1, no Python headers), the reason is logged once,
-and callers fall back to the pure-Python path in protocol/framing.py,
-as the JAX package's callers do when its codec is not built.
+g++ at first use of ``codec`` into ``build/channeld_tpu_torch/`` at the
+repository root (``build_codec``; cached by a hash of the source, the
+flags and the Python ABI, one build across concurrent processes). Import
+``codec`` from here: it is None when the extension cannot be built or
+loaded (no g++, no libsnappy.so.1, no Python headers), the reason is
+logged once, and callers fall back to the pure-Python path in
+protocol/framing.py, as the JAX package's callers do when its codec is
+not built.
+
+``step_columns.cc``: a StepRequest's position updates decoded from its
+wire bytes into two columns, for the sidecar's ingest
+(``load_step_columns``; plain C, loaded with ctypes, so it needs neither
+snappy nor Python headers).
 
 ``kcp_peer.cc``: a standalone KCP wire peer for interop tests, built by
 ``build_kcp_peer``.
@@ -15,7 +21,9 @@ as the JAX package's callers do when its codec is not built.
 
 from __future__ import annotations
 
+import ctypes
 import fcntl
+import functools
 import hashlib
 import importlib.machinery
 import importlib.util
@@ -23,6 +31,8 @@ import os
 import subprocess
 import sysconfig
 from pathlib import Path
+
+import numpy as np
 
 from ..utils.logger import get_logger
 
@@ -67,6 +77,42 @@ def build_kcp_peer() -> Path:
     return _build("kcp_peer.cc", "kcp_peer", "", PEER_FLAGS)
 
 
+def build_step_columns() -> Path:
+    """The shared library built from ``step_columns.cc`` (see ``_build``),
+    with the codec's flags and no include path or library."""
+    return _build("step_columns.cc", "step_columns", ".so", CODEC_FLAGS)
+
+
+@functools.cache
+def load_step_columns():
+    """The decoder of ``step_columns.cc``, built and loaded once per
+    process: ``decode(buf, cap)`` returns ``(ids u32[k], xyz f32[k, 3])``
+    for the position updates of a serialized StepRequest, or None when
+    the bytes are malformed or hold more than ``cap`` updates. None in
+    place of the decoder when the library cannot be built or loaded (the
+    reason is logged)."""
+    try:
+        lib = ctypes.CDLL(str(build_step_columns()))
+    except (OSError, RuntimeError) as e:
+        get_logger("native").warning(
+            "step columns not built (%s); the sidecar reads its updates field by field", e)
+        return None
+    fn = lib.chtpu_step_columns
+    fn.argtypes = (ctypes.c_char_p, ctypes.c_uint64, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int64)
+    fn.restype = ctypes.c_int64
+
+    def decode(buf: bytes, cap: int):
+        ids = np.empty(cap, np.uint32)
+        xyz = np.empty((cap, 3), np.float32)
+        k = fn(buf, len(buf), ids.ctypes.data, xyz.ctypes.data, cap)
+        if k < 0:
+            return None
+        return ids[:k], xyz[:k]
+
+    return decode
+
+
 def _load_codec():
     try:
         path = build_codec()
@@ -82,6 +128,14 @@ def _load_codec():
         return None
 
 
-codec = _load_codec()
+def __getattr__(name: str):
+    # ``codec`` is built at its first use, so that importing this package
+    # for another of its libraries costs no codec build.
+    if name == "codec":
+        global codec
+        codec = _load_codec()
+        return codec
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
-__all__ = ["codec", "build_codec", "build_kcp_peer"]
+
+__all__ = ["codec", "build_codec", "build_kcp_peer", "build_step_columns", "load_step_columns"]

@@ -45,6 +45,7 @@ each site costs one attribute load.
 
 from __future__ import annotations
 
+import itertools
 import math
 import threading
 import time
@@ -284,6 +285,43 @@ class SpatialEngine:
             return
         self._positions[slot] = (x, y, z)
         self._dirty_slots.add(slot)
+
+    def update_entities(self, ids: np.ndarray, xyz: np.ndarray) -> None:
+        """``update_entity(ids[i], *xyz[i])`` for each i in order, as one
+        batch: ``ids`` u32[k], ``xyz`` f32[k, 3]. Unknown ids join through
+        ``add_entity`` in the order they first appear, and an id given
+        twice keeps its last position. When the unknown ids outnumber the
+        free slots, the updates run one by one, so capacity runs out at the
+        same update, leaving the same state, as the per-entity calls do."""
+        k = len(ids)
+        if not k:
+            return
+        id_list = ids.tolist()
+        # The map's own slot objects: the dirty set then shares them with
+        # the map, and the flush's clear frees none of them.
+        slot_list = list(map(self._slot_of_entity.get, id_list, itertools.repeat(-1)))
+        slots = np.fromiter(slot_list, np.int64, k)
+        unknown = np.flatnonzero(slots < 0)
+        if unknown.size:
+            new_ids = ids[unknown].tolist()
+            joining = dict.fromkeys(new_ids)  # first-appearance order
+            if len(joining) > len(self._free):
+                for eid, row in zip(id_list, xyz):
+                    self.update_entity(eid, *row)
+                return
+            for eid in joining:
+                joining[eid] = self.add_entity(eid, 0.0, 0.0, 0.0)
+            slots[unknown] = [joining[e] for e in new_ids]
+        if np.bincount(slots).max() > 1:
+            # NumPy leaves the order of repeated stores open: keep each
+            # slot's last row explicitly.
+            _, first_from_end = np.unique(slots[::-1], return_index=True)
+            rows = k - 1 - first_from_end
+            slots, xyz = slots[rows], xyz[rows]
+        self._positions[slots] = xyz
+        self._dirty_slots.update(slot_list)
+        if unknown.size:
+            self._dirty_slots.discard(-1)  # the joiners' slots came in through add_entity
 
     def remove_entity(self, entity_id: int) -> None:
         slot = self._slot_of_entity.pop(entity_id, None)

@@ -30,6 +30,13 @@ sidecar does. ``grpc`` and
 so ``channeld_tpu_torch.ops`` imports without them; ``install`` and
 ``decide`` drive the same decision pass in-process without either.
 
+Ingest: a request's position updates become two columns, ids and xyz,
+applied in one ``SpatialEngine.update_entities`` call. A protobuf
+request's columns are decoded from its bytes in one native pass
+(``native/step_columns.cc``, built at ``install``); a request of plain
+objects, or any request on a host where the decoder cannot be built, has
+its fields read in Python (``_update_columns``).
+
 With the flight recorder on (``core/tracing.py``), the unary Step
 records ``sidecar.step`` around its stages: ``sidecar.ingest`` (its
 ``count``: the request's updates plus removals), ``sidecar.edits``, the
@@ -154,6 +161,15 @@ class _EngineState:
             dirty.discard(conn_id)
 
 
+def _update_columns(updates, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """The ``n`` position updates as (ids u32[n], xyz f32[n, 3]), read
+    field by field: the ingest's columns when there are no wire bytes to
+    decode, or no decoder."""
+    ids = np.fromiter((u.entityId for u in updates), np.uint32, n)
+    xyz = np.fromiter((v for u in updates for v in (u.x, u.y, u.z)), np.float32, 3 * n)
+    return ids, xyz.reshape(n, 3)
+
+
 class SpatialDecisionServicer:
     def __init__(self, auth_token: Optional[str] = None, device=None):
         """``device``: where every configured engine runs; ``cuda`` by
@@ -165,6 +181,9 @@ class SpatialDecisionServicer:
         # own lock so Configure never queues behind a slow device step.
         self._swap_lock = threading.Lock()
         self._state: Optional[_EngineState] = None
+        # The decoder of a request's position updates (native
+        # step_columns), loaded at install; None: read in Python.
+        self._step_columns = None
 
     @property
     def engine(self):
@@ -193,6 +212,7 @@ class SpatialDecisionServicer:
         """Build and swap in a fresh engine for a ConfigRequest (or any
         object with its fields). Raises _ConfigError for a mesh the
         devices present cannot hold."""
+        from ..native import load_step_columns
         from ..parallel.mesh import mesh_from_config
         from .engine import SpatialEngine
 
@@ -218,6 +238,7 @@ class SpatialDecisionServicer:
         )
         # Builds the kernels on CUDA, so the first Step does not pay nvcc.
         engine.warmup()
+        self._step_columns = load_step_columns()  # g++ here, not in a Step
         with self._swap_lock:
             self._state = _EngineState(engine)
         logger.info(
@@ -327,13 +348,19 @@ class SpatialDecisionServicer:
         eng = state.engine
         dirty = state.dirty_for(caller, pinned=pinned)
         t0 = _trace.now() if _trace.enabled else 0
-        for up in request.updates:
-            eng.update_entity(up.entityId, up.x, up.y, up.z)
+        updates = request.updates
+        n = len(updates)
+        columns = None
+        if n and self._step_columns is not None and hasattr(request, "SerializeToString"):
+            # A protobuf request: its updates as columns, from its bytes.
+            columns = self._step_columns(request.SerializeToString(), n)
+        if columns is None:
+            columns = _update_columns(updates, n)
+        eng.update_entities(*columns)
         for eid in request.removedEntityIds:
             eng.remove_entity(eid)
         if t0:
-            _trace.span("sidecar.ingest", t0, count=len(request.updates)
-                        + len(request.removedEntityIds))
+            _trace.span("sidecar.ingest", t0, count=n + len(request.removedEntityIds))
             t0 = _trace.now()
         for q in request.queries:
             if q.kind == AOI_SPOTS:

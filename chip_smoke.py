@@ -1033,8 +1033,30 @@ def same_decision(a, b) -> list[str]:
     return diffs
 
 
+def as_step_request(req):
+    """A ``Load.request`` as a protobuf StepRequest, whose updates the
+    sidecar decodes from its bytes; the request itself when protobuf is
+    not installed."""
+    if not importlib.util.find_spec("google.protobuf"):
+        return req
+    from channeld_tpu_torch.ops.service_pb2 import StepRequest
+
+    pb = StepRequest(nowMs=req.nowMs, removedEntityIds=req.removedEntityIds,
+                     removedQueryConnIds=req.removedQueryConnIds,
+                     removeSubIds=req.removeSubIds, fullInterest=req.fullInterest)
+    for u in req.updates:
+        pb.updates.add(entityId=u.entityId, x=u.x, y=u.y, z=u.z)
+    for q in req.queries:
+        pb.queries.add(**vars(q))
+    for sub in req.addSubscriptions:
+        pb.addSubscriptions.add(**vars(sub))
+    return pb
+
+
 def phase_main_path(K, service, dev, steps: int = 30) -> dict:
-    """The sidecar's decision pass on the card against the CPU port."""
+    """The sidecar's decision pass on the card against the CPU port. The
+    card reads each update's fields; the CPU port gets the same requests
+    as protobuf messages, so it decodes their bytes."""
     gpu = service.SpatialDecisionServicer(device=dev)
     cpu = service.SpatialDecisionServicer(device="cpu")
     gpu.install(config_request())
@@ -1068,7 +1090,7 @@ def phase_main_path(K, service, dev, steps: int = 30) -> dict:
     # The CPU reference run is outside the counted window.
     load = Load(np.random.default_rng(SEED + 1))
     for step in range(steps):
-        d_cpu = cpu.decide(load.request(step))
+        d_cpu = cpu.decide(as_step_request(load.request(step)))
         d_gpu = decisions[step]
         diffs = same_decision(d_gpu, d_cpu)
         check(not diffs, f"step {step}: cuda and cpu decisions differ: {diffs}")

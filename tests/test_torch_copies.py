@@ -53,7 +53,8 @@ EDITED = {
     "parallel/mesh.py": "the entity-sharded step over a list of torch devices (ported)",
     "parallel/spatial_alltoall.py": "the cell-sharded planes over a list of torch devices (ported)",
     "replay/harness.py": "its result also counts the connections dialed and authenticated",
-    "native/__init__.py": "builds _codec from the port's codec.cc at first import, logs why not",
+    "native/__init__.py": "builds _codec from the port's codec.cc at first use, logs why not; "
+                          "builds and loads step_columns.cc, the sidecar's update decoder",
     "analysis/__init__.py": "the port's tpulint: its driver, gate and baseline",
     "analysis/engine.py": "scans channeld_tpu_torch and chip_smoke.py; the port's baseline file",
     "analysis/threadmodel.py": "the port's module paths and GPUSpatialController",
